@@ -1,0 +1,41 @@
+"""repro_torch: the STI-KNN valuation system in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+A port of the JAX package `repro`, which stays the reference. Module paths
+mirror it (`repro_torch.kernels.sti_fill` is the counterpart of
+`repro.kernels.sti_fill`); this package imports neither `jax` nor `repro`.
+
+    from repro_torch import get_method
+    result = get_method("sti")(x_train, y_train, x_test, y_test, k=5)
+
+Entry points run on the card (`device="cuda"`) unless the caller passes
+`device="cpu"`, which runs every kernel's plain PyTorch version.
+"""
+
+from repro_torch.core import (
+    ENGINES,
+    ValuationMethod,
+    ValuationResult,
+    analysis,
+    get_method,
+    list_methods,
+    register_method,
+    sti_knn_interactions,
+)
+
+# Importing the kernels package registers the CUDA fill ("cuda") in the
+# core fill registries; it builds nothing.
+from repro_torch.kernels import ops as _ops  # noqa: F401
+from repro_torch.kernels.sti_pipeline import fused_sti_knn_interactions
+
+__all__ = [
+    "sti_knn_interactions",
+    "fused_sti_knn_interactions",
+    "analysis",
+    "ENGINES",
+    "ValuationResult",
+    "ValuationMethod",
+    "register_method",
+    "get_method",
+    "list_methods",
+]

@@ -1,0 +1,43 @@
+"""Core valuation math, results and the method registry of the port."""
+
+from repro_torch.core.sti_knn import (
+    accumulate_fill,
+    pairwise_sq_dists,
+    ranks_from_distances,
+    ranks_from_order,
+    register_acc_fill_fn,
+    register_fill_fn,
+    resolve_fill,
+    sti_knn_interactions,
+    sti_knn_matrix_one_test,
+    superdiagonal_g,
+)
+from repro_torch.core import analysis
+from repro_torch.core.results import ValuationResult
+from repro_torch.core.methods import (
+    ENGINES,
+    ValuationMethod,
+    get_method,
+    list_methods,
+    register_method,
+)
+
+__all__ = [
+    "sti_knn_interactions",
+    "sti_knn_matrix_one_test",
+    "superdiagonal_g",
+    "pairwise_sq_dists",
+    "ranks_from_distances",
+    "ranks_from_order",
+    "register_fill_fn",
+    "register_acc_fill_fn",
+    "accumulate_fill",
+    "resolve_fill",
+    "analysis",
+    "ValuationResult",
+    "ValuationMethod",
+    "ENGINES",
+    "register_method",
+    "get_method",
+    "list_methods",
+]

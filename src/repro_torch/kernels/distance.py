@@ -1,0 +1,82 @@
+"""Squared-L2 distance kernel: the CUDA counterpart of
+`repro.kernels.distance.distance_pallas`.
+
+`distance_cuda(x_test, x_train)` -> (t, n) f32 squared distances
+||a||^2 - 2 a.b + ||b||^2, clamped at 0, with f32 accumulation for f32 or
+bf16 inputs. On CUDA tensors it launches the kernel of
+`csrc/distance.cu` (a tiled product on the CUDA cores, no TF32, with the
+norm epilogue fused into the store); on CPU tensors it takes
+`distance_plain`, the same expansion in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.sti_knn import pairwise_sq_dists
+from repro_torch.kernels.build import library
+
+__all__ = ["distance_plain", "distance_cuda"]
+
+_DTYPES = {torch.float32: "sq_dist_f32", torch.bfloat16: "sq_dist_bf16"}
+
+
+# The plain version is the core expansion, the same one the fused step's
+# "plain" distance runs: ||a||^2 - 2 a.b + ||b||^2 in f32, clamped at 0.
+distance_plain = pairwise_sq_dists
+
+
+def _check(x_test: torch.Tensor, x_train: torch.Tensor) -> None:
+    if x_test.device != x_train.device:
+        raise ValueError(
+            f"x_test on {x_test.device} but x_train on {x_train.device}"
+        )
+    if x_test.ndim != 2 or x_train.ndim != 2:
+        raise ValueError("features must be (num_points, dim)")
+    if x_test.shape[1] != x_train.shape[1]:
+        raise ValueError(
+            f"feature dims differ: {x_test.shape[1]} vs {x_train.shape[1]}"
+        )
+    if x_test.dtype != x_train.dtype or x_test.dtype not in _DTYPES:
+        raise TypeError(
+            f"distance_cuda takes two float32 or two bfloat16 tensors, got "
+            f"{x_test.dtype} and {x_train.dtype}"
+        )
+    if not (x_test.is_contiguous() and x_train.is_contiguous()):
+        raise ValueError("distance_cuda needs contiguous row-major inputs")
+
+
+def distance_cuda(x_test: torch.Tensor, x_train: torch.Tensor
+                  ) -> torch.Tensor:
+    """(t, d), (n, d) -> (t, n) f32 squared distances.
+
+    CPU tensors take `distance_plain`; CUDA tensors launch the kernel
+    (or raise). `distance_cuda.launches` counts kernel launches."""
+    if x_test.device.type == "cpu" and x_train.device.type == "cpu":
+        return distance_plain(x_test, x_train)
+    _check(x_test, x_train)
+    t, d = x_test.shape
+    n = x_train.shape[0]
+    dev = x_test.device
+    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    if t == 0 or n == 0:
+        return out
+    nt = torch.empty((t,), dtype=torch.float32, device=dev)
+    nn = torch.empty((n,), dtype=torch.float32, device=dev)
+    fn = getattr(library("distance"), _DTYPES[x_test.dtype])
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(x_test.data_ptr(), x_train.data_ptr(), nt.data_ptr(),
+                nn.data_ptr(), out.data_ptr(), t, n, d,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"distance kernel launch failed: CUDA error {rc}")
+    distance_cuda.launches += 1
+    return out
+
+
+distance_cuda.launches = 0
