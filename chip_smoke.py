@@ -4,16 +4,25 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
-`src/repro_torch/csrc/`, holds each kernel against its plain PyTorch
-version on the card, checks sti/sii against the O(2^n) oracle through the
-kernels, and drives the main path -- `get_method("sti")` on the fused
-engine -- at the full width of the paper configuration
-(`configs/sti_knn_paper.py`: n = 65536, d = 768, k = 5) with t = 384 test
-points (one full batch of 256 and one ragged batch padded to 256). Every
-phase fails the run with a non-zero exit. It imports nothing of JAX or of
-the JAX package. The line before the last is one JSON object describing
-each kernel (launches on the main path, error against the plain version,
-kernel / plain / bound / library times); the last line is
+`src/repro_torch/csrc/` (one nvcc per source, all at once), holds each
+kernel against its plain PyTorch version on the card, checks every method
+against the O(2^n) oracle through the kernels, and drives three paths at
+the full width of the paper configuration (`configs/sti_knn_paper.py`:
+n = 65536, d = 768, k = 5) with t = 384 test points (one full batch of
+256 and one ragged batch padded to 256):
+
+  [4] `get_method("sti")` on the fused engine: the three-stage step, the
+      distance and fill kernels;
+  [5] the same with `fill="megakernel"`: one launch of the fused
+      megakernel per step, its phi held against [4]'s;
+  [6] `ValuationSession(mode=m, fill="megakernel")` for each per-point
+      method m, held against the three-stage step.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after. Every phase fails the run with a non-zero exit. It imports nothing
+of JAX or of the JAX package. The line before the last is one JSON object
+describing each kernel (launches on its path, error against the plain
+version, kernel / plain / bound / library times); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -92,6 +101,28 @@ def fill_bound_ms(t, n) -> tuple[float, str]:
         "operations"
 
 
+def sti_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
+    # x_train, the batch and the labels read once, acc read and written
+    # once; the distance's 2 t n d f32 operations and the fill's (see
+    # fill_bound_ms) run on the same f32 pipes, so their times add. The
+    # sort and the tables are O(t n) and left out (~0.01 ms here).
+    nbytes = 2 * n * n * 4 + (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
+    by_ops = (2.0 * t * n * d / F32_FLOP_PER_S
+              + (3.0 * t * n * (n + 1) / 2 + float(n) * n) / SIMPLE_OPS_PER_S)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
+        "operations"
+
+
+def point_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
+    # x_train and the batch read once, vec read and written once
+    nbytes = (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
+    by_ops, by_bytes = 2.0 * t * n * d / F32_FLOP_PER_S, \
+        nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
+        "operations"
+
+
 def main() -> None:
     import torch
 
@@ -110,9 +141,11 @@ def main() -> None:
 
     import numpy as np
 
-    from repro_torch import get_method
+    from repro_torch import ValuationSession, get_method
     from repro_torch.configs.sti_knn_paper import CONFIG
-    from repro_torch.core.sti_baseline import brute_force_sii, brute_force_sti
+    from repro_torch.core.sti_baseline import (
+        brute_force_shapley, brute_force_sii, brute_force_sti,
+        brute_force_wknn_shapley)
     from repro_torch.core.sti_knn import (
         ranks_from_distances, ranks_from_order, superdiagonal_g)
     from repro_torch.data import flip_labels, make_gaussian_blobs
@@ -120,8 +153,12 @@ def main() -> None:
     from repro_torch.kernels.distance import distance_cuda, distance_plain
     from repro_torch.kernels.sti_fill import (
         sti_fill_acc_cuda, sti_fill_acc_plain, sti_fill_cuda, sti_fill_plain)
+    from repro_torch.kernels.sti_megakernel import (
+        megakernel_rank_phase_cuda, megakernel_rank_phase_plain,
+        point_megakernel_cuda, point_megakernel_plain, sti_megakernel_cuda,
+        sti_megakernel_plain)
     from repro_torch.kernels.sti_pipeline import (
-        pad_test_batch, prepare_fused_step)
+        pad_test_batch, prepare_fused_step, stream_point_values)
 
     # ---------------------------------------------------- 1. build, device
     smi = subprocess.run(
@@ -255,6 +292,180 @@ def main() -> None:
     del acc_k, g, ranks
     torch.cuda.empty_cache()
 
+    # ------------------------------- 2b. the megakernels vs plain on the card
+    # Integer features: their distances are exact in the kernel and in the
+    # plain version's cuBLAS product alike, so the ranks -- ties included,
+    # and at d = 768 in [-8, 8] ties are common -- must agree and only the
+    # order of float sums differs (the kernel's suffix scans run in another
+    # order than torch.cumsum). State starts at zero, so what is compared is
+    # the step's own increment, held to 1e-6 of its largest |value|
+    # (rounding only). On continuous data the two products round
+    # differently and may swap near-equal neighbours; paths [5] and [6]
+    # hold the kernels there against the three-stage step, whose distance
+    # kernel gives the same bits.
+    mk_tol = 1e-6
+
+    def mk_problem(t, n, d, real, lo=-8, hi=8):
+        xb = torch.randint(lo, hi + 1, (t, d), generator=gen,
+                           device=dev).float()
+        xs = torch.randint(lo, hi + 1, (n, d), generator=gen,
+                           device=dev).float()
+        yb = torch.randint(0, 3, (t,), generator=gen, device=dev)
+        ys = torch.randint(0, 3, (n,), generator=gen, device=dev)
+        mask = (torch.arange(t, device=dev) < real).float()
+        return xb, yb, mask, xs, ys
+
+    point_cases = (("knn_shapley", None), ("wknn", {"weights": "rbf"}),
+                   ("wknn", {"weights": "inverse"}), ("loo", None))
+
+    def hold(label, got, want):
+        """Fail unless each kernel output agrees with the plain one to
+        mk_tol of its largest |value|; returns the largest error."""
+        torch.cuda.synchronize()
+        errs = []
+        for g_, w_ in zip(got, want):
+            err = max_abs_diff(torch, g_.reshape(g_.shape[0], -1),
+                               w_.reshape(w_.shape[0], -1))
+            scale = max(max_abs(torch, w_.reshape(w_.shape[0], -1)), 1e-30)
+            log(f"[2b] {label}: max_abs_err {err:.3e} (max |ref| "
+                f"{scale:.3e}, tol {mk_tol:g} of it)")
+            if not err <= mk_tol * scale:
+                fail(f"{label}: kernel disagrees with plain: {err} > "
+                     f"{mk_tol} * {scale}")
+            errs.append(err)
+        return max(errs)
+
+    def zeros_state(nr, n):
+        return (torch.zeros((nr, n), device=dev),
+                torch.zeros((nr,), device=dev))
+
+    for (t, n, d, real) in ((tb, 8192, d_full, tb), (33, 65, 7, 20)):
+        xb, yb, mask, xs, ys = mk_problem(t, n, d, real)
+        for mode in ("sti", "sii"):
+            for cd in ("float32", "bfloat16"):
+                kw = dict(k=k, mode=mode, compute_dtype=cd)
+                got = sti_megakernel_cuda(*zeros_state(n, n), xb, yb, mask,
+                                          xs, ys, **kw)
+                want = sti_megakernel_plain(*zeros_state(n, n), xb, yb, mask,
+                                            xs, ys, **kw)
+                hold(f"sti_megakernel {mode} {cd} ({t}, {n}, {d})", got,
+                     want)
+                del got, want
+        off, nr = (n // 3, n // 4)
+        got = sti_megakernel_cuda(*zeros_state(nr, n), xb, yb, mask, xs, ys,
+                                  k=k, row_offset=off)
+        want = sti_megakernel_plain(*zeros_state(nr, n), xb, yb, mask, xs,
+                                    ys, k=k, row_offset=off)
+        hold(f"sti_megakernel rows [{off}, {off + nr}) ({t}, {n}, {d})", got,
+             want)
+        for method, opts in point_cases:
+            kw = dict(method=method, k=k, opts=opts)
+            got = point_megakernel_cuda(torch.zeros((n,), device=dev), xb, yb,
+                                        mask, xs, ys, **kw)
+            want = point_megakernel_plain(torch.zeros((n,), device=dev), xb,
+                                          yb, mask, xs, ys, **kw)
+            hold(f"point_megakernel {method} {opts or ''} ({t}, {n}, {d})",
+                 (got,), (want,))
+        del xb, yb, mask, xs, ys, got, want
+
+    # the main path's shape, (t, n, d) = (256, 65536, 768): one call of each
+    # kernel and of its plain version, from zero; the plain call is timed
+    xb, yb, mask, xs, ys = mk_problem(tb, n_full, d_full, tb)
+    mk_kw = dict(k=k, mode=CONFIG.mode)
+    acc_k, diag_k = sti_megakernel_cuda(*zeros_state(n_full, n_full), xb, yb,
+                                        mask, xs, ys, **mk_kw)
+    acc_p, diag_p = zeros_state(n_full, n_full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sti_megakernel_plain(acc_p, diag_p, xb, yb, mask, xs, ys, **mk_kw)
+    torch.cuda.synchronize()
+    sti_mk_plain_ms = 1e3 * (time.perf_counter() - t0)
+    sti_mk_err = hold(
+        f"sti_megakernel {CONFIG.mode} float32 ({tb}, {n_full}, {d_full})",
+        (acc_k, diag_k), (acc_p, diag_p))
+    del acc_p, diag_p
+    torch.cuda.empty_cache()
+    sti_mk_ms = cuda_ms(torch, lambda: sti_megakernel_cuda(
+        acc_k, diag_k, xb, yb, mask, xs, ys, **mk_kw), reps=3)
+    del acc_k, diag_k
+    torch.cuda.empty_cache()
+    bound, by = sti_megakernel_bound_ms(tb, n_full, d_full)
+    entries["sti_megakernel"] = dict(
+        name="sti_megakernel", route="cuda",
+        source="src/repro_torch/csrc/sti_megakernel.cu",
+        replaces="src/repro/kernels/sti_megakernel.py:360",
+        max_abs_err=sti_mk_err, ms=sti_mk_ms, plain_ms=sti_mk_plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"t={tb} n={n_full} d={d_full} {CONFIG.mode}",
+    )
+    log(f"[2b] sti_megakernel step (t={tb}, n={n_full}, d={d_full}): kernel "
+        f"{sti_mk_ms:.2f} ms, plain {sti_mk_plain_ms:.1f} ms (one call), "
+        f"bound {bound:.2f} ms ({by}); no single PyTorch call computes it")
+    pt_err = 0.0
+    for method, opts in point_cases:
+        kw = dict(method=method, k=k, opts=opts)
+        got = point_megakernel_cuda(torch.zeros((n_full,), device=dev), xb,
+                                    yb, mask, xs, ys, **kw)
+        want = point_megakernel_plain(torch.zeros((n_full,), device=dev), xb,
+                                      yb, mask, xs, ys, **kw)
+        pt_err = max(pt_err, hold(
+            f"point_megakernel {method} {opts or ''} ({tb}, {n_full}, "
+            f"{d_full})", (got,), (want,)))
+    vec_m = torch.zeros((n_full,), device=dev)
+    pt_kw = dict(method="knn_shapley", k=k)
+    pt_ms = cuda_ms(torch, lambda: point_megakernel_cuda(
+        vec_m, xb, yb, mask, xs, ys, **pt_kw), reps=10)
+    pt_plain_ms = cuda_ms(torch, lambda: point_megakernel_plain(
+        vec_m, xb, yb, mask, xs, ys, **pt_kw), reps=10)
+    bound, by = point_megakernel_bound_ms(tb, n_full, d_full)
+    entries["point_megakernel"] = dict(
+        name="point_megakernel", route="cuda",
+        source="src/repro_torch/csrc/sti_megakernel.cu",
+        replaces="src/repro/kernels/sti_megakernel.py:429",
+        max_abs_err=pt_err, ms=pt_ms, plain_ms=pt_plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"t={tb} n={n_full} d={d_full} knn_shapley",
+    )
+    log(f"[2b] point_megakernel step (knn_shapley, t={tb}, n={n_full}, "
+        f"d={d_full}): kernel {pt_ms:.3f} ms, plain {pt_plain_ms:.3f} ms, "
+        f"bound {bound:.3f} ms ({by}); no single PyTorch call computes it")
+    del xb, yb, mask, xs, ys, got, want, vec_m
+    torch.cuda.empty_cache()
+    # the rank phase is a stable sort: bit-equal to torch.sort(stable=True)
+    # of distance_cuda's d2 on tie-heavy features, and bf16 on integer
+    # features gives the f32 bits
+    for lo, hi in ((-2, 2), (-8, 8)):
+        xb, _, _, xs, _ = mk_problem(tb, 8192, d_full, tb, lo, hi)
+        want = torch.sort(distance_cuda(xb, xs), dim=-1, stable=True)
+        for cd in ("float32", "bfloat16"):
+            d2s, order = megakernel_rank_phase_cuda(xb, xs, compute_dtype=cd)
+            torch.cuda.synchronize()
+            if not (torch.equal(order, want.indices)
+                    and torch.equal(d2s, want.values)):
+                fail(f"rank phase ({cd}, features in [{lo}, {hi}]) is not "
+                     f"bit-equal to torch.sort(stable=True)")
+        log(f"[2b] rank phase on features in [{lo}, {hi}] (t={tb}, n=8192, "
+            f"d={d_full}): f32 and bf16 bit-equal to torch.sort(stable=True)"
+            f" of distance_cuda")
+    # bf16 on continuous data: the sorted distances match the plain bf16
+    # ones (a near-tie swap leaves sorted values in place) and differ from
+    # f32 by more than ten times that tolerance (bf16 operands move d2 by
+    # ~3e-4 of its size here), so the cross term really was rounded
+    xb = torch.randn((tb, d_full), generator=gen, device=dev)
+    xs = torch.randn((8192, d_full), generator=gen, device=dev)
+    got, _ = megakernel_rank_phase_cuda(xb, xs, compute_dtype="bfloat16")
+    want, _ = megakernel_rank_phase_plain(xb, xs, compute_dtype="bfloat16")
+    f32, _ = megakernel_rank_phase_cuda(xb, xs)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    moved = float((got - f32).abs().max())
+    log(f"[2b] bf16 rank phase on continuous data: sorted d2 max_abs_err "
+        f"{err:.3e} vs plain (max |ref| {scale:.1f}); {moved:.3e} from f32")
+    if not (err <= 1e-5 * scale and moved > 1e-4 * scale):
+        fail(f"bf16 rank phase: err {err}, distance from f32 {moved}")
+    del xb, xs, got, want, f32
+    torch.cuda.empty_cache()
+
     # --------------------------------- 3. exactness against the O(2^n) oracle
     # float64 features, as numpy gives them: the entry point casts them to
     # the float32 the distance kernel takes
@@ -278,6 +489,33 @@ def main() -> None:
                 fail(f"{method} {engine} disagrees with the oracle: {err}")
     if distance_cuda.launches == 0 or sti_fill_acc_cuda.launches == 0:
         fail("the n=12 runs did not go through both kernels")
+    sti_megakernel_cuda.launches = point_megakernel_cuda.launches = 0
+    for method, oracle in oracles.items():
+        res = get_method(method)(x12, y12, xt12, yt12, k=k12, engine="fused",
+                                 fill="megakernel", test_batch=4, device=dev)
+        err = float(np.abs(res.phi.cpu().numpy()
+                           - oracle(x12, y12, xt12, yt12, k12)).max())
+        log(f"[3] {method} megakernel n={n12} vs O(2^n) oracle: max_abs_err "
+            f"{err:.3e} (tol 1e-5)")
+        if not err <= 1e-5:
+            fail(f"{method} megakernel disagrees with the oracle: {err}")
+    for method, opts, want in (
+            ("knn_shapley", None,
+             brute_force_shapley(x12, y12, xt12, yt12, k12)),
+            ("wknn", {"weights": "rbf"},
+             brute_force_wknn_shapley(x12, y12, xt12, yt12, k12))):
+        for fill in (None, "megakernel"):
+            got = stream_point_values(method, x12, y12, xt12, yt12, k12,
+                                      test_batch=4, fill=fill,
+                                      method_opts=opts, distance="cuda",
+                                      device=dev)
+            err = float(np.abs(got.cpu().numpy() - want).max())
+            log(f"[3] {method} {fill or 'three-stage'} n={n12} vs O(2^n) "
+                f"oracle: max_abs_err {err:.3e} (tol 1e-5)")
+            if not err <= 1e-5:
+                fail(f"{method} ({fill}) disagrees with the oracle: {err}")
+    if not (sti_megakernel_cuda.launches and point_megakernel_cuda.launches):
+        fail("the n=12 runs did not go through both megakernels")
 
     # ----------------------------------------------------- 4. full width
     t_full = 384  # cut from the configuration's test_chunk = 4096
@@ -370,11 +608,107 @@ def main() -> None:
     if not gap <= 2e-6 * mass:
         fail(f"efficiency gap {gap} exceeds 2e-6 * {mass}")
 
+    # ------------------------- 5. the megakernel path at full width (sti)
+    xb, yb, mask = pad_test_batch(x_test[:tb].to(dev), y_test[:tb].to(dev),
+                                  tb)
+    # the rank phase at full width on the blob data: bit-equal to
+    # torch.sort(stable=True) of distance_cuda's d2, continuous data and all
+    d2s, order = megakernel_rank_phase_cuda(xb, xtr)
+    want = torch.sort(distance_cuda(xb, xtr), dim=-1, stable=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(order, want.indices)
+            and torch.equal(d2s, want.values)):
+        fail("full-width rank phase is not bit-equal to torch.sort(stable="
+             "True) of distance_cuda")
+    del d2s, order, want
+    rank_ms = cuda_ms(torch, lambda: megakernel_rank_phase_cuda(xb, xtr),
+                      reps=5)
+    sort_ms = cuda_ms(torch, lambda: torch.sort(distance_cuda(xb, xtr),
+                                                dim=-1, stable=True), reps=5)
+    log(f"[5] rank phase (t={tb}, n={n_full}, d={d_full}): bit-equal to "
+        f"torch.sort(stable=True) of distance_cuda; {rank_ms:.3f} ms vs "
+        f"{sort_ms:.3f} ms for distance_cuda + torch.sort")
+
+    distance_cuda.launches = sti_fill_acc_cuda.launches = 0
+    sti_megakernel_cuda.launches = point_megakernel_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mega = get_method(CONFIG.mode)(
+        x_train, y_train, x_test, y_test, k=k, engine="fused",
+        fill="megakernel", test_batch=tb, device=dev,
+    )
+    torch.cuda.synchronize()
+    mega_s = time.perf_counter() - t0
+    mega_launches = {"sti_megakernel": sti_megakernel_cuda.launches,
+                     "distance": distance_cuda.launches,
+                     "sti_fill_acc": sti_fill_acc_cuda.launches,
+                     "point_megakernel": point_megakernel_cuda.launches}
+    log(f"[5] {CONFIG.mode} fused fill=megakernel n={n_full} d={d_full} "
+        f"k={k} t={t_full}: {mega_s:.3f} s total, resolved "
+        f"fill={mega.meta['fill']} distance={mega.meta['distance']}, "
+        f"launches {mega_launches}")
+    if mega_launches != {"sti_megakernel": n_steps, "distance": 0,
+                         "sti_fill_acc": 0, "point_megakernel": 0}:
+        fail(f"the megakernel path must launch sti_megakernel once per step "
+             f"({n_steps}) and nothing else: {mega_launches}")
+    entries["sti_megakernel"]["launches"] = mega_launches["sti_megakernel"]
+    # the same distances and ranks on both sides, the g tables scanned in
+    # another order: rounding only, held to 1e-6 of the largest |phi|
+    merr = max_abs_diff(torch, mega.phi, phi)
+    mscale = max_abs(torch, phi)
+    log(f"[5] megakernel phi vs the three-stage phi of [4]: max_abs_err "
+        f"{merr:.3e} over all {n_full}^2 entries (max |ref| {mscale:.3e}, "
+        f"tol 1e-6 of it)")
+    if not merr <= 1e-6 * mscale:
+        fail(f"megakernel phi disagrees with the three-stage phi: {merr} > "
+             f"1e-6 * {mscale}")
+    del mega
+    torch.cuda.empty_cache()
+
+    # -------------------- 6. ValuationSession per point method, megakernel
+    point_total = 0
+    for method in ("knn_shapley", "wknn", "loo"):
+        distance_cuda.launches = point_megakernel_cuda.launches = 0
+        sti_megakernel_cuda.launches = sti_fill_acc_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = ValuationSession(x_train, y_train, k=k, mode=method,
+                                test_batch=tb, fill="megakernel", device=dev)
+        vals = sess.update(x_test, y_test).finalize().point_values
+        torch.cuda.synchronize()
+        sess_s = time.perf_counter() - t0
+        counts = (point_megakernel_cuda.launches, distance_cuda.launches,
+                  sti_megakernel_cuda.launches, sti_fill_acc_cuda.launches)
+        if counts != (n_steps, 0, 0, 0):
+            fail(f"{method} session launched (point_megakernel, distance, "
+                 f"sti_megakernel, fill) = {counts}, expected ({n_steps}, "
+                 f"0, 0, 0)")
+        point_total += counts[0]
+        want = stream_point_values(method, x_train, y_train, x_test, y_test,
+                                   k, test_batch=tb, distance="cuda",
+                                   device=dev)
+        torch.cuda.synchronize()
+        if vals.shape != (n_full,) or not bool(torch.isfinite(vals).all()):
+            fail(f"{method} session values: shape {tuple(vals.shape)} or "
+                 f"non-finite")
+        # the values sum to the mean test utility, so most of the n are
+        # tiny: the tolerance is 1e-6 of the largest |value| (rounding
+        # only), far below a typical value (~1/n)
+        perr = float((vals - want).abs().max())
+        pscale = float(want.abs().max())
+        log(f"[6] {method} ValuationSession fill=megakernel n={n_full} "
+            f"t={t_full}: {sess_s:.3f} s, {counts[0]} launches; vs the "
+            f"three-stage step (distance=cuda): max_abs_err {perr:.3e} "
+            f"(max |ref| {pscale:.3e}, tol 1e-6 of it)")
+        if not perr <= 1e-6 * pscale:
+            fail(f"{method} megakernel session disagrees: {perr} > 1e-6 * "
+                 f"{pscale}")
+        del sess, vals, want
+    entries["point_megakernel"]["launches"] = point_total
+
     # step time at full width, reusing phi's buffer as the accumulator
     step, _ = prepare_fused_step(n_full, d_full, k, mode=CONFIG.mode,
                                  test_batch=tb, device=dev)
-    xb, yb, mask = pad_test_batch(x_test[:tb].to(dev), y_test[:tb].to(dev),
-                                  tb)
     diag.zero_()
     step_ms = cuda_ms(torch, lambda: step(phi, diag, xb, yb, mask, xtr, ytr),
                       reps=3)
@@ -415,6 +749,11 @@ def main() -> None:
     print(json.dumps({"kernels": [{key: e[key] for key in keys}
                                   for e in entries.values()],
                       "step_ms": step_ms, "total_s": total_s,
+                      "megakernel_total_s": mega_s,
+                      "rank_phase": {"ms": rank_ms,
+                                     "distance_and_torch_sort_ms": sort_ms,
+                                     "shape": f"t={tb} n={n_full} "
+                                              f"d={d_full}"},
                       "main_path_peak_gib": main_peak_gib,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ mirror it (`repro_torch.kernels.sti_fill` is the counterpart of
 
     from repro_torch import get_method
     result = get_method("sti")(x_train, y_train, x_test, y_test, k=5)
+    values = get_method("knn_shapley")(x_train, y_train, x_test, y_test)
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version.
@@ -16,11 +17,15 @@ from repro_torch.core import (
     ENGINES,
     ValuationMethod,
     ValuationResult,
+    ValuationSession,
     analysis,
     get_method,
+    knn_shapley_values,
     list_methods,
+    loo_values,
     register_method,
     sti_knn_interactions,
+    wknn_shapley_values,
 )
 
 # Importing the kernels package registers the CUDA fill ("cuda") in the
@@ -31,9 +36,13 @@ from repro_torch.kernels.sti_pipeline import fused_sti_knn_interactions
 __all__ = [
     "sti_knn_interactions",
     "fused_sti_knn_interactions",
+    "knn_shapley_values",
+    "wknn_shapley_values",
+    "loo_values",
     "analysis",
     "ENGINES",
     "ValuationResult",
+    "ValuationSession",
     "ValuationMethod",
     "register_method",
     "get_method",

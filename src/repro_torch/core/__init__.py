@@ -13,7 +13,18 @@ from repro_torch.core.sti_knn import (
     superdiagonal_g,
 )
 from repro_torch.core import analysis
+from repro_torch.core.knn_shapley import (
+    knn_shapley_from_sorted,
+    knn_shapley_values,
+)
+from repro_torch.core.loo import loo_values
 from repro_torch.core.results import ValuationResult
+from repro_torch.core.session import ValuationSession
+from repro_torch.core.wknn import (
+    WEIGHT_KINDS,
+    distance_weights,
+    wknn_shapley_values,
+)
 from repro_torch.core.methods import (
     ENGINES,
     ValuationMethod,
@@ -34,7 +45,14 @@ __all__ = [
     "accumulate_fill",
     "resolve_fill",
     "analysis",
+    "knn_shapley_values",
+    "knn_shapley_from_sorted",
+    "wknn_shapley_values",
+    "distance_weights",
+    "WEIGHT_KINDS",
+    "loo_values",
     "ValuationResult",
+    "ValuationSession",
     "ValuationMethod",
     "ENGINES",
     "register_method",

@@ -1,6 +1,7 @@
 """Valuation method registry: one protocol, many algorithms, one artifact.
 
-Counterpart of `repro.core.methods` for the methods ported so far:
+Counterpart of `repro.core.methods` for the methods and engines ported so
+far:
 
     method = get_method("sti")
     result = method(x_train, y_train, x_test, y_test, k=5, engine="fused",
@@ -11,9 +12,16 @@ The `ENGINES` table maps every method to its ported engines (first entry
 = default):
 
   "sti" / "sii":
-    fused   streaming distance -> rank -> g -> fill pipeline, accumulators
-            updated in place (the CUDA distance and fill kernels on a card)
-    scan    the simple batch loop of `sti_knn_interactions`
+    fused     streaming distance -> rank -> g -> fill pipeline,
+              accumulators updated in place (the CUDA distance and fill
+              kernels on a card; `fill="megakernel"` runs each step as
+              one launch of the fused kernel)
+    scan      the simple batch loop of `sti_knn_interactions`
+  "knn_shapley" / "wknn" / "loo" (per-point values):
+    streamed  the streaming pipeline via a `ValuationSession` (default)
+    eager     direct call of the public function (same step, no session)
+    oracle    O(2^n) brute-force subset enumeration, for parity tests
+              only, guarded to n <= 16 ("knn_shapley" / "wknn")
 
 Every entry point takes `device=` ("cuda" by default; "cpu" must be asked
 for) and raises when a CUDA device is asked for and absent.
@@ -21,9 +29,11 @@ for) and raises when a CUDA device is asked for and absent.
 
 from __future__ import annotations
 
+import inspect
 import time
-from typing import Optional, Protocol, runtime_checkable
+from typing import Callable, Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.core.results import ValuationResult
@@ -40,7 +50,13 @@ __all__ = [
 ENGINES: dict[str, tuple[str, ...]] = {
     "sti": ("fused", "scan"),
     "sii": ("fused", "scan"),
+    "knn_shapley": ("streamed", "eager", "oracle"),
+    "wknn": ("streamed", "eager", "oracle"),
+    "loo": ("streamed", "eager"),
 }
+
+# the O(2^n) oracles enumerate every subset: parity tests only
+_ORACLE_MAX_N = 16
 
 
 @runtime_checkable
@@ -79,6 +95,21 @@ def list_methods() -> list[str]:
     return sorted(_METHODS)
 
 
+def _engine_error(method: str, engine: str) -> ValueError:
+    return ValueError(
+        f"unknown engine {engine!r} for method {method!r}; valid engines: "
+        f"{ENGINES.get(method, ())}"
+    )
+
+
+def _keyword_options(fn: Callable) -> frozenset:
+    """Names of the keyword-only options `fn` accepts."""
+    return frozenset(
+        p.name for p in inspect.signature(fn).parameters.values()
+        if p.kind is inspect.Parameter.KEYWORD_ONLY
+    )
+
+
 def _base_meta(x_train, x_test, k: int, dev: torch.device) -> dict:
     return {
         "k": int(k),
@@ -107,10 +138,7 @@ class _InteractionMethod:
                  fill: str = "auto", fill_params: Optional[dict] = None,
                  distance: str = "auto", device="cuda") -> ValuationResult:
         if engine not in ENGINES[self.name]:
-            raise ValueError(
-                f"unknown engine {engine!r} for method {self.name!r}; "
-                f"valid engines: {ENGINES[self.name]}"
-            )
+            raise _engine_error(self.name, engine)
         dev = resolve_device(device)
         meta = _base_meta(x_train, x_test, k, dev)
         meta.update(method=self.name, mode=self.mode, engine=engine,
@@ -154,5 +182,123 @@ class _InteractionMethod:
         return ValuationResult(method=self.name, phi=phi, meta=meta)
 
 
-register_method("sti", _InteractionMethod("sti", mode="sti"))
-register_method("sii", _InteractionMethod("sii", mode="sii"))
+class _PointValueMethod:
+    """Per-point value methods ("knn_shapley", "wknn", "loo"): dispatch
+    over the ported engines (ENGINES[name], first = default). "streamed"
+    drives a `ValuationSession(mode=name)`, "eager" calls the public
+    function, "oracle" runs the registered O(2^n) brute force (n <= 16).
+    The distance defaults to "plain" on every engine, as the reference's
+    point engines default to its deterministic "xla" distance; pass
+    distance="auto" or "cuda" for the CUDA kernel."""
+
+    def __init__(self, name: str, fn: Callable,
+                 oracle: Optional[Callable] = None):
+        self.name = name
+        self._fn = fn
+        self._oracle = oracle
+        self._eager_kw = _keyword_options(fn)
+        self.accepted_options = self._eager_kw | {"engine", "test_batch",
+                                                  "distance", "device"}
+
+    def __call__(self, x_train, y_train, x_test, y_test, *, k: int = 5,
+                 engine: Optional[str] = None, **opts) -> ValuationResult:
+        bad = set(opts) - self.accepted_options
+        if bad:
+            raise ValueError(
+                f"method {self.name!r} does not accept options "
+                f"{sorted(bad)}; accepted: {sorted(self.accepted_options)}"
+            )
+        engines = ENGINES[self.name]
+        engine = engine or engines[0]
+        if engine not in engines:
+            raise _engine_error(self.name, engine)
+        dev = resolve_device(opts.pop("device", "cuda"))
+        # execution options passed EXPLICITLY go to the engine that runs,
+        # and an engine that cannot honour them rejects them
+        explicit = {nm: opts.pop(nm) for nm in ("test_batch", "distance")
+                    if nm in opts}
+        test_batch = int(explicit.get("test_batch", 512))
+        kw = dict(opts)   # method statics, e.g. weights
+        meta = _base_meta(x_train, x_test, k, dev)
+        meta.update(
+            method=self.name, engine=engine, streamed=engine == "streamed",
+            resolved_fill=None,
+            **{k_: v for k_, v in {**kw, **explicit}.items()
+               if isinstance(v, (str, int, float))},
+        )
+        t0 = time.perf_counter()
+        if engine == "oracle":
+            if explicit:
+                raise ValueError(
+                    f"options {sorted(explicit)} do not apply to "
+                    f"engine='oracle' (brute-force subset enumeration)"
+                )
+            values = self._run_oracle(x_train, y_train, x_test, y_test, k,
+                                      kw).to(dev)
+        elif engine == "eager":
+            values = self._fn(x_train, y_train, x_test, y_test, k,
+                              device=dev, **dict(kw, **explicit))
+        else:  # streamed
+            from repro_torch.core.session import ValuationSession
+
+            t = int(x_test.shape[0])
+            sess = ValuationSession(
+                x_train, y_train, k=k, mode=self.name,
+                test_batch=max(1, min(test_batch, t)),
+                distance=explicit.get("distance", "plain"),
+                method_opts=kw or None, device=dev,
+            )
+            values = sess.update(x_test, y_test).finalize().point_values
+            meta.update({nm: v for nm, v in sess._resolved.items()
+                         if nm in ("distance", "test_batch")})
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        meta["elapsed_s"] = round(time.perf_counter() - t0, 4)
+        return ValuationResult(method=self.name, point_values=values,
+                               meta=meta)
+
+    def _run_oracle(self, x_train, y_train, x_test, y_test, k, kw):
+        """The registered O(2^n) brute force on host numpy arrays, capped
+        at n <= 16 so a misdirected call cannot enumerate 2^1000
+        subsets."""
+        if self._oracle is None:
+            raise _engine_error(self.name, "oracle")
+        n = int(x_train.shape[0])
+        if n > _ORACLE_MAX_N:
+            raise ValueError(
+                f"engine='oracle' enumerates 2^n subsets and is for parity "
+                f"tests only: n={n} > {_ORACLE_MAX_N}; use the default "
+                f"engine (exact, no subset enumeration)"
+            )
+        okw = {nm: v for nm, v in kw.items()
+               if nm in _keyword_options(self._oracle)}
+        arrays = [x.cpu().numpy() if isinstance(x, torch.Tensor)
+                  else np.asarray(x)
+                  for x in (x_train, y_train, x_test, y_test)]
+        return torch.from_numpy(np.asarray(
+            self._oracle(*arrays, int(k), **okw), dtype=np.float32))
+
+
+def _register_builtins() -> None:
+    from repro_torch.core.knn_shapley import knn_shapley_values
+    from repro_torch.core.loo import loo_values
+    from repro_torch.core.sti_baseline import (
+        brute_force_shapley, brute_force_wknn_shapley)
+    from repro_torch.core.wknn import wknn_shapley_values
+
+    register_method("sti", _InteractionMethod("sti", mode="sti"))
+    register_method("sii", _InteractionMethod("sii", mode="sii"))
+    register_method(
+        "knn_shapley",
+        _PointValueMethod("knn_shapley", knn_shapley_values,
+                          oracle=brute_force_shapley),
+    )
+    register_method("loo", _PointValueMethod("loo", loo_values))
+    register_method(
+        "wknn",
+        _PointValueMethod("wknn", wknn_shapley_values,
+                          oracle=brute_force_wknn_shapley),
+    )
+
+
+_register_builtins()

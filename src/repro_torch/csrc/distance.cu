@@ -19,18 +19,19 @@
 // micro-tile, the k-loop over d in steps of 16 with both operand tiles
 // staged transposed in shared memory (converted to f32 as they are
 // staged), and the JAX kernel's norm epilogue fused into the store.
-// Ragged t, n and d are masked. wgmma/TMA are later work.
+// Ragged t, n and d are masked. wgmma/TMA are later work. The tile and
+// norm code lives in `distance_tile.cuh`, which the megakernel's distance
+// phase shares, so both give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "distance_tile.cuh"
+
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, THREADS = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using dist_tile::BM;
+using dist_tile::BN;
+using dist_tile::THREADS;
 
 template <typename T>
 __global__ void sq_norms_kernel(const T* __restrict__ x, int rows, int d,
@@ -38,13 +39,7 @@ __global__ void sq_norms_kernel(const T* __restrict__ x, int rows, int d,
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= rows) return;  // whole warp leaves together
-  const T* row = x + (size_t)warp * d;
-  float s = 0.f;
-  for (int j = lane; j < d; j += 32) {
-    const float v = to_f32(row[j]);
-    s = fmaf(v, v, s);
-  }
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float s = dist_tile::row_sq_norm(x + (size_t)warp * d, d, lane);
   if (lane == 0) out[warp] = s;
 }
 
@@ -53,51 +48,10 @@ __global__ void __launch_bounds__(THREADS)
 sq_dist_kernel(const T* __restrict__ xt, const T* __restrict__ xn,
                const float* __restrict__ nt, const float* __restrict__ nn,
                float* __restrict__ out, int t, int n, int d) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK, gk = k0 + kk;
-      const int ga = row0 + r, gb = col0 + r;
-      As[kk][r] = (ga < t && gk < d) ? to_f32(xt[(size_t)ga * d + gk]) : 0.f;
-      Bs[kk][r] = (gb < n && gk < d) ? to_f32(xn[(size_t)gb * d + gk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= t) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c < n)
-        out[(size_t)r * n + c] = fmaxf(nt[r] - 2.f * acc[i][j] + nn[c], 0.f);
-    }
-  }
+  __shared__ dist_tile::Smem s;
+  dist_tile::sq_dist_tile<false>(
+      xt, xn, nt, nn, t, n, d, blockIdx.y * BM, blockIdx.x * BN, s,
+      [out, n](int r, int c, float v) { out[(size_t)r * n + c] = v; });
 }
 
 template <typename T>

@@ -33,13 +33,17 @@
 // Each acc element adds the test points in order p = 0, 1, ..., so the
 // result equals a sequential f32 sum. Ragged edges (n not a multiple of
 // 128) are masked on load and store. Computing only the tiles on and
-// above the diagonal would halve the work; it is not done yet.
+// above the diagonal would halve the work; it is not done yet. The tile
+// code lives in `fill_tile.cuh`, which the megakernel's update phase
+// shares.
 #include <cuda_runtime.h>
+
+#include "fill_tile.cuh"
 
 namespace {
 
-constexpr int TILE = 128, MICRO = 8, STRIDE = TILE / MICRO, PCHUNK = 16;
-constexpr int THREADS = STRIDE * STRIDE;  // 256
+using fill_tile::THREADS;
+using fill_tile::TILE;
 
 // gt[p, a] = g[p, min(r[p, a], n - 1)]; out-of-range ranks are clamped as
 // XLA's gather clamps them, so a bad rank cannot read out of bounds.
@@ -56,68 +60,9 @@ __global__ void gather_g_kernel(const float* __restrict__ g,
 __global__ void __launch_bounds__(THREADS)
 fill_acc_kernel(float* __restrict__ acc, const float* __restrict__ gt,
                 const int* __restrict__ r, int t, int n) {
-  // (rank, gt bits) pairs of PCHUNK test points for the tile's rows/cols
-  __shared__ int2 rows_s[PCHUNK][TILE];
-  __shared__ int2 cols_s[PCHUNK][TILE];
-  const int tid = threadIdx.x;
-  const int tx = tid % STRIDE, ty = tid / STRIDE;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
-
-  float a[MICRO][MICRO];
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i) {
-    const int rr = row0 + ty + STRIDE * i;
-#pragma unroll
-    for (int j = 0; j < MICRO; ++j) {
-      const int cc = col0 + tx + STRIDE * j;
-      a[i][j] = (rr < n && cc < n) ? acc[(size_t)rr * n + cc] : 0.f;
-    }
-  }
-
-  for (int p0 = 0; p0 < t; p0 += PCHUNK) {
-    const int np = min(PCHUNK, t - p0);
-    for (int e = tid; e < PCHUNK * TILE; e += THREADS) {
-      const int pp = e / TILE, c = e % TILE;
-      int2 rv = make_int2(-1, 0), cv = make_int2(-1, 0);
-      if (pp < np) {
-        const size_t base = (size_t)(p0 + pp) * n;
-        if (row0 + c < n)
-          rv = make_int2(r[base + row0 + c],
-                         __float_as_int(gt[base + row0 + c]));
-        if (col0 + c < n)
-          cv = make_int2(r[base + col0 + c],
-                         __float_as_int(gt[base + col0 + c]));
-      }
-      rows_s[pp][c] = rv;
-      cols_s[pp][c] = cv;
-    }
-    __syncthreads();
-    for (int pp = 0; pp < np; ++pp) {
-      int2 rv[MICRO], cv[MICRO];
-#pragma unroll
-      for (int i = 0; i < MICRO; ++i) rv[i] = rows_s[pp][ty + STRIDE * i];
-#pragma unroll
-      for (int j = 0; j < MICRO; ++j) cv[j] = cols_s[pp][tx + STRIDE * j];
-#pragma unroll
-      for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-        for (int j = 0; j < MICRO; ++j)
-          a[i][j] += (rv[i].x >= cv[j].x) ? __int_as_float(rv[i].y)
-                                          : __int_as_float(cv[j].y);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i) {
-    const int rr = row0 + ty + STRIDE * i;
-    if (rr >= n) continue;
-#pragma unroll
-    for (int j = 0; j < MICRO; ++j) {
-      const int cc = col0 + tx + STRIDE * j;
-      if (cc < n) acc[(size_t)rr * n + cc] = a[i][j];
-    }
-  }
+  __shared__ fill_tile::Smem s;
+  fill_tile::acc_tile(acc, gt, r, t, n, n, 0, blockIdx.y * TILE,
+                      blockIdx.x * TILE, s);
 }
 
 }  // namespace

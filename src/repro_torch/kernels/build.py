@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface. On first use, `nvcc` builds
 every source into its own shared library for `sm_90a`, all of them at once,
 one process each, and the library is loaded with `ctypes`. Libraries land
 in `src/repro_torch/_build/` (listed in .gitignore) under a name that
-carries a hash of the source and flags, so a changed source is rebuilt and
-an unchanged one is reused. Importing this module builds nothing: the
+carries a hash of the source, of the `csrc/*.cuh` headers it includes and
+of the flags, so a changed source or header is rebuilt and an unchanged
+one is reused. Importing this module builds nothing: the
 first wrapper that launches a kernel triggers the build, and a missing
 `nvcc` or a failed build raises -- there is no fallback.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the port; build_all compiles them in parallel
-SOURCES = ("distance", "sti_fill")
+SOURCES = ("distance", "sti_fill", "sti_megakernel")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,8 +48,22 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: set) -> bytes:
+    """The bytes of `path` followed by those of every local header it
+    includes ("..." includes next to it), each file once."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    src = path.read_bytes()
+    return src + b"".join(_sources(path.parent / inc.decode(), seen)
+                          for inc in _INCLUDE.findall(src))
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _sources(CSRC / f"{name}.cu", set())
     digest = hashlib.sha1(src + " ".join(_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,12 +1,14 @@
 """Accumulator specs and update kernels of the streaming valuation step.
 
-Counterpart of `repro.kernels.stream_kernels`, for the interaction methods
-("sti", "sii") on one device. The part of the streaming step that differs
-between valuation methods lives in two small objects:
+Counterpart of `repro.kernels.stream_kernels`, single device. The part of
+the streaming step that differs between valuation methods lives in two
+small objects:
 
   * `AccumulatorSpec` -- the shape/dtype contract of a method's running
     state: an (n, n) f32 matrix plus an (n,) f32 diagonal for the
-    interaction methods. It owns init and the finalize (divide-by-t) rule.
+    interaction methods ("sti", "sii"), a single (n,) f32 vector for the
+    point-value methods ("knn_shapley", "wknn", "loo"). It owns init, the
+    checkpoint array names and the finalize (divide-by-t) rule.
   * `UpdateKernel` -- the per-method functions the generic step calls:
     `contrib(d2, order, match, mask) -> u` (the sorted-coordinate
     contribution with the validity mask folded in, so padded test rows
@@ -14,8 +16,11 @@ between valuation methods lives in two small objects:
     state`, which updates the state tensors IN PLACE (the JAX step donates
     them instead).
 
-Kernels are built by registered factories keyed by method name. The point
-methods and the sharded (`axis`) variant come with later slices.
+Kernels are built by registered factories keyed by method name. The
+fused megakernel (`repro_torch.kernels.sti_megakernel`) does not gather
+through `order`: it builds each method's tables on the sorted stream, from
+the closures registered with `register_megakernel_tables` below. The
+sharded (`axis`) variant comes with a later slice.
 """
 
 from __future__ import annotations
@@ -25,15 +30,20 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.sti_knn import accumulate_fill
+from repro_torch.core.sti_knn import accumulate_fill, superdiagonal_g
 
 __all__ = [
     "AccumulatorSpec",
     "UpdateKernel",
     "INTERACTION_STATE",
+    "POINT_STATE",
     "register_update_kernel",
     "make_update_kernel",
     "accumulator_spec",
+    "stream_methods",
+    "has_stream_kernel",
+    "register_megakernel_tables",
+    "make_megakernel_tables",
 ]
 
 
@@ -44,7 +54,7 @@ class AccumulatorSpec:
     `names` are the checkpoint array names; `layouts` name each array's
     shape: "matrix" = (n, n), "vector" = (n,)."""
 
-    kind: str                    # "interaction" (point: a later slice)
+    kind: str                    # "interaction" | "point"
     names: tuple[str, ...]
     layouts: tuple[str, ...]
 
@@ -61,9 +71,13 @@ class AccumulatorSpec:
 
     def result_arrays(self, state: tuple, t: int) -> dict:
         """Finalize a state of t accumulated test points into the
-        `ValuationResult` array kwargs, {"phi": acc / t with diag / t on
-        the diagonal}. The division is IN PLACE on `acc` (at n = 65536 a
-        copy would be a second 16 GiB), so `state` is consumed."""
+        `ValuationResult` array kwargs: {"phi": acc / t with diag / t on
+        the diagonal} for interaction state, {"point_values": vec / t} for
+        vector state. The interaction division is IN PLACE on `acc` (at
+        n = 65536 a copy would be a second 16 GiB), so that `state` is
+        consumed."""
+        if self.kind == "point":
+            return {"point_values": state[0] / t}
         acc, diag = state
         phi = acc.div_(t)
         phi.diagonal().copy_(diag / t)
@@ -73,6 +87,7 @@ class AccumulatorSpec:
 INTERACTION_STATE = AccumulatorSpec(
     "interaction", ("acc", "diag"), ("matrix", "vector")
 )
+POINT_STATE = AccumulatorSpec("point", ("vec",), ("vector",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,11 +113,21 @@ def register_update_kernel(method: str, spec: AccumulatorSpec,
     _KERNEL_FACTORIES[method] = (spec, factory)
 
 
+def stream_methods() -> list[str]:
+    """Sorted names of every method with a registered streaming kernel."""
+    return sorted(_KERNEL_FACTORIES)
+
+
+def has_stream_kernel(method: str) -> bool:
+    """Whether `method` can run on the generic streaming engine."""
+    return method in _KERNEL_FACTORIES
+
+
 def _registered(method: str) -> tuple[AccumulatorSpec, Callable]:
     if method not in _KERNEL_FACTORIES:
         raise ValueError(
             f"no streaming kernel for method {method!r}; registered: "
-            f"{sorted(_KERNEL_FACTORIES)}"
+            f"{stream_methods()}"
         )
     return _KERNEL_FACTORIES[method]
 
@@ -157,5 +182,172 @@ def _interaction_factory(mode: str) -> Callable:
     return factory
 
 
+# ------------------------------------------------------------ point values
+def _match_contrib(d2, order, match, mask, k, opts):
+    """Masked 0/1 label match in sorted coordinates (knn_shapley / loo)."""
+    return match * mask[:, None]
+
+
+def _wknn_contrib(d2, order, match, mask, k, opts):
+    """Masked weighted contribution c_j = w_j * 1[y_j == y_test] in sorted
+    coordinates -- the soft-label weighted KNN utility's per-point value."""
+    from repro_torch.core.wknn import distance_weights
+
+    w = distance_weights(d2, opts.get("weights", "rbf"))
+    return torch.gather(w, 1, order) * match * mask[:, None]
+
+
+def _shapley_point_values(u, ranks, k, opts):
+    """(tb, n) per-test-point Shapley values in TRAIN coordinates via the
+    Jia et al. reverse-cumsum recurrence -- linear in `u`, so the folded
+    validity mask zeroes padded rows exactly. Shared by "knn_shapley"
+    (u = 0/1 match) and "wknn" (u = weighted contribution)."""
+    from repro_torch.core.knn_shapley import knn_shapley_from_sorted
+
+    return torch.gather(knn_shapley_from_sorted(u, k), 1, ranks)
+
+
+def _loo_window(u, k):
+    """Sorted-coordinate leave-one-out deltas: removing sorted point j < k
+    slides the (k+1)-th neighbour in, delta = (u[j] - u[k]) / k; points
+    outside the window contribute zero."""
+    n = u.shape[-1]
+    nxt = u[..., k:k + 1] if n > k else torch.zeros_like(u[..., :1])
+    in_window = (torch.arange(n, device=u.device) < k)[None, :]
+    return torch.where(in_window, (u - nxt) / k, 0.0)
+
+
+def _loo_point_values(u, ranks, k, opts):
+    """(tb, n) leave-one-out deltas in TRAIN coordinates."""
+    return torch.gather(_loo_window(u, k), 1, ranks)
+
+
+def _point_factory(contrib_fn: Callable, values_fn: Callable) -> Callable:
+    """Factory maker for vector-accumulator methods: `values_fn` maps the
+    batch to (tb, n) per-train-point values in train coordinates; the
+    update adds their test-dim sum into the (n,) vector in place (the
+    vector twin of the interaction diag update)."""
+
+    def factory(method, k, opts, fill, fill_static, axis):
+        if axis is not None:
+            raise NotImplementedError(
+                "the sharded point update is not ported yet"
+            )
+
+        def contrib(d2, order, match, mask):
+            return contrib_fn(d2, order, match, mask, k, opts)
+
+        def update(state, u, g, ranks, mask):
+            state[0].add_(values_fn(u, ranks, k, opts).sum(0))
+            return state
+
+        return UpdateKernel(method, POINT_STATE, False, None,
+                            contrib, update)
+
+    return factory
+
+
+# ------------------------------------------------- megakernel sorted tables
+# The fused megakernel never gathers the train-coordinate (tb, n) arrays
+# through `order`: its rank phase yields the batch in SORTED coordinates
+# and the rank scatter happens at the accumulator. The closures below are
+# the registered contrib/values closures restated on the sorted stream --
+# legal because each is elementwise in the sorted axis, a recurrence over
+# sorted positions, or (the wknn rbf bandwidth) a permutation-invariant
+# row statistic. The plain megakernels run them; the CUDA kernel's table
+# phase computes the same values (csrc/sti_megakernel.cu, `tables_row`).
+
+_MEGAKERNEL_TABLES: dict[str, Callable] = {}
+
+
+def register_megakernel_tables(method: str, factory: Callable) -> None:
+    """Register `factory(k, opts) -> tables` building the method's
+    sorted-coordinate megakernel tables. Interaction factories return
+    `tables(d2_sorted, match_sorted, mask) -> (g, u)` ((tb, n) each, both
+    in sorted coordinates); point factories return
+    `tables(d2_sorted, match_sorted, mask) -> values` ((tb, n), value of
+    the train point at each sorted position). The validity mask folds in
+    here exactly as in `UpdateKernel.contrib`."""
+    _MEGAKERNEL_TABLES[method] = factory
+
+
+def make_megakernel_tables(method: str, k: int, *,
+                           opts: Optional[dict] = None) -> Callable:
+    """Resolve the sorted-coordinate table closure of `method` (see
+    `register_megakernel_tables`). Raises KeyError for methods without a
+    megakernel registration."""
+    if method not in _MEGAKERNEL_TABLES:
+        raise KeyError(
+            f"method {method!r} has no megakernel tables; registered: "
+            f"{sorted(_MEGAKERNEL_TABLES)}"
+        )
+    return _MEGAKERNEL_TABLES[method](int(k), dict(opts or {}))
+
+
+def _interaction_megatables(mode: str) -> Callable:
+    """sti/sii megakernel tables: the same u = match * mask/k contribution
+    and `superdiagonal_g` recurrence as `_interaction_factory`, minus the
+    train-coordinate gathers."""
+
+    def factory(k, opts):
+        def tables(d2s, match_s, mask):
+            u = match_s * (mask / k)[:, None]
+            return superdiagonal_g(u, k, mode=mode), u
+
+        return tables
+
+    return factory
+
+
+def _shapley_megatables(weighted: bool) -> Callable:
+    """knn_shapley/wknn megakernel tables: `knn_shapley_from_sorted` on the
+    (optionally distance-weighted) sorted contribution. The weights are
+    elementwise plus a permutation-invariant row statistic (the rbf sigma2
+    row mean), so evaluating them on the SORTED distances matches the
+    three-stage path to float-summation order."""
+
+    def factory(k, opts):
+        def tables(d2s, match_s, mask):
+            from repro_torch.core.knn_shapley import knn_shapley_from_sorted
+
+            if weighted:
+                from repro_torch.core.wknn import distance_weights
+
+                w = distance_weights(d2s, opts.get("weights", "rbf"))
+                u = w * match_s * mask[:, None]
+            else:
+                u = match_s * mask[:, None]
+            return knn_shapley_from_sorted(u, k)
+
+        return tables
+
+    return factory
+
+
+def _loo_megatables(k, opts):
+    """loo megakernel tables: the leave-one-out window delta on the sorted
+    stream."""
+
+    def tables(d2s, match_s, mask):
+        return _loo_window(match_s * mask[:, None], k)
+
+    return tables
+
+
 register_update_kernel("sti", INTERACTION_STATE, _interaction_factory("sti"))
 register_update_kernel("sii", INTERACTION_STATE, _interaction_factory("sii"))
+register_update_kernel(
+    "knn_shapley", POINT_STATE,
+    _point_factory(_match_contrib, _shapley_point_values),
+)
+register_update_kernel(
+    "wknn", POINT_STATE, _point_factory(_wknn_contrib, _shapley_point_values)
+)
+register_update_kernel(
+    "loo", POINT_STATE, _point_factory(_match_contrib, _loo_point_values)
+)
+register_megakernel_tables("sti", _interaction_megatables("sti"))
+register_megakernel_tables("sii", _interaction_megatables("sii"))
+register_megakernel_tables("knn_shapley", _shapley_megatables(False))
+register_megakernel_tables("wknn", _shapley_megatables(True))
+register_megakernel_tables("loo", _loo_megatables)

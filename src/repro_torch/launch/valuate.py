@@ -3,11 +3,16 @@ end-to-end on a CUDA card (or, when asked, the CPU).
 
   PYTHONPATH=src python -m repro_torch.launch.valuate --n 512 --t 128 --k 5
   PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu --n 64 --t 16
+  PYTHONPATH=src python -m repro_torch.launch.valuate --method knn_shapley \
+      --fill megakernel
 
-Pipeline: synthetic circles (10% of train labels flipped) -> "sti" or
-"sii" from the registry on the `fused` or `scan` engine -> efficiency
-check and mislabel detection. `--save` writes the result in the format
-both packages read (npz + JSON).
+Pipeline: synthetic circles (10% of train labels flipped) -> a method from
+the registry ("sti"/"sii" on the `fused` or `scan` engine, or a per-point
+method "knn_shapley"/"wknn"/"loo" on its `streamed` session) -> efficiency
+check and mislabel detection. `--fill megakernel` runs every streaming
+step as one launch of the fused kernel (for the point methods through a
+`ValuationSession`). `--save` writes the result in the format both
+packages read (npz + JSON).
 """
 
 from __future__ import annotations
@@ -18,8 +23,24 @@ import time
 import numpy as np
 
 from repro_torch.core.methods import ENGINES, get_method
+from repro_torch.core.session import ValuationSession
 from repro_torch.core.sti_baseline import sorted_orders
 from repro_torch.data import flip_labels, make_circles
+
+
+def _point_values(args, x, y, xt, yt):
+    """A point method's result: through the registry, or -- for
+    `--fill megakernel`, which the registry's point engines do not take --
+    through a `ValuationSession`, as in the JAX launcher."""
+    if args.fill != "megakernel":
+        engine = args.engine if args.engine in ENGINES[args.method] else None
+        return get_method(args.method)(
+            x, y, xt, yt, k=args.k, engine=engine, distance=args.distance,
+            test_batch=args.test_batch, device=args.device)
+    sess = ValuationSession(
+        x, y, k=args.k, mode=args.method, test_batch=args.test_batch,
+        fill="megakernel", distance=args.distance, device=args.device)
+    return sess.update(xt, yt).finalize()
 
 
 def main():
@@ -30,9 +51,13 @@ def main():
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--noise-frac", type=float, default=0.1)
     ap.add_argument("--method", default="sti", choices=sorted(ENGINES))
-    ap.add_argument("--engine", default="fused", choices=("fused", "scan"))
+    ap.add_argument("--engine", default="fused",
+                    choices=sorted({e for es in ENGINES.values() for e in es}),
+                    help="an engine of --method; a point method given an "
+                         "interaction engine takes its default")
     ap.add_argument("--fill", default="auto",
-                    help="fill registry entry: auto|cuda|chunked|onehot|xla")
+                    help="fill registry entry: auto|cuda|chunked|onehot|xla, "
+                         "or megakernel (the fused one-launch step)")
     ap.add_argument("--distance", default="auto", help="auto|cuda|plain")
     ap.add_argument("--test-batch", type=int, default=256)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -46,14 +71,17 @@ def main():
     n, t = int(x.shape[0]), int(xt.shape[0])
 
     t0 = time.time()
-    result = get_method(args.method)(
-        x, y, xt, yt, k=args.k, engine=args.engine, fill=args.fill,
-        distance=args.distance, test_batch=args.test_batch,
-        device=args.device,
-    )
+    if args.method in ("sti", "sii"):
+        result = get_method(args.method)(
+            x, y, xt, yt, k=args.k, engine=args.engine, fill=args.fill,
+            distance=args.distance, test_batch=args.test_batch,
+            device=args.device,
+        )
+    else:
+        result = _point_values(args, x, y, xt, yt)
     dt = time.time() - t0
     meta = result.meta
-    print(f"{args.method} ({meta['engine']}, fill={meta['fill']}, "
+    print(f"{args.method} ({meta['engine']}, fill={meta.get('fill')}, "
           f"device={meta['device_kind']}) n={n} t={t} k={args.k}: {dt:.3f}s")
 
     # efficiency axiom (v(N) is the likelihood valuation, paper's v)
@@ -62,8 +90,13 @@ def main():
     y_np = y.numpy()
     v_n = np.mean([np.sum(y_np[orders[p, :kk]] == int(yt[p])) / args.k
                    for p in range(t)])
-    print(f"efficiency gap |sum(phi)-v(N)| = "
-          f"{float(result.efficiency_gap(v_n)):.2e}")
+    if result.phi is not None:
+        print(f"efficiency gap |sum(phi)-v(N)| = "
+              f"{float(result.efficiency_gap(v_n)):.2e}")
+    elif args.method == "knn_shapley":
+        # Shapley efficiency: the values sum to v(N) - v(empty) = v(N)
+        gap = abs(float(result.point_values.double().sum()) - v_n)
+        print(f"efficiency gap |sum(values)-v(N)| = {gap:.2e}")
 
     scores = result.mislabel_scores(y, 2).cpu().numpy()
     order = np.argsort(-scores)

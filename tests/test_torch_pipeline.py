@@ -230,13 +230,20 @@ def test_get_method_matches_jax(method, engine):
 
 
 def test_registry_errors_and_listing():
-    assert repro_torch.list_methods() == ["sii", "sti"]
+    assert repro_torch.list_methods() == ["knn_shapley", "loo", "sii", "sti",
+                                          "wknn"]
     assert repro_torch.ENGINES["sti"] == ("fused", "scan")
+    assert repro_torch.ENGINES["knn_shapley"] == ("streamed", "eager",
+                                                  "oracle")
     x, y, xt, yt = _problem(8, 2, 2, 1)
-    with pytest.raises(ValueError, match="valid engines"):
-        get_method("sti")(x, y, xt, yt, k=3, engine="sharded", device="cpu")
+    # engines the port has not ported yet are refused, not emulated
+    for method, engine in (("sti", "sharded"), ("sii", "approx"),
+                           ("wknn", "sharded"), ("loo", "approx")):
+        with pytest.raises(ValueError, match="valid engines"):
+            get_method(method)(x, y, xt, yt, k=3, engine=engine,
+                               device="cpu")
     with pytest.raises(ValueError, match="unknown valuation method"):
-        get_method("knn_shapley")
+        get_method("banzhaf")
 
 
 def test_get_method_matches_oracle():
