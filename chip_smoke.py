@@ -16,7 +16,11 @@ n = 65536, d = 768, k = 5) with t = 384 test points (one full batch of
   [5] the same with `fill="megakernel"`: one launch of the fused
       megakernel per step, its phi held against [4]'s;
   [6] `ValuationSession(mode=m, fill="megakernel")` for each per-point
-      method m, held against the three-stage step.
+      method m, held against the three-stage step;
+  [7] the sharded engine on four shards of the one card
+      (`devices=["cuda"] * 4`, (16384, 65536) row blocks): sti through the
+      rect fill kernel and through one megakernel launch per shard, and
+      knn_shapley both ways, held against [4] and the single-device step.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
@@ -101,6 +105,21 @@ def fill_bound_ms(t, n) -> tuple[float, str]:
         "operations"
 
 
+def rect_fill_bound_ms(t, nr, n) -> tuple[float, str]:
+    # the (nr, n) block read and written once, g and the rank table read
+    # once (the row table is a window of it). Outside the window's columns
+    # every element needs one compare, one select and one add per test
+    # point; the (nr, nr) block on the window's diagonal is symmetric, so
+    # it needs only its nr(nr+1)/2 pairs on and above the diagonal, and one
+    # add for each of the nr(nr-1)/2 below it to mirror them
+    nbytes = 2 * nr * n * 4 + 2 * t * n * 4
+    ops = (3.0 * t * (nr * (n - nr) + nr * (nr + 1) / 2)
+           + float(nr) * (nr - 1) / 2)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / SIMPLE_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
+        "operations"
+
+
 def sti_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
     # x_train, the batch and the labels read once, acc read and written
     # once; the distance's 2 t n d f32 operations and the fill's (see
@@ -141,7 +160,8 @@ def main() -> None:
 
     import numpy as np
 
-    from repro_torch import ValuationSession, get_method
+    from repro_torch import (
+        ShardedValuationSession, ValuationSession, get_method)
     from repro_torch.configs.sti_knn_paper import CONFIG
     from repro_torch.core.sti_baseline import (
         brute_force_shapley, brute_force_sii, brute_force_sti,
@@ -152,7 +172,9 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.distance import distance_cuda, distance_plain
     from repro_torch.kernels.sti_fill import (
-        sti_fill_acc_cuda, sti_fill_acc_plain, sti_fill_cuda, sti_fill_plain)
+        rect_row_view, sti_fill_acc_cuda, sti_fill_acc_plain,
+        sti_fill_acc_rect_cuda, sti_fill_acc_rect_plain, sti_fill_cuda,
+        sti_fill_plain, sti_fill_rect_cuda, sti_fill_rect_plain)
     from repro_torch.kernels.sti_megakernel import (
         megakernel_rank_phase_cuda, megakernel_rank_phase_plain,
         point_megakernel_cuda, point_megakernel_plain, sti_megakernel_cuda,
@@ -466,6 +488,82 @@ def main() -> None:
     del xb, xs, got, want, f32
     torch.cuda.empty_cache()
 
+    # ------------------------------- 2c. the rect fill vs plain on the card
+    # The rect kernel runs the square kernel's tile code, adding the test
+    # points in order, so it should agree with plain to the bit; the
+    # tolerance, 1e-6 of the largest |value| as for the fills, would admit
+    # only rounding.
+    rect_tol = 1e-6
+
+    def rect_inputs(t, nr, nc, n, off):
+        g = torch.randn((t, n), generator=gen, device=dev)
+        if off is None:  # independent row and column tables, ranks < n
+            rr = torch.randint(0, n, (t, nr), generator=gen, device=dev)
+            rc = torch.randint(0, n, (t, nc), generator=gen, device=dev)
+        else:  # the sharded engine's call: a row window of the table
+            rc = torch.argsort(torch.rand((t, n), generator=gen, device=dev),
+                               dim=1)
+            rr = rect_row_view(rc, off, nr)
+        return g, rr, rc
+
+    def hold_rect(label, got, want):
+        torch.cuda.synchronize()
+        err, scale = max_abs_diff(torch, got, want), max_abs(torch, want)
+        log(f"[2c] rect fill {label}: max_abs_err {err:.3e} (max |ref| "
+            f"{scale:.3e}, tol {rect_tol:g} of it)")
+        if not err <= rect_tol * scale:
+            fail(f"rect fill {label}: kernel disagrees with plain: {err} > "
+                 f"{rect_tol} * {scale}")
+        return err
+
+    for (t, nr, nc, n, off) in ((33, 40, 65, 70, None),
+                                (tb, 1000, 8192, 8192, 3000)):
+        g, rr, rc = rect_inputs(t, nr, nc, n, off)
+        acc0 = torch.randn((nr, nc), generator=gen, device=dev)
+        label = f"({t}, {nr}, {nc}) g {n} wide" + (
+            " independent tables" if off is None else f" rows at {off}")
+        hold_rect(label, sti_fill_acc_rect_cuda(acc0.clone(), g, rr, rc),
+                  sti_fill_acc_rect_plain(acc0.clone(), g, rr, rc))
+        hold_rect(label + " zero-init", sti_fill_rect_cuda(g, rr, rc),
+                  sti_fill_rect_plain(g, rr, rc))
+        del g, rr, rc, acc0
+    # the main path's call: the last (16384, 65536) row block of a D = 4
+    # step, rows at 3 * 16384, from zero; one call each, the plain timed
+    shards = 4
+    nl = n_full // shards
+    g, rr, rc = rect_inputs(tb, nl, n_full, n_full, (shards - 1) * nl)
+    acc_k = torch.zeros((nl, n_full), device=dev)
+    sti_fill_acc_rect_cuda(acc_k, g, rr, rc)
+    acc_p = torch.zeros((nl, n_full), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sti_fill_acc_rect_plain(acc_p, g, rr, rc)
+    torch.cuda.synchronize()
+    rect_plain_ms = 1e3 * (time.perf_counter() - t0)
+    rect_err = hold_rect(f"({tb}, {nl} rows at {(shards - 1) * nl}, "
+                         f"{n_full})", acc_k, acc_p)
+    log(f"[2c] full-width block bit-equal to plain: "
+        f"{bool(torch.equal(acc_k, acc_p))}")
+    del acc_p
+    torch.cuda.empty_cache()
+    rect_ms = cuda_ms(torch, lambda: sti_fill_acc_rect_cuda(acc_k, g, rr, rc),
+                      reps=5)
+    bound, by = rect_fill_bound_ms(tb, nl, n_full)
+    entries["sti_fill_acc_rect"] = dict(
+        name="sti_fill_acc_rect", route="cuda",
+        source="src/repro_torch/csrc/sti_fill.cu",
+        replaces="src/repro/kernels/sti_fill.py:258", max_abs_err=rect_err,
+        ms=rect_ms, plain_ms=rect_plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None,
+        shape=f"t={tb} rows={nl} at {(shards - 1) * nl} n={n_full}",
+    )
+    log(f"[2c] rect fill block (t={tb}, {nl} x {n_full}): kernel "
+        f"{rect_ms:.2f} ms, plain {rect_plain_ms:.1f} ms (one call), bound "
+        f"{bound:.2f} ms ({by}; {shards} blocks {shards * bound:.1f} ms); "
+        f"no single PyTorch call computes it")
+    del acc_k, g, rr, rc
+    torch.cuda.empty_cache()
+
     # --------------------------------- 3. exactness against the O(2^n) oracle
     # float64 features, as numpy gives them: the entry point casts them to
     # the float32 the distance kernel takes
@@ -706,6 +804,141 @@ def main() -> None:
         del sess, vals, want
     entries["point_megakernel"]["launches"] = point_total
 
+    # ---------------- 7. the sharded engine at full width, 4 shards, 1 card
+    devs = [dev] * shards
+    counted = {"distance": distance_cuda, "sti_fill_acc": sti_fill_acc_cuda,
+               "sti_fill_acc_rect": sti_fill_acc_rect_cuda,
+               "sti_megakernel": sti_megakernel_cuda,
+               "point_megakernel": point_megakernel_cuda}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    def expect(label, got, **want):
+        full = {name: 0 for name in counted}
+        full.update(want)
+        if got != full:
+            fail(f"[7] {label} launched {got}, expected {full}")
+
+    def hold_sharded(label, got, want, rel=1e-6):
+        err, scale = max_abs_diff(torch, got.reshape(got.shape[0], -1),
+                                  want.reshape(want.shape[0], -1)), \
+            max_abs(torch, want.reshape(want.shape[0], -1))
+        log(f"[7] {label}: max_abs_err {err:.3e} (max |ref| {scale:.3e}, "
+            f"tol {rel:g} of it)")
+        if not err <= rel * scale:
+            fail(f"[7] {label} disagrees: {err} > {rel} * {scale}")
+        return err
+
+    steps_x_shards = n_steps * shards
+    sharded = {}
+    for fill in ("auto", "megakernel"):
+        torch.cuda.synchronize()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = get_method(CONFIG.mode)(
+            x_train, y_train, x_test, y_test, k=k, engine="sharded",
+            fill=fill, test_batch=tb, devices=devs,
+        )
+        torch.cuda.synchronize()
+        sh_s = time.perf_counter() - t0
+        got = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if fill == "megakernel":
+            expect("sti fill=megakernel", got,
+                   sti_megakernel=steps_x_shards)
+        else:
+            expect("sti three-stage", got, distance=steps_x_shards,
+                   sti_fill_acc_rect=steps_x_shards)
+            entries["sti_fill_acc_rect"]["launches"] = got["sti_fill_acc_rect"]
+        log(f"[7] {CONFIG.mode} sharded fill={fill} on {shards} shards of one "
+            f"card n={n_full} t={t_full}: {sh_s:.3f} s total, resolved "
+            f"fill={res.meta['fill']} distance={res.meta['distance']} "
+            f"shards={res.meta['shards']}, launches {got}, peak device memory "
+            f"{peak_gib:.2f} GiB ({base_gib:.2f} GiB held before, [4]'s phi "
+            f"among it)")
+        if tuple(res.phi.shape) != (n_full, n_full) or res.meta["shards"] != \
+                shards:
+            fail(f"[7] phi {tuple(res.phi.shape)}, shards {res.meta['shards']}")
+        err = hold_sharded(f"sti fill={fill} phi vs [4]'s", res.phi, phi)
+        # the off-diagonal entries add the same values in the same order
+        # as [4]'s fill; the diagonal is a reduce-scatter of 4 partials
+        offdiag_equal, rows_ = True, 4096
+        for r0 in range(0, n_full, rows_):
+            diff = res.phi[r0:r0 + rows_] - phi[r0:r0 + rows_]
+            idx = torch.arange(diff.shape[0], device=dev)
+            diff[idx, r0 + idx] = 0.0
+            offdiag_equal = offdiag_equal and not bool(diff.any())
+        diag_err = float((res.phi.diagonal() - phi.diagonal()).abs().max())
+        log(f"[7] sti fill={fill}: off-diagonal bit-equal to [4]: "
+            f"{offdiag_equal}; diagonal max_abs_err {diag_err:.3e}")
+        sharded[fill] = dict(total_s=sh_s, peak_gib=peak_gib,
+                             held_before_gib=base_gib, max_abs_err=err,
+                             offdiag_bit_equal=offdiag_equal,
+                             diag_max_abs_err=diag_err, launches=got)
+        del res, diff
+        torch.cuda.empty_cache()
+    # where the off-diagonal bits can part: each shard ranks and scans
+    # only its tb/D test rows, so a stage whose rounding depends on the
+    # number of rows it is given differs from [4]'s whole-batch call
+    part = tb // shards
+    d2_all = distance_cuda(xb, xtr)
+    u_all = (ytr[torch.sort(d2_all, dim=-1, stable=True).indices]
+             == yb[:, None]).float() * (mask / k)[:, None]
+    same_d2 = bool(torch.equal(distance_cuda(xb[:part], xtr), d2_all[:part]))
+    same_g = bool(torch.equal(superdiagonal_g(u_all[:part], k),
+                              superdiagonal_g(u_all, k)[:part]))
+    log(f"[7] the first {part} rows alone vs within the {tb}-row batch: "
+        f"distance_cuda bit-equal {same_d2}, superdiagonal_g (torch.cumsum) "
+        f"bit-equal {same_g}")
+    sharded["slice_bit_equal"] = {"distance": same_d2, "g": same_g}
+    del d2_all, u_all
+    want = stream_point_values("knn_shapley", x_train, y_train, x_test,
+                               y_test, k, test_batch=tb, distance="cuda",
+                               device=dev)
+    for fill in ("auto", "megakernel"):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = ShardedValuationSession(
+            x_train, y_train, k=k, mode="knn_shapley", test_batch=tb,
+            fill=fill, distance="cuda", devices=devs)
+        vals = sess.update(x_test, y_test).finalize().point_values
+        torch.cuda.synchronize()
+        pt_s = time.perf_counter() - t0
+        got = read_counts()
+        if fill == "megakernel":
+            expect("knn_shapley fill=megakernel", got,
+                   point_megakernel=steps_x_shards)
+        else:
+            expect("knn_shapley three-stage", got, distance=steps_x_shards)
+        if vals.shape != (n_full,) or not bool(torch.isfinite(vals).all()):
+            fail(f"[7] knn_shapley values: shape {tuple(vals.shape)} or "
+                 f"non-finite")
+        err = hold_sharded(f"knn_shapley sharded fill={fill} vs the "
+                           f"single-device step ({pt_s:.3f} s, launches "
+                           f"{got})", vals, want)
+        sharded[f"knn_shapley_{fill}"] = dict(total_s=pt_s, max_abs_err=err,
+                                              launches=got)
+        del sess, vals
+    # step times: one full batch into a sharded session, CUDA events
+    for fill in ("auto", "megakernel"):
+        sess = ShardedValuationSession(x_train, y_train, k=k,
+                                       mode=CONFIG.mode, test_batch=tb,
+                                       fill=fill, devices=devs)
+        sharded[fill]["step_ms"] = cuda_ms(
+            torch, lambda: sess.update(xb, yb), reps=2)
+        log(f"[7] sharded {CONFIG.mode} step fill={fill} ({shards} shards, "
+            f"t={tb}, n={n_full}): {sharded[fill]['step_ms']:.2f} ms")
+        del sess
+        torch.cuda.empty_cache()
+
     # step time at full width, reusing phi's buffer as the accumulator
     step, _ = prepare_fused_step(n_full, d_full, k, mode=CONFIG.mode,
                                  test_batch=tb, device=dev)
@@ -755,6 +988,7 @@ def main() -> None:
                                      "shape": f"t={tb} n={n_full} "
                                               f"d={d_full}"},
                       "main_path_peak_gib": main_peak_gib,
+                      "sharded": sharded,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,8 @@ mirror it (`repro_torch.kernels.sti_fill` is the counterpart of
     from repro_torch import get_method
     result = get_method("sti")(x_train, y_train, x_test, y_test, k=5)
     values = get_method("knn_shapley")(x_train, y_train, x_test, y_test)
+    sharded = get_method("sti")(x_train, y_train, x_test, y_test, k=5,
+                                engine="sharded", devices=["cuda"] * 4)
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version.
@@ -15,6 +17,7 @@ Entry points run on the card (`device="cuda"`) unless the caller passes
 
 from repro_torch.core import (
     ENGINES,
+    ShardedValuationSession,
     ValuationMethod,
     ValuationResult,
     ValuationSession,
@@ -28,7 +31,9 @@ from repro_torch.core import (
     wknn_shapley_values,
 )
 
-# Importing the kernels package registers the CUDA fill ("cuda") in the
+from repro_torch.core.valuation import DataValuator
+
+# Importing the kernels package registers the CUDA fills ("cuda") in the
 # core fill registries; it builds nothing.
 from repro_torch.kernels import ops as _ops  # noqa: F401
 from repro_torch.kernels.sti_pipeline import fused_sti_knn_interactions
@@ -41,8 +46,10 @@ __all__ = [
     "loo_values",
     "analysis",
     "ENGINES",
+    "DataValuator",
     "ValuationResult",
     "ValuationSession",
+    "ShardedValuationSession",
     "ValuationMethod",
     "register_method",
     "get_method",

@@ -2,12 +2,16 @@
 
 from repro_torch.core.sti_knn import (
     accumulate_fill,
+    accumulate_rect_fill,
     pairwise_sq_dists,
     ranks_from_distances,
     ranks_from_order,
     register_acc_fill_fn,
     register_fill_fn,
+    register_rect_acc_fill_fn,
+    register_rect_fill_fn,
     resolve_fill,
+    resolve_rect_fill,
     sti_knn_interactions,
     sti_knn_matrix_one_test,
     superdiagonal_g,
@@ -19,7 +23,10 @@ from repro_torch.core.knn_shapley import (
 )
 from repro_torch.core.loo import loo_values
 from repro_torch.core.results import ValuationResult
-from repro_torch.core.session import ValuationSession
+from repro_torch.core.session import (
+    ShardedValuationSession,
+    ValuationSession,
+)
 from repro_torch.core.wknn import (
     WEIGHT_KINDS,
     distance_weights,
@@ -44,6 +51,10 @@ __all__ = [
     "register_acc_fill_fn",
     "accumulate_fill",
     "resolve_fill",
+    "register_rect_fill_fn",
+    "register_rect_acc_fill_fn",
+    "accumulate_rect_fill",
+    "resolve_rect_fill",
     "analysis",
     "knn_shapley_values",
     "knn_shapley_from_sorted",
@@ -53,6 +64,7 @@ __all__ = [
     "loo_values",
     "ValuationResult",
     "ValuationSession",
+    "ShardedValuationSession",
     "ValuationMethod",
     "ENGINES",
     "register_method",

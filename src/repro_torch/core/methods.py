@@ -17,14 +17,23 @@ The `ENGINES` table maps every method to its ported engines (first entry
               kernels on a card; `fill="megakernel"` runs each step as
               one launch of the fused kernel)
     scan      the simple batch loop of `sti_knn_interactions`
+    sharded   the fused pipeline over D shards, (n/D, n) row blocks of
+              the accumulator filled by the CUDA rect kernel on a card
+              (`fill="megakernel"`: one fused launch per shard a step)
   "knn_shapley" / "wknn" / "loo" (per-point values):
     streamed  the streaming pipeline via a `ValuationSession` (default)
     eager     direct call of the public function (same step, no session)
+    sharded   a `ShardedValuationSession`, (n/D,) vector rows per shard
     oracle    O(2^n) brute-force subset enumeration, for parity tests
               only, guarded to n <= 16 ("knn_shapley" / "wknn")
 
-Every entry point takes `device=` ("cuda" by default; "cpu" must be asked
-for) and raises when a CUDA device is asked for and absent.
+The sharded engine takes `shards=` (default: every local card, clamped to
+a divisor of n) or `devices=`, one device per shard, repeats allowed (so
+`devices=["cuda"] * 4` runs four shards on one card); one usable shard
+falls back to the single-device step. Either option without
+`engine="sharded"` raises. Every entry point takes `device=` ("cuda" by
+default; "cpu" must be asked for) and raises when a CUDA device is asked
+for and absent.
 """
 
 from __future__ import annotations
@@ -48,11 +57,11 @@ __all__ = [
 ]
 
 ENGINES: dict[str, tuple[str, ...]] = {
-    "sti": ("fused", "scan"),
-    "sii": ("fused", "scan"),
-    "knn_shapley": ("streamed", "eager", "oracle"),
-    "wknn": ("streamed", "eager", "oracle"),
-    "loo": ("streamed", "eager"),
+    "sti": ("fused", "scan", "sharded"),
+    "sii": ("fused", "scan", "sharded"),
+    "knn_shapley": ("streamed", "eager", "sharded", "oracle"),
+    "wknn": ("streamed", "eager", "sharded", "oracle"),
+    "loo": ("streamed", "eager", "sharded"),
 }
 
 # the O(2^n) oracles enumerate every subset: parity tests only
@@ -102,6 +111,16 @@ def _engine_error(method: str, engine: str) -> ValueError:
     )
 
 
+def _check_shard_options(engine: str, shards, devices) -> None:
+    """shards= / devices= only with the sharded engine: running on one
+    device would silently defeat the n^2/D memory split asked for."""
+    if (shards is not None or devices is not None) and engine != "sharded":
+        raise ValueError(
+            f"shards= and devices= are only meaningful with "
+            f"engine='sharded' (got engine={engine!r})"
+        )
+
+
 def _keyword_options(fn: Callable) -> frozenset:
     """Names of the keyword-only options `fn` accepts."""
     return frozenset(
@@ -127,6 +146,7 @@ class _InteractionMethod:
 
     accepted_options = frozenset({
         "engine", "test_batch", "fill", "fill_params", "distance", "device",
+        "shards", "devices",
     })
 
     def __init__(self, name: str, mode: str):
@@ -136,13 +156,18 @@ class _InteractionMethod:
     def __call__(self, x_train, y_train, x_test, y_test, *, k: int = 5,
                  engine: str = "fused", test_batch: int = 256,
                  fill: str = "auto", fill_params: Optional[dict] = None,
-                 distance: str = "auto", device="cuda") -> ValuationResult:
+                 distance: str = "auto", device="cuda",
+                 shards: Optional[int] = None,
+                 devices=None) -> ValuationResult:
         if engine not in ENGINES[self.name]:
             raise _engine_error(self.name, engine)
+        _check_shard_options(engine, shards, devices)
+        if devices is not None:
+            device = devices[0]
         dev = resolve_device(device)
         meta = _base_meta(x_train, x_test, k, dev)
         meta.update(method=self.name, mode=self.mode, engine=engine,
-                    streamed=engine == "fused")
+                    streamed=engine in ("fused", "sharded"))
         tb = max(1, min(int(test_batch), int(x_test.shape[0])))
         t0 = time.perf_counter()
         if engine == "fused":
@@ -160,6 +185,17 @@ class _InteractionMethod:
                 distance=distance, device=dev,
             )
             meta.update(test_batch=test_batch, **resolved)
+        elif engine == "sharded":
+            from repro_torch.kernels.sti_pipeline import (
+                sharded_sti_knn_interactions)
+
+            phi, resolved = sharded_sti_knn_interactions(
+                x_train, y_train, x_test, y_test, k, mode=self.mode,
+                test_batch=test_batch, shards=shards, devices=devices,
+                fill=fill, fill_params=fill_params, distance=distance,
+                device=dev, return_info=True,
+            )
+            meta.update(resolved)
         else:  # scan
             from repro_torch.core.sti_knn import (
                 resolve_fill, sti_knn_interactions)
@@ -186,7 +222,9 @@ class _PointValueMethod:
     """Per-point value methods ("knn_shapley", "wknn", "loo"): dispatch
     over the ported engines (ENGINES[name], first = default). "streamed"
     drives a `ValuationSession(mode=name)`, "eager" calls the public
-    function, "oracle" runs the registered O(2^n) brute force (n <= 16).
+    function, "sharded" drives a `ShardedValuationSession` ((n/D,) vector
+    rows per shard), "oracle" runs the registered O(2^n) brute force
+    (n <= 16).
     The distance defaults to "plain" on every engine, as the reference's
     point engines default to its deterministic "xla" distance; pass
     distance="auto" or "cuda" for the CUDA kernel."""
@@ -197,8 +235,9 @@ class _PointValueMethod:
         self._fn = fn
         self._oracle = oracle
         self._eager_kw = _keyword_options(fn)
-        self.accepted_options = self._eager_kw | {"engine", "test_batch",
-                                                  "distance", "device"}
+        self.accepted_options = self._eager_kw | {
+            "engine", "test_batch", "distance", "device", "shards",
+            "devices"}
 
     def __call__(self, x_train, y_train, x_test, y_test, *, k: int = 5,
                  engine: Optional[str] = None, **opts) -> ValuationResult:
@@ -212,7 +251,10 @@ class _PointValueMethod:
         engine = engine or engines[0]
         if engine not in engines:
             raise _engine_error(self.name, engine)
-        dev = resolve_device(opts.pop("device", "cuda"))
+        shards, devices = opts.pop("shards", None), opts.pop("devices", None)
+        _check_shard_options(engine, shards, devices)
+        device = opts.pop("device", "cuda")
+        dev = resolve_device(device if devices is None else devices[0])
         # execution options passed EXPLICITLY go to the engine that runs,
         # and an engine that cannot honour them rejects them
         explicit = {nm: opts.pop(nm) for nm in ("test_batch", "distance")
@@ -221,7 +263,8 @@ class _PointValueMethod:
         kw = dict(opts)   # method statics, e.g. weights
         meta = _base_meta(x_train, x_test, k, dev)
         meta.update(
-            method=self.name, engine=engine, streamed=engine == "streamed",
+            method=self.name, engine=engine,
+            streamed=engine in ("streamed", "sharded"),
             resolved_fill=None,
             **{k_: v for k_, v in {**kw, **explicit}.items()
                if isinstance(v, (str, int, float))},
@@ -238,19 +281,23 @@ class _PointValueMethod:
         elif engine == "eager":
             values = self._fn(x_train, y_train, x_test, y_test, k,
                               device=dev, **dict(kw, **explicit))
-        else:  # streamed
-            from repro_torch.core.session import ValuationSession
+        else:  # streamed | sharded
+            from repro_torch.core.session import (
+                ShardedValuationSession, ValuationSession)
 
             t = int(x_test.shape[0])
-            sess = ValuationSession(
-                x_train, y_train, k=k, mode=self.name,
-                test_batch=max(1, min(test_batch, t)),
-                distance=explicit.get("distance", "plain"),
-                method_opts=kw or None, device=dev,
-            )
+            skw = dict(k=k, mode=self.name,
+                       test_batch=max(1, min(test_batch, t)),
+                       distance=explicit.get("distance", "plain"),
+                       method_opts=kw or None, device=dev)
+            if engine == "sharded":
+                sess = ShardedValuationSession(
+                    x_train, y_train, shards=shards, devices=devices, **skw)
+            else:
+                sess = ValuationSession(x_train, y_train, **skw)
             values = sess.update(x_test, y_test).finalize().point_values
             meta.update({nm: v for nm, v in sess._resolved.items()
-                         if nm in ("distance", "test_batch")})
+                         if nm in ("distance", "shards", "test_batch")})
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         meta["elapsed_s"] = round(time.perf_counter() - t0, 4)

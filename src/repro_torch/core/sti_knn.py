@@ -29,6 +29,7 @@ caller's tensor in place and returns it.
 from __future__ import annotations
 
 import inspect
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -46,6 +47,10 @@ __all__ = [
     "register_acc_fill_fn",
     "accumulate_fill",
     "resolve_fill",
+    "register_rect_fill_fn",
+    "register_rect_acc_fill_fn",
+    "accumulate_rect_fill",
+    "resolve_rect_fill",
     "InteractionMode",
 ]
 
@@ -295,6 +300,148 @@ def resolve_fill(
     bad = set(params) - set(_accepted_params(_FILL_FNS[fill], params))
     if bad:
         raise ValueError(f"fill {fill!r} does not accept params {sorted(bad)}")
+    return fill, tuple(sorted(params.items()))
+
+
+# ------------------------------------------------------- rectangular fills
+# A RECT fill computes out[a, b] = sum_p g[p, max(r_rows[p, a], r_cols[p, b])]
+# for INDEPENDENT row/column index bases over the same global rank space:
+# the sharded engine's (n/D, n) row-block update is
+# `r_rows = rect_row_view(ranks, i * n/D, n/D)`, `r_cols = ranks`. The
+# square fills above are the r_rows == r_cols special case.
+def _rect_one(gc: torch.Tensor, rrc: torch.Tensor, rcc: torch.Tensor
+              ) -> torch.Tensor:
+    """(c, n) g and (c, n_rows) / (c, n_cols) int64 ranks -> the
+    (c, n_rows, n_cols) per-test-point blocks g[p, max(r_rows, r_cols)],
+    by the compare-select identity on g gathered at each side's ranks."""
+    gr, gcol = torch.gather(gc, 1, rrc), torch.gather(gc, 1, rcc)
+    return torch.where(rrc[:, :, None] >= rcc[:, None, :],
+                       gr[:, :, None], gcol[:, None, :])
+
+
+def _rect_fill_xla(g, r_rows, r_cols) -> torch.Tensor:
+    """Rectangular reference fill (the JAX package's "xla" entry):
+    materializes the (t, n_rows, n_cols) gather. The correctness oracle of
+    the streaming and CUDA rect variants."""
+    t = g.shape[0]
+    rr, rc = r_rows.long(), r_cols.long()
+    m = torch.maximum(rr[:, :, None], rc[:, None, :]).reshape(t, -1)
+    out = torch.gather(g.to(torch.float32), 1, m).sum(0)
+    return out.reshape(rr.shape[1], rc.shape[1])
+
+
+def _scan_rect_fill(g, r_rows, r_cols, chunk: int, acc=None):
+    """Rect twin of `_scan_fill`: `chunk` test points at a time into an
+    (n_rows, n_cols) accumulator, `acc` in place (None starts from
+    zeros)."""
+    t = g.shape[0]
+    chunk = max(1, min(int(chunk), t))
+    g = g.to(torch.float32)
+    rr, rc = r_rows.long(), r_cols.long()
+    if acc is None:
+        acc = torch.zeros((rr.shape[1], rc.shape[1]), dtype=torch.float32,
+                          device=g.device)
+    for s in range(0, t, chunk):
+        acc.add_(_rect_one(g[s:s + chunk], rr[s:s + chunk],
+                           rc[s:s + chunk]).sum(0))
+    return acc
+
+
+def _rect_fill_chunked(g, r_rows, r_cols, *, chunk: int = 1):
+    """Chunked rect fill: constant memory in t, peak
+    O(chunk * n_rows * n_cols). The sharded engine's CPU default."""
+    return _scan_rect_fill(g, r_rows, r_cols, chunk)
+
+
+def _rect_acc_fill_chunked(acc, g, r_rows, r_cols, *, chunk: int = 1):
+    """In-place form of the chunked rect fill: adds into the caller's
+    (n_rows, n_cols) block."""
+    return _scan_rect_fill(g, r_rows, r_cols, chunk, acc=acc)
+
+
+# Rectangular fill registries, mirroring _FILL_FNS/_ACC_FILL_FNS:
+# `fn(g, r_rows, r_cols, **static) -> (n_rows, n_cols)` and the in-place
+# accumulate form `fn(acc, g, r_rows, r_cols, **static) -> acc`. The CUDA
+# rect kernel registers as "cuda" when repro_torch.kernels is imported.
+_RECT_FILL_FNS: dict[str, Callable] = {
+    "xla": _rect_fill_xla,
+    "chunked": _rect_fill_chunked,
+}
+
+_RECT_ACC_FILL_FNS: dict[str, Callable] = {
+    "chunked": _rect_acc_fill_chunked,
+}
+
+
+def register_rect_fill_fn(name: str, fn: Callable) -> None:
+    """Register a rectangular fill:
+    `fn(g, r_rows, r_cols, **static_params) -> (n_rows, n_cols) f32`."""
+    _RECT_FILL_FNS[name] = fn
+
+
+def register_rect_acc_fill_fn(name: str, fn: Callable) -> None:
+    """Register the in-place accumulate form of rect fill `name`:
+    `fn(acc, g, r_rows, r_cols, **static_params)` adds
+    `_RECT_FILL_FNS[name](g, r_rows, r_cols)` into `acc` in place and
+    returns `acc`."""
+    _RECT_ACC_FILL_FNS[name] = fn
+
+
+def accumulate_rect_fill(acc, g, r_rows, r_cols, fill: str,
+                         fill_static: tuple = ()):
+    """acc += rect_fill(g, r_rows, r_cols) in place, via the registered
+    accumulate form when one exists and `acc.add_` of the plain form
+    otherwise. This is the sharded step's row-block update: acc is one
+    shard's (n/D, n) block."""
+    fn = _RECT_ACC_FILL_FNS.get(fill)
+    if fn is not None:
+        return fn(acc, g, r_rows, r_cols, **dict(fill_static))
+    return acc.add_(_RECT_FILL_FNS[fill](g, r_rows, r_cols,
+                                         **dict(fill_static)))
+
+
+def resolve_rect_fill(
+    fill: str,
+    n_rows: int,
+    n_cols: int,
+    t: int,
+    *,
+    fill_params: Optional[dict] = None,
+    backend: str = "cuda",
+) -> tuple[str, tuple]:
+    """Resolve a rect fill request to (registry_name, hashable static
+    params). "auto" takes `repro_torch.kernels.autotune.best_rect_fill`
+    for `backend` ("cuda" -> the CUDA rect kernel, "cpu" -> chunked). A
+    SQUARE registry name with no rect twin (e.g. "onehot", restored from a
+    single-device checkpoint) runs the chunked rect scan with a warning:
+    the sharded engine keeps running. Explicit `fill_params` the winner
+    does not accept are dropped under "auto" and rejected otherwise."""
+    params = dict(fill_params or {})
+    if fill == "auto":
+        from repro_torch.kernels.autotune import best_rect_fill  # no cycle
+
+        name, tuned = best_rect_fill(backend=backend)
+        tuned.update(params)
+        params = _accepted_params(_RECT_FILL_FNS[name], tuned)
+        fill = name
+    if fill not in _RECT_FILL_FNS:
+        if fill not in _FILL_FNS:
+            raise ValueError(
+                f"unknown rect fill {fill!r}; registered: "
+                f"{sorted(_RECT_FILL_FNS)}"
+            )
+        warnings.warn(
+            f"fill {fill!r} has no rectangular variant; the sharded engine "
+            f"runs the chunked rect scan instead",
+            stacklevel=2,
+        )
+        fill = "chunked"
+        params = _accepted_params(_RECT_FILL_FNS[fill], params)
+    bad = set(params) - set(_accepted_params(_RECT_FILL_FNS[fill], params))
+    if bad:
+        raise ValueError(
+            f"rect fill {fill!r} does not accept params {sorted(bad)}"
+        )
     return fill, tuple(sorted(params.items()))
 
 

@@ -1,0 +1,129 @@
+"""High-level data-valuation API: `DataValuator`.
+
+Counterpart of `repro.core.valuation.DataValuator`, a thin wrapper over
+the valuation method registry (`repro_torch.core.methods`): `run()`
+returns the full `ValuationResult`, the legacy accessors
+(`interaction_matrix`, `shapley_values`, `loo`) return bare tensors, and
+`session()` opens a streaming session -- a `ShardedValuationSession` when
+the valuator's engine is "sharded". New code should use
+`get_method(name)(...)` and the sessions directly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from repro_torch.core.methods import ENGINES, get_method
+from repro_torch.core.results import ValuationResult
+from repro_torch.core.session import ValuationSession
+
+__all__ = ["DataValuator"]
+
+
+@dataclass
+class DataValuator:
+    """Valuation front-end over the method registry.
+
+    Args:
+      k: KNN parameter.
+      embed_fn: optional feature extractor applied to raw inputs before the
+        KNN (the paper's pre-trained-backbone pattern). None = identity.
+      mode: name of a registered valuation method; "sti" and "sii" produce
+        interaction matrices.
+      test_batch, fill: defaults passed to every run and session.
+      engine: an engine of the method's `ENGINES` row; None = the method's
+        own default. "sharded" makes `session()` open a
+        `ShardedValuationSession`.
+      device: where runs and sessions go ("cuda" unless "cpu" is asked
+        for).
+    """
+
+    k: int = 5
+    embed_fn: Optional[Callable] = None
+    mode: str = "sti"
+    test_batch: int = 256
+    fill: str = "auto"
+    engine: Optional[str] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        # fail at construction: unknown method / engine names give the
+        # registered alternatives up front
+        get_method(self.mode)
+        engines = ENGINES.get(self.mode)
+        if (self.engine is not None and engines is not None
+                and self.engine not in engines):
+            raise ValueError(
+                f"unknown engine {self.engine!r} for method {self.mode!r}; "
+                f"choose from {engines}"
+            )
+        if self.k < 1:
+            raise ValueError("k must be >= 1")
+
+    def _embed(self, x):
+        return x if self.embed_fn is None else self.embed_fn(x)
+
+    def run(self, x_train, y_train, x_test, y_test, *,
+            method: Optional[str] = None, **opts) -> ValuationResult:
+        """Run a registered method (default: this valuator's `mode`) on the
+        embedded features and return the full `ValuationResult`."""
+        m = get_method(method or self.mode)
+        accepted = getattr(m, "accepted_options", frozenset())
+        defaults = {"fill": self.fill, "test_batch": self.test_batch,
+                    "device": self.device}
+        if self.engine is not None:
+            defaults["engine"] = self.engine
+        for name, value in defaults.items():
+            if name not in accepted:
+                continue
+            if name == "engine":
+                # the valuator's engine is a default, not a mandate: an
+                # interaction engine must not leak into a point method
+                # (and vice versa) when run(method=...) crosses families
+                engines = ENGINES.get(getattr(m, "name", method or self.mode))
+                if engines is not None and value not in engines:
+                    continue
+            opts.setdefault(name, value)
+        return m(
+            self._embed(x_train), y_train, self._embed(x_test), y_test,
+            k=self.k, **opts,
+        )
+
+    def session(self, x_train, y_train, **opts) -> ValuationSession:
+        """Open a streaming `ValuationSession` against this training set
+        (a `ShardedValuationSession` when this valuator's engine is
+        "sharded" -- pass `shards=` or `devices=` to pin the shards)."""
+        opts.setdefault("k", self.k)
+        opts.setdefault("mode", self.mode)
+        opts.setdefault("test_batch", self.test_batch)
+        opts.setdefault("fill", self.fill)
+        opts.setdefault("embed_fn", self.embed_fn)
+        if self.engine == "sharded":
+            from repro_torch.core.session import ShardedValuationSession
+
+            if "devices" not in opts:
+                opts.setdefault("device", self.device)
+            return ShardedValuationSession(x_train, y_train, **opts)
+        if "shards" in opts or "devices" in opts:
+            raise ValueError(
+                "shards= and devices= require DataValuator(engine='sharded')"
+            )
+        opts.setdefault("device", self.device)
+        return ValuationSession(x_train, y_train, **opts)
+
+    def interaction_matrix(self, x_train, y_train, x_test, y_test):
+        """The (n, n) interaction matrix of this valuator's method."""
+        return self.run(x_train, y_train, x_test, y_test
+                        ).interaction_matrix()
+
+    def shapley_values(self, x_train, y_train, x_test, y_test):
+        """KNN-Shapley values of the train points."""
+        return self.run(
+            x_train, y_train, x_test, y_test, method="knn_shapley"
+        ).values()
+
+    def loo(self, x_train, y_train, x_test, y_test):
+        """Leave-one-out values of the train points."""
+        return self.run(x_train, y_train, x_test, y_test,
+                        method="loo").values()

@@ -1,11 +1,15 @@
 // Device code of the STI-KNN fill, shared by `sti_fill.cu` (the standalone
-// kernel) and `sti_megakernel.cu` (its update phase):
-//     acc[a, b] += sum_p g[p, max(r[p, row_offset + a], r[p, b])]
-// on a (nr, n) row block of the accumulator, through the compare-select
-// identity g[p, max(r_a, r_b)] = (r_a >= r_b) ? gt[p, a] : gt[p, b] with
-// gt[p, i] = g[p, r[p, i]]. Each element adds the test points in order
-// p = 0, 1, ..., so every caller gets the same bits. See `sti_fill.cu` for
-// the design and what bounds it.
+// square and rectangular kernels) and `sti_megakernel.cu` (its update
+// phase):
+//     acc[a, b] += sum_p g[p, max(r_rows[p, a], r_cols[p, b])]
+// on an (nr, nc) block of the accumulator, through the compare-select
+// identity g[p, max(r_a, r_b)] = (r_a >= r_b) ? gt_rows[p, a] : gt_cols[p, b]
+// with gt[p, i] = g[p, r[p, i]] gathered beforehand for each side. The
+// square fill is the case where both sides read the same (t, n) table; a
+// row block of the sharded engine reads its rows as a window of that
+// table. Each element adds the test points in order p = 0, 1, ..., so
+// every caller gets the same bits. See `sti_fill.cu` for the design and
+// what bounds it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,17 +25,25 @@ struct Smem {
   int2 cols_s[PCHUNK][TILE];
 };
 
-// Adds the t test points into the TILE x TILE tile at local (row0, col0)
-// of the (nr, n) row-major block `acc`, whose row a is train point
-// row_offset + a. gt and r are (t, n). Rows past nr and columns past n are
-// masked. Calls __syncthreads(): every thread of the block must call it.
+// One side of the fill: entry i of test point p is r[p * ld + i] (its
+// rank) and gt[p * ld + i] (g gathered at that rank), for i < count.
+struct Side {
+  const int* r;
+  const float* gt;
+  int ld, count;
+};
+
+// Adds the t test points into the TILE x TILE tile at (row0, col0) of the
+// (rows.count, cols.count) row-major block `acc`. Rows past rows.count and
+// columns past cols.count are masked. Calls __syncthreads(): every thread
+// of the block must call it.
 __device__ __forceinline__ void acc_tile(float* __restrict__ acc,
-                                         const float* __restrict__ gt,
-                                         const int* __restrict__ r, int t,
-                                         int n, int nr, int row_offset,
-                                         int row0, int col0, Smem& s) {
+                                         const Side rows, const Side cols,
+                                         int t, int row0, int col0,
+                                         Smem& s) {
   const int tid = threadIdx.x;
   const int tx = tid % STRIDE, ty = tid / STRIDE;
+  const int nr = rows.count, nc = cols.count;
 
   float a[MICRO][MICRO];
 #pragma unroll
@@ -40,7 +52,7 @@ __device__ __forceinline__ void acc_tile(float* __restrict__ acc,
 #pragma unroll
     for (int j = 0; j < MICRO; ++j) {
       const int cc = col0 + tx + STRIDE * j;
-      a[i][j] = (rr < nr && cc < n) ? acc[(size_t)rr * n + cc] : 0.f;
+      a[i][j] = (rr < nr && cc < nc) ? acc[(size_t)rr * nc + cc] : 0.f;
     }
   }
 
@@ -50,14 +62,14 @@ __device__ __forceinline__ void acc_tile(float* __restrict__ acc,
       const int pp = e / TILE, c = e % TILE;
       int2 rv = make_int2(-1, 0), cv = make_int2(-1, 0);
       if (pp < np) {
-        const size_t base = (size_t)(p0 + pp) * n;
         if (row0 + c < nr) {
-          const size_t ia = base + row_offset + row0 + c;
-          rv = make_int2(r[ia], __float_as_int(gt[ia]));
+          const size_t ia = (size_t)(p0 + pp) * rows.ld + row0 + c;
+          rv = make_int2(rows.r[ia], __float_as_int(rows.gt[ia]));
         }
-        if (col0 + c < n)
-          cv = make_int2(r[base + col0 + c],
-                         __float_as_int(gt[base + col0 + c]));
+        if (col0 + c < nc) {
+          const size_t ib = (size_t)(p0 + pp) * cols.ld + col0 + c;
+          cv = make_int2(cols.r[ib], __float_as_int(cols.gt[ib]));
+        }
       }
       s.rows_s[pp][c] = rv;
       s.cols_s[pp][c] = cv;
@@ -86,7 +98,7 @@ __device__ __forceinline__ void acc_tile(float* __restrict__ acc,
 #pragma unroll
     for (int j = 0; j < MICRO; ++j) {
       const int cc = col0 + tx + STRIDE * j;
-      if (cc < n) acc[(size_t)rr * n + cc] = a[i][j];
+      if (cc < nc) acc[(size_t)rr * nc + cc] = a[i][j];
     }
   }
 }

@@ -402,8 +402,12 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
     const int tiles_c = (n + fill_tile::TILE - 1) / fill_tile::TILE;
     const int tiles =
         (P.nr + fill_tile::TILE - 1) / fill_tile::TILE * tiles_c;
+    // rows: the window of the block's train points; cols: all n
+    const fill_tile::Side rows{P.ranks + P.row_offset, P.tab + P.row_offset,
+                               n, P.nr};
+    const fill_tile::Side cols{P.ranks, P.tab, n, n};
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-      fill_tile::acc_tile(P.acc, P.tab, P.ranks, tb, n, P.nr, P.row_offset,
+      fill_tile::acc_tile(P.acc, rows, cols, tb,
                           tile / tiles_c * fill_tile::TILE,
                           tile % tiles_c * fill_tile::TILE, sm.fill);
   }

@@ -22,6 +22,18 @@ plain version on the CPU.
 `prepare_stream_step` is the method-generic front door (tuple-state
 contract) that `ValuationSession` drives; `stream_point_values` the
 one-shot entry point of the point methods.
+
+`make_sharded_step` / `make_sharded_point_step` / `prepare_sharded_step`
+/ `prepare_sharded_stream_step` / `sharded_sti_knn_interactions` are the
+sharded form over a `ShardGroup` of D shards
+(`repro_torch.distributed.sharding`): each test batch is split into D
+row slices, the state into D row blocks ((n/D, n) of the accumulator and
+(n/D,) of the diagonal or point vector), and the step's arguments are
+per-shard lists. Each shard runs
+distance/rank/g on its slice; an all-gather of the small (tb, n) g/rank
+tables then feeds a rectangular fill of every row block, and a
+reduce-scatter of (n,) partials the diagonal or the point vector. The row
+blocks are complete sums, so finalize only concatenates them.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from repro_torch.core.sti_knn import (
     pairwise_sq_dists,
     ranks_from_order,
     resolve_fill,
+    resolve_rect_fill,
     superdiagonal_g,
 )
 from repro_torch.device import resolve_device, to_device
@@ -58,6 +71,11 @@ __all__ = [
     "pad_test_batch",
     "resolve_distance",
     "interaction_state_from_numpy",
+    "make_sharded_step",
+    "make_sharded_point_step",
+    "prepare_sharded_step",
+    "prepare_sharded_stream_step",
+    "sharded_sti_knn_interactions",
 ]
 
 _DISTANCES = ("plain", "cuda")
@@ -121,16 +139,15 @@ def pad_test_batch(xb: torch.Tensor, yb: torch.Tensor, tb: int):
     return xp, yp, mask
 
 
-def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
-    """The generic per-batch step body:
+def _prologue(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
+    """The head of a step on one batch, everything before the update:
 
-        body(state, xb, yb, mask, x_train, y_train) -> state
+        prologue(xb, yb, mask, x_train, y_train) -> (u, g, ranks)
 
     distance -> stable sort/rank -> sorted label match -> method
-    contribution (mask folded in) -> optional `superdiagonal_g` -> the
-    method's update kernel (in place on `state`)."""
+    contribution (mask folded in) -> optional `superdiagonal_g`."""
 
-    def body(state, xb, yb, mask, x_train, y_train):
+    def prologue(xb, yb, mask, x_train, y_train):
         d2 = dist_fn(xb, x_train)                                # (tb, n)
         order = torch.sort(d2, dim=-1, stable=True).indices      # int64
         ranks = ranks_from_order(order)
@@ -138,9 +155,34 @@ def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
         u = kernel.contrib(d2, order, match, mask)
         g = (superdiagonal_g(u, k, mode=kernel.g_mode)
              if kernel.needs_g else None)
+        return u, g, ranks
+
+    return prologue
+
+
+def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable,
+                 sharded: bool = False) -> Callable:
+    """The generic per-batch step body:
+
+        body(state, xb, yb, mask, x_train, y_train) -> state
+
+    `_prologue`, then the method's update kernel (in place on `state`).
+    `sharded=True` (a kernel built with a `ShardGroup`) takes every
+    argument as a per-shard list: each shard runs the prologue on its own
+    test slice, and the update's collectives join them."""
+    prologue = _prologue(kernel, k, dist_fn)
+
+    def body(state, xb, yb, mask, x_train, y_train):
+        u, g, ranks = prologue(xb, yb, mask, x_train, y_train)
         return kernel.update(state, u, g, ranks, mask)
 
-    return body
+    def sharded_body(state, xb, yb, mask, x_train, y_train):
+        heads = [prologue(*args)
+                 for args in zip(xb, yb, mask, x_train, y_train)]
+        u, g, ranks = (list(col) for col in zip(*heads))
+        return kernel.update(state, u, g, ranks, mask)
+
+    return sharded_body if sharded else body
 
 
 @functools.lru_cache(maxsize=None)
@@ -465,3 +507,291 @@ def fused_sti_knn_interactions(
     state = _stream(_tuple_state(step), INTERACTION_STATE.init(n, dev),
                     x_test, y_test, tb, dev, fdt, x_train, y_train)
     return INTERACTION_STATE.result_arrays(state, t)["phi"]
+
+
+# ------------------------------------------------------------------ sharded
+@functools.lru_cache(maxsize=None)
+def make_sharded_step(
+    group,
+    k: int,
+    mode: InteractionMode = "sti",
+    fill: str = "chunked",
+    fill_static: tuple = (),
+    distance: str = "plain",
+) -> Callable:
+    """Build the sharded interaction step over the D shards of `group`
+    (a `repro_torch.distributed.sharding.ShardGroup`):
+
+        step(acc, diag, xb, yb, mask, x_train, y_train) -> (acc, diag)
+
+    with every argument a per-shard list: acc[i] is shard i's (n/D, n) row
+    block and diag[i] its (n/D,) rows, both updated in place; xb/yb/mask[i]
+    its (tb/D, ...) slice of the test batch (tb a multiple of D;
+    `prepare_sharded_step` rounds it up and the mask absorbs the padding);
+    x_train/y_train[i] the train set on its device. Per step:
+
+      1. distance/rank/g on each shard's (tb/D, n) test slice;
+      2. an all-gather of the small (tb, n) g/rank tables and a
+         reduce-scatter of the (n,) diag partials (the only collectives,
+         O(tb n) bytes, never O(n^2));
+      3. a rectangular fill of each row block with ALL tb test points
+         through the rect fill registry (`fill`/`fill_static` name a
+         rectangular variant: the CUDA rect kernel on a card, the chunked
+         scan on the CPU).
+
+    `fill="megakernel"` instead all-gathers the (tb, d) test batch and
+    runs ONE launch of the fused kernel per shard on its row block, with
+    `row_offset = i * n/D`: each shard re-ranks the whole batch, and the
+    collectives carry O(tb d) bytes instead of O(tb n). Cached per static
+    configuration."""
+    if fill == "megakernel":
+        from repro_torch.kernels.sti_megakernel import sti_megakernel_cuda
+
+        params = dict(fill_static)
+
+        def mega_step(acc, diag, xb, yb, mask, x_train, y_train):
+            xb_all = group.all_gather(xb)
+            yb_all = group.all_gather(yb)
+            mask_all = group.all_gather(mask)
+            for i in range(group.size):
+                nl = acc[i].shape[0]
+                sti_megakernel_cuda(
+                    acc[i], diag[i], xb_all[i], yb_all[i], mask_all[i],
+                    x_train[i], y_train[i], k=int(k), mode=mode,
+                    row_offset=i * nl, **params)
+            return acc, diag
+
+        return mega_step
+    body = _stream_body(
+        make_update_kernel(mode, k, fill=fill, fill_static=fill_static,
+                           axis=group),
+        int(k), _distance_fn(distance), sharded=True,
+    )
+
+    def step(acc, diag, xb, yb, mask, x_train, y_train):
+        return body((acc, diag), xb, yb, mask, x_train, y_train)
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_sharded_point_step(
+    group,
+    method: str,
+    k: int,
+    method_static: tuple = (),
+    distance: str = "plain",
+    fill: Optional[str] = None,
+    fill_static: tuple = (),
+) -> Callable:
+    """Sharded form of `make_point_step` over the shards of `group`:
+
+        step(vec, xb, yb, mask, x_train, y_train) -> vec
+
+    with vec[i] shard i's (n/D,) rows, updated in place, and the other
+    arguments per-shard lists as in `make_sharded_step`. Each shard
+    computes values on its (tb/D, n) test slice; ONE reduce-scatter of
+    the (n,) partials lands block i on shard i. No O(n^2) state and no
+    O(tb n) gather: point methods need no cross-shard rank tables.
+
+    `fill="megakernel"` all-gathers the (tb, d) test batch and runs one
+    launch of the fused point kernel per shard on its (n/D,) rows with
+    `row_offset = i * n/D`; the reduce-scatter disappears because every
+    shard folds the whole batch."""
+    if fill == "megakernel":
+        from repro_torch.kernels.sti_megakernel import point_megakernel_cuda
+
+        params = dict(fill_static)
+        opts = dict(method_static)
+
+        def mega_step(vec, xb, yb, mask, x_train, y_train):
+            xb_all = group.all_gather(xb)
+            yb_all = group.all_gather(yb)
+            mask_all = group.all_gather(mask)
+            for i in range(group.size):
+                nl = vec[i].shape[0]
+                point_megakernel_cuda(
+                    vec[i], xb_all[i], yb_all[i], mask_all[i], x_train[i],
+                    y_train[i], method=method, k=int(k), opts=opts,
+                    row_offset=i * nl, **params)
+            return vec
+
+        return mega_step
+    body = _stream_body(
+        make_update_kernel(method, k, opts=dict(method_static), axis=group),
+        int(k), _distance_fn(distance), sharded=True,
+    )
+
+    def step(vec, xb, yb, mask, x_train, y_train):
+        return body((vec,), xb, yb, mask, x_train, y_train)[0]
+
+    return step
+
+
+def _shard_group(n: int, shards: Optional[int], devices):
+    """The `ShardGroup` of a sharded run: over `devices` when given (every
+    entry one shard, repeats allowed), else over the first
+    `shard_count(n, shards)` local cards. Raises unless n divides into
+    the shard count."""
+    from repro_torch.distributed.sharding import (
+        ShardGroup, shard_count, valuation_devices)
+
+    if devices is None:
+        devices = valuation_devices(shard_count(n, shards))
+    group = ShardGroup(tuple(resolve_device(d) for d in devices))
+    if n % group.size:
+        raise ValueError(
+            f"n={n} must divide evenly into {group.size} row shards "
+            f"(the per-shard blocks are exactly (n/D, n))"
+        )
+    return group
+
+
+def prepare_sharded_step(
+    n: int,
+    d: int,
+    k: int,
+    *,
+    devices=None,
+    shards: Optional[int] = None,
+    mode: InteractionMode = "sti",
+    test_batch: int = 256,
+    fill: str = "auto",
+    fill_params: Optional[dict] = None,
+    distance: str = "auto",
+) -> tuple[Callable, dict, object]:
+    """Resolve the shard group, fill and distance of the sharded engine and
+    return `(step, resolved, group)`. `resolved` names the concrete
+    implementations plus {"shards", "test_batch"}: test_batch rounded UP
+    to a multiple of the shard count, so every shard gets an equal test
+    slice (the mask absorbs the difference).
+
+    The row-block update resolves against the RECTANGULAR fill registry
+    (`core.sti_knn.resolve_rect_fill`) at the per-shard (n/D, n) block
+    shape, and is reported under a `rect_` name ("rect_cuda",
+    "rect_chunked"); "megakernel" keeps its own name."""
+    group = _shard_group(n, shards, devices)
+    num = group.size
+    backend = group.devices[0].type
+    tb = -(-max(1, int(test_batch)) // num) * num
+    mega = _resolve_megakernel(fill, fill_params)
+    if mega is not None:
+        step = make_sharded_step(group, int(k), mode, "megakernel", mega)
+        return step, {"fill": "megakernel", "fill_params": dict(mega),
+                      "distance": "fused", "shards": num,
+                      "test_batch": tb}, group
+    # the fill sees the (n/D, n) row block and ALL tb gathered test
+    # points; the distance stage runs on (tb/D, n) slices
+    fill_name, fill_static = resolve_rect_fill(
+        fill, n // num, n, tb, fill_params=fill_params, backend=backend)
+    dist_name = resolve_distance(distance, tb // num, n, d, backend=backend)
+    step = make_sharded_step(group, int(k), mode, fill_name, fill_static,
+                             dist_name)
+    resolved = {
+        # rect_ prefix: the name lives in the rectangular fill registry,
+        # not the square one (a session restore re-resolves such names)
+        "fill": f"rect_{fill_name}",
+        "fill_params": dict(fill_static),
+        "distance": dist_name,
+        "shards": num,
+        "test_batch": tb,
+    }
+    return step, resolved, group
+
+
+def prepare_sharded_stream_step(
+    method: str,
+    n: int,
+    d: int,
+    k: int,
+    *,
+    devices=None,
+    shards: Optional[int] = None,
+    test_batch: int = 256,
+    fill: str = "auto",
+    fill_params: Optional[dict] = None,
+    distance: str = "auto",
+    method_opts: Optional[dict] = None,
+) -> tuple[Callable, dict, object, AccumulatorSpec]:
+    """Method-generic form of `prepare_sharded_step`: `(step, resolved,
+    group, spec)` with the tuple-state contract of `prepare_stream_step`,
+    where each state entry is a per-shard list of row blocks
+    (`spec.init_shards`). Interaction methods route through the
+    rectangular fill registry; point methods build the reduce-scatter
+    vector step and report resolved["fill"] = None (or "megakernel")."""
+    spec = accumulator_spec(method)
+    if spec.kind == "interaction":
+        inner, resolved, group = prepare_sharded_step(
+            n, d, k, devices=devices, shards=shards, mode=method,
+            test_batch=test_batch, fill=fill, fill_params=fill_params,
+            distance=distance,
+        )
+        return _tuple_state(inner), resolved, group, spec
+    group = _shard_group(n, shards, devices)
+    num = group.size
+    tb = -(-max(1, int(test_batch)) // num) * num
+    mega = _resolve_megakernel(fill, fill_params)
+    if mega is not None:
+        inner = make_sharded_point_step(
+            group, method, int(k), _method_static(method_opts),
+            fill="megakernel", fill_static=mega)
+        return (_vector_state(inner),
+                {"fill": "megakernel", "distance": "fused", "shards": num,
+                 "test_batch": tb}, group, spec)
+    dist_name = resolve_distance(distance, tb // num, n, d,
+                                 backend=group.devices[0].type)
+    inner = make_sharded_point_step(group, method, int(k),
+                                    _method_static(method_opts), dist_name)
+    return (_vector_state(inner),
+            {"fill": None, "distance": dist_name, "shards": num,
+             "test_batch": tb}, group, spec)
+
+
+def sharded_sti_knn_interactions(
+    x_train,
+    y_train,
+    x_test,
+    y_test,
+    k: int,
+    *,
+    mode: InteractionMode = "sti",
+    test_batch: int = 256,
+    shards: Optional[int] = None,
+    devices=None,
+    fill: str = "auto",
+    fill_params: Optional[dict] = None,
+    distance: str = "auto",
+    device="cuda",
+    return_info: bool = False,
+):
+    """STI-KNN on the sharded pipeline; the result contract of
+    `sti_knn_interactions`, phi on the first shard's device. Falls back
+    to the single-device step on `device` when only one shard is usable
+    (one card, shards=1, or a one-entry device list); `device` is unused
+    when `devices` is given. With
+    `return_info=True` returns `(phi, info)`, info naming the resolved
+    implementations, the shard count and the test batch.
+
+    A thin wrapper: it drives a `ShardedValuationSession` over the whole
+    test set, so placement, padding and finalize live in the session."""
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    t = int(x_test.shape[0])
+    if t < 1:
+        raise ValueError("need at least one test point")
+    if x_test.ndim != 2:
+        raise ValueError("features must be (num_points, dim)")
+    from repro_torch.core.session import ShardedValuationSession
+
+    sess = ShardedValuationSession(
+        x_train, y_train, shards=shards, devices=devices, k=k, mode=mode,
+        test_batch=max(1, min(int(test_batch), t)), fill=fill,
+        fill_params=fill_params, distance=distance, device=device,
+    )
+    phi = sess.update(x_test, y_test).finalize().phi
+    if return_info:
+        info = dict(sess._resolved)
+        info.setdefault("shards", sess.shards)
+        info.setdefault("test_batch", sess.test_batch)
+        return phi, info
+    return phi

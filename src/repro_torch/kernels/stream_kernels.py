@@ -16,11 +16,16 @@ small objects:
     state`, which updates the state tensors IN PLACE (the JAX step donates
     them instead).
 
-Kernels are built by registered factories keyed by method name. The
-fused megakernel (`repro_torch.kernels.sti_megakernel`) does not gather
-through `order`: it builds each method's tables on the sorted stream, from
-the closures registered with `register_megakernel_tables` below. The
-sharded (`axis`) variant comes with a later slice.
+Kernels are built by registered factories keyed by method name.
+`axis=None` builds the single-device update; a
+`repro_torch.distributed.sharding.ShardGroup` builds the sharded update,
+whose arguments are per-shard lists (the local views of the JAX
+`shard_map` body): a rectangular row-block fill after an all-gather of
+the g/rank tables for the interaction methods, a reduce-scatter of the
+(n,) partial for the diagonal and for the point vector. The fused
+megakernel (`repro_torch.kernels.sti_megakernel`) does not gather through
+`order`: it builds each method's tables on the sorted stream, from the
+closures registered with `register_megakernel_tables` below.
 """
 
 from __future__ import annotations
@@ -30,7 +35,11 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.sti_knn import accumulate_fill, superdiagonal_g
+from repro_torch.core.sti_knn import (
+    accumulate_fill,
+    accumulate_rect_fill,
+    superdiagonal_g,
+)
 
 __all__ = [
     "AccumulatorSpec",
@@ -52,7 +61,9 @@ class AccumulatorSpec:
     """Shape/dtype contract of one method family's running state.
 
     `names` are the checkpoint array names; `layouts` name each array's
-    shape: "matrix" = (n, n), "vector" = (n,)."""
+    shape: "matrix" = (n, n), "vector" = (n,). Sharded over D shards, a
+    matrix is held as D (n/D, n) row blocks and a vector as D (n/D,)
+    rows, one list of blocks per array (`init_shards`, `place`)."""
 
     kind: str                    # "interaction" | "point"
     names: tuple[str, ...]
@@ -68,6 +79,35 @@ class AccumulatorSpec:
         """Zero-initialized f32 state tuple on `device`."""
         return tuple(torch.zeros(s, dtype=torch.float32, device=device)
                      for s in self.shapes(n))
+
+    def shard_shapes(self, n: int, shards: int
+                     ) -> tuple[tuple[int, ...], ...]:
+        """Per-shard array shapes over `shards` row shards: (n/D, n) for a
+        matrix, (n/D,) for a vector (the JAX package's
+        `partition_specs`)."""
+        if n % shards:
+            raise ValueError(
+                f"n={n} must divide evenly into {shards} row shards"
+            )
+        return tuple((n // shards,) + shape[1:] for shape in self.shapes(n))
+
+    def init_shards(self, n: int, group) -> tuple[list, ...]:
+        """Zero f32 state over the shards of `group`: per array, a list of
+        one block per shard on its device."""
+        return tuple(
+            [torch.zeros(shape, dtype=torch.float32, device=dev)
+             for dev in group.devices]
+            for shape in self.shard_shapes(n, group.size))
+
+    def place(self, arrays, group) -> tuple[list, ...]:
+        """Whole (n, n) / (n,) arrays -> their per-shard row blocks on the
+        devices of `group` (the JAX package's `shardings` placement)."""
+        from repro_torch.distributed.sharding import shard_rows
+
+        return tuple(
+            [block.contiguous() for block in
+             shard_rows(a.to(torch.float32), group)]
+            for a in arrays)
 
     def result_arrays(self, state: tuple, t: int) -> dict:
         """Finalize a state of t accumulated test points into the
@@ -139,10 +179,12 @@ def make_update_kernel(
     opts: Optional[dict] = None,
     fill: Optional[str] = None,
     fill_static: tuple = (),
-    axis: Optional[str] = None,
+    axis=None,
 ) -> UpdateKernel:
     """Build the bound `UpdateKernel` for `method` with the resolved fill
-    `fill` / `fill_static`. `axis` must be None in this slice."""
+    `fill` / `fill_static` (a RECTANGULAR registry entry when `axis` is
+    given). `axis` is None for the single-device update or a `ShardGroup`
+    for the sharded one, whose `update` takes per-shard lists."""
     return _registered(method)[1](
         method, int(k), dict(opts or {}), fill, fill_static, axis
     )
@@ -159,22 +201,42 @@ def _interaction_factory(mode: str) -> Callable:
     `repro_torch.core.sti_knn`."""
 
     def factory(method, k, opts, fill, fill_static, axis):
-        if axis is not None:
-            raise NotImplementedError(
-                "the sharded interaction update is not ported yet"
-            )
-
         def contrib(d2, order, match, mask):
             return match * (mask / k)[:, None]
 
-        def update(state, u, g, ranks, mask):
-            acc, diag = state
-            accumulate_fill(acc, g, ranks, fill, fill_static)
-            # u in train coordinates is u[p, ranks[p, i]] =
-            # mask_p 1[y_i==y_p]/k: the diag term rides on the fill
-            # stage's u, masked for free.
-            diag.add_(torch.gather(u, 1, ranks).sum(0))
-            return (acc, diag)
+        if axis is None:
+            def update(state, u, g, ranks, mask):
+                acc, diag = state
+                accumulate_fill(acc, g, ranks, fill, fill_static)
+                # u in train coordinates is u[p, ranks[p, i]] =
+                # mask_p 1[y_i==y_p]/k: the diag term rides on the fill
+                # stage's u, masked for free.
+                diag.add_(torch.gather(u, 1, ranks).sum(0))
+                return (acc, diag)
+        else:
+            def update(state, u, g, ranks, mask):
+                from repro_torch.kernels.sti_fill import rect_row_view
+
+                # per-shard lists: acc[i] (nl, n), diag[i] (nl,),
+                # u/g/ranks[i] (tb/D, n)
+                acc, diag = state
+                g_all = axis.all_gather(g)
+                r_all = axis.all_gather(ranks)
+                for i in range(axis.size):
+                    nl = acc[i].shape[0]
+                    # shard i's (tb, nl) row window of the global ranks
+                    r_rows = rect_row_view(r_all[i], i * nl, nl)
+                    accumulate_rect_fill(acc[i], g_all[i], r_rows, r_all[i],
+                                         fill, fill_static)
+                # the diag update reduces over the test dim, so it needs
+                # only a reduce-scatter of the (n,) partials -- O(n)
+                # bytes, not the O(tb n) gather the fill needs whole
+                parts = axis.reduce_scatter(
+                    [torch.gather(u_i, 1, r_i).sum(0)
+                     for u_i, r_i in zip(u, ranks)])
+                for d_i, part in zip(diag, parts):
+                    d_i.add_(part)
+                return (acc, diag)
 
         return UpdateKernel(method, INTERACTION_STATE, True, mode,
                             contrib, update)
@@ -225,20 +287,23 @@ def _loo_point_values(u, ranks, k, opts):
 def _point_factory(contrib_fn: Callable, values_fn: Callable) -> Callable:
     """Factory maker for vector-accumulator methods: `values_fn` maps the
     batch to (tb, n) per-train-point values in train coordinates; the
-    update adds their test-dim sum into the (n,) vector in place (the
-    vector twin of the interaction diag update)."""
+    update adds their test-dim sum into the (n,) vector in place
+    (reduce-scattered onto the (n/D,) rows of each shard when sharded --
+    the vector twin of the interaction diag update)."""
 
     def factory(method, k, opts, fill, fill_static, axis):
-        if axis is not None:
-            raise NotImplementedError(
-                "the sharded point update is not ported yet"
-            )
-
         def contrib(d2, order, match, mask):
             return contrib_fn(d2, order, match, mask, k, opts)
 
         def update(state, u, g, ranks, mask):
-            state[0].add_(values_fn(u, ranks, k, opts).sum(0))
+            if axis is None:
+                state[0].add_(values_fn(u, ranks, k, opts).sum(0))
+                return state
+            parts = axis.reduce_scatter(
+                [values_fn(u_i, r_i, k, opts).sum(0)
+                 for u_i, r_i in zip(u, ranks)])
+            for v_i, part in zip(state[0], parts):
+                v_i.add_(part)
             return state
 
         return UpdateKernel(method, POINT_STATE, False, None,

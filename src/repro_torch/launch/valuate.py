@@ -5,14 +5,22 @@ end-to-end on a CUDA card (or, when asked, the CPU).
   PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu --n 64 --t 16
   PYTHONPATH=src python -m repro_torch.launch.valuate --method knn_shapley \
       --fill megakernel
+  PYTHONPATH=src python -m repro_torch.launch.valuate --engine sharded \
+      --shards 4 --devices cuda     # four shards on one card
+  PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
+      --engine sharded --shards 8 --devices cpu --n 64 --t 16
 
 Pipeline: synthetic circles (10% of train labels flipped) -> a method from
 the registry ("sti"/"sii" on the `fused` or `scan` engine, or a per-point
-method "knn_shapley"/"wknn"/"loo" on its `streamed` session) -> efficiency
-check and mislabel detection. `--fill megakernel` runs every streaming
-step as one launch of the fused kernel (for the point methods through a
-`ValuationSession`). `--save` writes the result in the format both
-packages read (npz + JSON).
+method "knn_shapley"/"wknn"/"loo" on its `streamed` session; any method
+on the `sharded` engine) -> efficiency check and mislabel detection.
+`--fill megakernel` runs every streaming step as one launch of the fused
+kernel (for the point methods through a session). `--engine sharded`
+splits the state into `--shards` row blocks over `--devices`, a comma-
+separated list with one device per shard (a single name is repeated
+`--shards` times); without `--devices` the shards go one per local card,
+so a one-card host runs several shards only through `--devices`. `--save`
+writes the result in the format both packages read (npz + JSON).
 """
 
 from __future__ import annotations
@@ -23,23 +31,39 @@ import time
 import numpy as np
 
 from repro_torch.core.methods import ENGINES, get_method
-from repro_torch.core.session import ValuationSession
+from repro_torch.core.session import (
+    ShardedValuationSession, ValuationSession)
 from repro_torch.core.sti_baseline import sorted_orders
 from repro_torch.data import flip_labels, make_circles
+
+
+def _shard_options(args) -> dict:
+    """--shards / --devices as the sharded engine's keyword options."""
+    if args.engine != "sharded":
+        return {}
+    devices = args.devices.split(",") if args.devices else None
+    if devices is not None and len(devices) == 1 and args.shards:
+        devices = devices * args.shards
+    return {"shards": args.shards if devices is None else None,
+            "devices": devices}
 
 
 def _point_values(args, x, y, xt, yt):
     """A point method's result: through the registry, or -- for
     `--fill megakernel`, which the registry's point engines do not take --
-    through a `ValuationSession`, as in the JAX launcher."""
+    through a session (sharded with --engine sharded), as in the JAX
+    launcher."""
+    shard_kw = _shard_options(args)
     if args.fill != "megakernel":
         engine = args.engine if args.engine in ENGINES[args.method] else None
         return get_method(args.method)(
             x, y, xt, yt, k=args.k, engine=engine, distance=args.distance,
-            test_batch=args.test_batch, device=args.device)
-    sess = ValuationSession(
-        x, y, k=args.k, mode=args.method, test_batch=args.test_batch,
-        fill="megakernel", distance=args.distance, device=args.device)
+            test_batch=args.test_batch, device=args.device,
+            **{nm: v for nm, v in shard_kw.items() if v is not None})
+    kw = dict(k=args.k, mode=args.method, test_batch=args.test_batch,
+              fill="megakernel", distance=args.distance, device=args.device)
+    sess = (ShardedValuationSession(x, y, **shard_kw, **kw) if shard_kw
+            else ValuationSession(x, y, **kw))
     return sess.update(xt, yt).finalize()
 
 
@@ -61,6 +85,13 @@ def main():
     ap.add_argument("--distance", default="auto", help="auto|cuda|plain")
     ap.add_argument("--test-batch", type=int, default=256)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shard count for --engine sharded (default: one "
+                         "per local card, clamped to a divisor of n)")
+    ap.add_argument("--devices", default=None,
+                    help="--engine sharded: comma-separated devices, one "
+                         "per shard (e.g. cuda,cuda,cuda,cuda); a single "
+                         "name is repeated --shards times")
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="persist the ValuationResult to PATH.npz + PATH.json")
     args = ap.parse_args()
@@ -71,18 +102,26 @@ def main():
     n, t = int(x.shape[0]), int(xt.shape[0])
 
     t0 = time.time()
+    if (args.shards is not None or args.devices) and \
+            args.engine != "sharded":
+        ap.error("--shards and --devices need --engine sharded")
     if args.method in ("sti", "sii"):
+        shard_kw = {nm: v for nm, v in _shard_options(args).items()
+                    if v is not None}
         result = get_method(args.method)(
             x, y, xt, yt, k=args.k, engine=args.engine, fill=args.fill,
             distance=args.distance, test_batch=args.test_batch,
-            device=args.device,
+            device=args.device, **shard_kw,
         )
     else:
         result = _point_values(args, x, y, xt, yt)
     dt = time.time() - t0
     meta = result.meta
+    shards = (f", shards={meta.get('shards', 1)}"
+              if meta["engine"] == "sharded" else "")
     print(f"{args.method} ({meta['engine']}, fill={meta.get('fill')}, "
-          f"device={meta['device_kind']}) n={n} t={t} k={args.k}: {dt:.3f}s")
+          f"device={meta['device_kind']}{shards}) n={n} t={t} k={args.k}: "
+          f"{dt:.3f}s")
 
     # efficiency axiom (v(N) is the likelihood valuation, paper's v)
     orders = sorted_orders(x.numpy(), xt.numpy())

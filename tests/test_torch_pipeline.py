@@ -232,13 +232,13 @@ def test_get_method_matches_jax(method, engine):
 def test_registry_errors_and_listing():
     assert repro_torch.list_methods() == ["knn_shapley", "loo", "sii", "sti",
                                           "wknn"]
-    assert repro_torch.ENGINES["sti"] == ("fused", "scan")
+    assert repro_torch.ENGINES["sti"] == ("fused", "scan", "sharded")
     assert repro_torch.ENGINES["knn_shapley"] == ("streamed", "eager",
-                                                  "oracle")
+                                                  "sharded", "oracle")
     x, y, xt, yt = _problem(8, 2, 2, 1)
     # engines the port has not ported yet are refused, not emulated
-    for method, engine in (("sti", "sharded"), ("sii", "approx"),
-                           ("wknn", "sharded"), ("loo", "approx")):
+    for method, engine in (("sti", "distributed"), ("sii", "approx"),
+                           ("wknn", "approx"), ("loo", "approx")):
         with pytest.raises(ValueError, match="valid engines"):
             get_method(method)(x, y, xt, yt, k=3, engine=engine,
                                device="cpu")
@@ -332,7 +332,9 @@ def _env():
 def test_import_leaves_no_jax_or_repro_module():
     code = (
         "import sys, repro_torch, repro_torch.launch.valuate, "
-        "repro_torch.kernels.build, repro_torch.configs.sti_knn_paper\n"
+        "repro_torch.kernels.build, repro_torch.configs.sti_knn_paper, "
+        "repro_torch.distributed.sharding, repro_torch.core.valuation, "
+        "repro_torch.kernels.sti_fill, repro_torch.kernels.autotune\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -128,8 +128,21 @@ def test_stream_registry_and_point_state():
     state[0].add_(torch.arange(6.0))
     out = spec.result_arrays(state, 4)
     torch.testing.assert_close(out["point_values"], torch.arange(6.0) / 4)
-    with pytest.raises(NotImplementedError, match="sharded point"):
-        tsk.make_update_kernel("loo", 3, axis="shards")
+    # the sharded update: per-shard lists, reduce-scattered onto each
+    # shard's rows -- the single-device sum, split
+    from repro_torch.distributed.sharding import ShardGroup
+
+    group = ShardGroup(("cpu", "cpu"))
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.random((4, 6)).astype(np.float32))
+    ranks = torch.stack([torch.randperm(6) for _ in range(4)])
+    whole = tsk.make_update_kernel("loo", 3).update(
+        spec.init(6, "cpu"), u, None, ranks, None)[0]
+    parts = tsk.make_update_kernel("loo", 3, axis=group).update(
+        spec.init_shards(6, group), [u[:2], u[2:]], [None, None],
+        [ranks[:2], ranks[2:]], None)[0]
+    assert [tuple(p.shape) for p in parts] == [(3,), (3,)]
+    torch.testing.assert_close(torch.cat(parts), whole)
 
 
 # --------------------------------------------------------- whole methods
@@ -190,8 +203,10 @@ def test_point_method_option_errors():
     with pytest.raises(ValueError, match="valid engines"):
         get_method("loo")(x, y, xt, yt, engine="oracle", device="cpu")
     with pytest.raises(ValueError, match="valid engines"):
-        get_method("knn_shapley")(x, y, xt, yt, engine="sharded",
+        get_method("knn_shapley")(x, y, xt, yt, engine="approx",
                                   device="cpu")
+    with pytest.raises(ValueError, match="only meaningful"):
+        get_method("knn_shapley")(x, y, xt, yt, shards=2, device="cpu")
     with pytest.raises(ValueError, match="does not accept"):
         get_method("knn_shapley")(x, y, xt, yt, fill="megakernel",
                                   device="cpu")
