@@ -22,6 +22,18 @@ n = 65536, d = 768, k = 5) with t = 384 test points (one full batch of
       rect fill kernel and through one megakernel launch per shard, and
       knn_shapley both ways, held against [4] and the single-device step.
 
+and then the LM serving path at the full width and depth of qwen3-1.7b
+(`src/repro_torch/configs/qwen3_1_7b.py`: 28 layers, d_model 2048, 16
+query and 8 KV heads of 128, vocab 151936):
+
+  [8] the flash-attention kernel against its plain version (f32 and bf16,
+      the JAX tests' shapes, a ragged length, the path's shape) and its
+      times beside `scaled_dot_product_attention`; prefill/decode
+      consistency through the kernel (4 layers, f32); then
+      `Engine(ServeConfig(max_slots=4, max_len=2112))` serving 8 requests
+      of 1984-2048 prompt tokens greedily to max_len - 1, every prefill
+      through the kernel (28 launches a request).
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -44,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # FMA counted as two operations
 SIMPLE_OPS_PER_S = F32_FLOP_PER_S / 2  # one f32/int instruction per lane
+BF16_FLOP_PER_S = 989e12        # tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -140,6 +153,297 @@ def point_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
         nbytes / HBM_BYTES_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
         "operations"
+
+
+def visible_pairs(s, sk, causal, window) -> int:
+    """(query, key) pairs that the causal / window masks leave visible."""
+    total = 0
+    for q in range(s):
+        hi = min(sk - 1, q) if causal else sk - 1
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound_ms(b, h, s, sk, d, causal, window, elt) -> tuple[float, str]:
+    # q, k, v read once and out written once; two products of 2 d
+    # operations per visible pair, at the tensor cores' rate for bf16
+    # inputs (the data-sheet peak for their type) and the f32 rate for f32
+    nbytes = (2 * s + 2 * sk) * b * h * d * elt
+    ops = 4.0 * b * h * d * visible_pairs(s, sk, causal, window)
+    peak = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
+        "operations"
+
+
+def bf16_ulp(torch, x):
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def device_busy(torch, fn) -> dict | None:
+    """Device time of `fn` from a torch.profiler trace: the sum of the
+    durations of its kernels, copies and sets (one stream, so they do not
+    overlap), and the five kernels that take the most. None when the trace
+    holds no device event."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    by_name: dict[str, float] = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    if not by_name:
+        return None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"busy_ms": sum(by_name.values()) / 1e3,
+            "top": [(nm, us / 1e3) for nm, us in top]}
+
+
+def lm_phase(torch, np, dev, entries) -> dict:
+    """[8]: the flash-attention kernel and the LM serving path at the full
+    width of qwen3-1.7b. Returns the serving numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    # --- the kernel against its plain version on the card
+    def hold(b, h, s, d, causal, window, dtype):
+        q, k, v = (torch.randn((b, h, s, d), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        if dtype == torch.float32:
+            # the same f32 function, sums in another order: the JAX
+            # tests' tolerance
+            ok = bool(((g - w).abs() <= 2e-5 + 2e-5 * w.abs()).all())
+            tol = "2e-5 abs + 2e-5 rel"
+        else:
+            # both round the same f32 function once: one bf16 ulp of the
+            # larger magnitude, plus 2e-5 for the f32 values' own
+            # difference before rounding
+            ok = bool(((g - w).abs() <= bf16_ulp(torch, torch.maximum(
+                g.abs(), w.abs())) + 2e-5).all())
+            tol = "1 bf16 ulp + 2e-5"
+        log(f"[8] flash_attention {str(dtype)[6:]} ({b}, {h}, {s}, {d}) "
+            f"causal={causal} window={window}: max_abs_err {err:.3e} "
+            f"(tol {tol}, element by element)")
+        if not ok:
+            fail(f"flash attention kernel disagrees with plain at "
+                 f"({b},{h},{s},{d}) {dtype} causal={causal} "
+                 f"window={window}: {err}")
+        return q, k, v, err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ((1, 2, 64, 16, True, None), (2, 1, 128, 32, True, None),
+                     (1, 2, 96, 16, True, 32), (1, 1, 64, 16, False, None),
+                     (1, 2, 200, 64, True, None),
+                     (1, 2, 200, 64, False, None),
+                     (1, 2, 200, 64, False, 48), (1, 2, 200, 64, True, 48),
+                     (1, 16, 2048, 128, True, None)):
+            q, k, v, err = hold(*case, dtype)
+    # q, k, v, err: the path's shape, (1, 16, 2048, 128) bf16 causal
+    fa_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v), reps=20)
+    fa_plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v),
+                          reps=5)
+    sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.
+                      scaled_dot_product_attention(q, k, v, is_causal=True),
+                      reps=20)
+    bound, by = flash_bound_ms(1, 16, 2048, 2048, 128, True, None, 2)
+    entries["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:72",
+        max_abs_err=err, ms=fa_ms, plain_ms=fa_plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=sdpa_ms,
+        shape="b=1 h=16 s=2048 d=128 bf16 causal")
+    log(f"[8] flash_attention (1, 16, 2048, 128) bf16 causal: kernel "
+        f"{fa_ms:.3f} ms, plain {fa_plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {sdpa_ms:.3f} ms, bound {bound:.4f} "
+        f"ms ({by})")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen3-1.7b")
+    with torch.no_grad():
+        # --- prefill/decode consistency through the kernel: full width,
+        # 4 layers, f32
+        cfg4 = cfg.replace(num_layers=4, dtype=torch.float32)
+        m4 = build_model(cfg4)
+        p4 = m4.init(gen, device=dev)
+        b, s = 2, 300
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                             device=dev)
+        launches0 = flash_attention_cuda.launches
+        full, _, _, _ = m4._fwd(p4, {"tokens": toks}, "train")
+        _, caches = m4.prefill(p4, {"tokens": toks[:, :s]})
+        if flash_attention_cuda.launches - launches0 != 2 * cfg4.num_layers:
+            fail("the consistency check did not run the kernel once a layer")
+        pool = m4.init_caches(b, s + 8, device=dev)
+        for pc, one in zip(pool, caches):
+            pc["kv"].k[..., :s, :] = one["kv"].k
+            pc["kv"].v[..., :s, :] = one["kv"].v
+            pc["kv"].pos[..., :s] = one["kv"].pos
+        dec, _ = m4.decode_step(p4, {"tokens": toks[:, s:s + 1],
+                                     "caches": pool, "index": s})
+        # the real vocab only: the padded columns are -1e30 on both sides
+        nv = cfg.vocab_size
+        if not (bool((full[:, -1, nv:] == -1e30).all())
+                and bool((dec[:, 0, nv:] == -1e30).all())):
+            fail("padded vocab columns are not -1e30")
+        want, got = full[:, -1, :nv], dec[:, 0, :nv]
+        cerr = float((got - want).abs().max())
+        cscale = float(want.abs().max())
+        same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        # f32 throughout (no TF32): the kernel's tiles and the decode
+        # path's one softmax sum in other orders; 1e-4 of the largest
+        # |logit| admits that rounding through 4 layers of d_model 2048
+        log(f"[8] prefill/decode consistency (qwen3-1.7b width, 4 layers, "
+            f"f32, b={b}, s={s}): decode logits vs forward over s + 1: "
+            f"max_abs_err {cerr:.3e} (max |ref| {cscale:.3e}, tol 1e-4 of "
+            f"it); argmax equal {same_argmax}")
+        if not (cerr <= 1e-4 * cscale and same_argmax):
+            fail(f"prefill/decode disagree: {cerr}, argmax {same_argmax}")
+        del p4, full, caches, pool, dec, want, got
+        torch.cuda.empty_cache()
+
+    # --- the serving path: full width and depth, bf16 activations, f32
+    # params drawn on the card
+    gen0 = torch.Generator(device=dev)
+    gen0.manual_seed(0)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = ServeConfig(max_slots=4, max_len=2112, eos_id=-1)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1984, 2049, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    eng = Engine(cfg, scfg, params)
+    rids = [eng.submit(p) for p in prompts]
+    # instrumentation of this run only: host time of each admission (the
+    # prefills) and each decode step, each ending in a synchronize, and a
+    # device-side NaN flag over every logit row sampled
+    timing = {"admit_s": 0.0, "steps": 0, "step_s": 0.0}
+    nan_seen = torch.zeros((), dtype=torch.bool, device=dev)
+    admit, step, sample = eng._admit, eng._step, eng._sample
+
+    def timed(fn, key):
+        def run():
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            timing[key] += time.perf_counter() - t
+            if key == "step_s":
+                timing["steps"] += 1
+        return run
+
+    def checked_sample(logits):
+        nan_seen.logical_or_(torch.isnan(logits).any())
+        return sample(logits)
+
+    eng._admit, eng._step = timed(admit, "admit_s"), timed(step, "step_s")
+    eng._sample = checked_sample
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = sum(len(r) for r in results.values())
+    entries["flash_attention"]["launches"] = launches
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, params=model.num_params(),
+        requests=len(prompts), prompt_lens=[int(n) for n in lens],
+        generated_tokens=n_tok, serve_s=serve_s, init_s=init_s,
+        prefill_ms_per_request=1e3 * timing["admit_s"] / len(prompts),
+        decode_steps=timing["steps"],
+        decode_ms_per_step=1e3 * timing["step_s"] / max(timing["steps"], 1),
+        tokens_per_s=n_tok / serve_s, peak_gib=peak_gib,
+        flash_launches=launches)
+    log(f"[8] served {len(results)} requests through {cfg.name} "
+        f"({cfg.num_layers} layers, {model.num_params() / 1e9:.3f} B params, "
+        f"init {init_s:.2f} s): {n_tok} tokens in {serve_s:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; prefill "
+        f"{out['prefill_ms_per_request']:.1f} ms per request (prompts "
+        f"{int(lens.min())}-{int(lens.max())}), decode "
+        f"{out['decode_ms_per_step']:.2f} ms per step over "
+        f"{timing['steps']} steps of {scfg.max_slots} slots; peak device "
+        f"memory {peak_gib:.2f} GiB; flash_attention launches {launches}")
+    want_launches = cfg.num_layers * len(prompts)
+    if launches != want_launches:
+        fail(f"[8] expected {want_launches} flash-attention launches "
+             f"({cfg.num_layers} layers x {len(prompts)} prefills), got "
+             f"{launches}")
+    if bool(nan_seen):
+        fail("[8] a sampled logit row held NaN")
+    for rid, n in zip(rids, lens):
+        toks_r = results.get(rid)
+        if toks_r is None or len(toks_r) != scfg.max_len - int(n):
+            fail(f"[8] request {rid} (prompt {n}) returned "
+                 f"{None if toks_r is None else len(toks_r)} tokens, "
+                 f"expected {scfg.max_len - int(n)}")
+        if not all(0 <= t < cfg.vocab_size for t in toks_r):
+            fail(f"[8] request {rid} returned a token outside the vocab")
+    # where a request's time goes on the card: one prefill of the longest
+    # prompt and three decode steps of the pool, under torch.profiler.
+    # Device busy time is the sum of the kernels' and copies' durations in
+    # the trace; the share of wall time is taken against the unprofiled
+    # times above (profiling slows the host, not the kernels).
+    with torch.no_grad():
+        toks = torch.from_numpy(prompts[int(np.argmax(lens))][None]).to(dev)
+        dec_toks = torch.zeros((scfg.max_slots, 1), dtype=torch.int64,
+                               device=dev)
+        busy = {
+            "prefill": device_busy(torch, lambda: model.prefill(
+                params, {"tokens": toks})),
+            "decode": device_busy(torch, lambda: [model.decode_step(
+                params, {"tokens": dec_toks, "caches": eng.caches,
+                         "index": scfg.max_len - 2}) for _ in range(3)]),
+        }
+    if all(v is not None for v in busy.values()):
+        busy["decode"]["busy_ms"] /= 3
+        busy["decode"]["top"] = [(nm, ms / 3)
+                                 for nm, ms in busy["decode"]["top"]]
+        for key, wall in (("prefill", out["prefill_ms_per_request"]),
+                          ("decode", out["decode_ms_per_step"])):
+            busy[key]["busy_share"] = busy[key]["busy_ms"] / wall
+            log(f"[8] {key}: device busy {busy[key]['busy_ms']:.2f} ms of "
+                f"{wall:.2f} ms wall ({100 * busy[key]['busy_share']:.1f} %); "
+                f"top kernels (ms): " + ", ".join(
+                    f"{nm[:48]} {ms:.2f}" for nm, ms in busy[key]["top"]))
+    else:
+        log("[8] torch.profiler traced no device time: busy share not "
+            "measured")
+    out["device_busy"] = busy
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -969,7 +1273,18 @@ def main() -> None:
     log("[4] step stages (ms): " + ", ".join(
         f"{nm} {marks[i].elapsed_time(marks[i + 1]):.3f}"
         for i, nm in enumerate(stages)))
-    log(f"[4] whole smoke run {time.perf_counter() - t_start:.1f} s")
+    del result, phi, diag, step, d2, order, ranks, u, g, xtr, ytr, xb, yb, \
+        mask
+    torch.cuda.empty_cache()
+
+    # ------------------ 8. flash attention and the LM serving path
+    t8 = time.perf_counter()
+    log(f"[8] device memory held before: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    serving = lm_phase(torch, np, dev, entries)
+    serving["phase_s"] = time.perf_counter() - t8
+    log(f"[8] phase {serving['phase_s']:.1f} s")
+    log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -989,6 +1304,7 @@ def main() -> None:
                                               f"d={d_full}"},
                       "main_path_peak_gib": main_peak_gib,
                       "sharded": sharded,
+                      "serving": serving,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,9 @@ mirror it (`repro_torch.kernels.sti_fill` is the counterpart of
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version.
+
+The LM substrate (dense decoders) lives in `repro_torch.models` and
+`repro_torch.serving`; prefill attention runs the flash-attention kernel.
 """
 
 from repro_torch.core import (

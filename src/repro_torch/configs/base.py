@@ -1,0 +1,152 @@
+"""Model schema and parameter descriptions of the port's LM substrate
+(counterpart of `repro.configs.base`).
+
+Params are described by `PD` trees (shape, logical axes, init); `init_params`
+materializes one from an explicit `torch.Generator`. The logical axes are
+kept for the sharding slice to come; nothing reads them yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["ModelConfig", "PD", "init_params", "pad_to", "tree_leaves",
+           "tree_map"]
+
+
+def pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """The fields of `repro.configs.base.ModelConfig` that the dense family
+    reads, with `dtype` a torch dtype. The fields of the other families
+    (MoE, SSM, hybrid, audio, VLM) and of sharding and training come with
+    their slices (ROADMAP.md queue A 11)."""
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // num_heads
+    # attention variants
+    sliding_window: Optional[int] = None
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    group_size: int = 1            # layers per stacked group
+    norm_eps: float = 1e-5
+    norm_kind: str = "rmsnorm"     # rmsnorm | layernorm
+    act: str = "silu"              # silu (swiglu) | gelu (plain mlp)
+    tie_embeddings: bool = False
+    dtype: Any = torch.bfloat16
+    tp_pad_heads: int = 16         # pad head count to a multiple of this
+    vocab_pad: int = 256
+    kv_block: int = 1024           # KV block of the plain blockwise path
+    logits_f32: bool = True        # False: bf16 vocab matmul, f32 accum
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_heads(self) -> int:
+        """Q heads padded to a multiple of `tp_pad_heads`; padded heads
+        have zero rows in wo, so the math is exact."""
+        return pad_to(self.num_heads, self.tp_pad_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to(self.vocab_size, self.vocab_pad)
+
+    @property
+    def num_groups(self) -> int:
+        if self.num_layers % self.group_size:
+            raise ValueError(f"{self.num_layers} layers are not a multiple "
+                             f"of the group size {self.group_size}")
+        return self.num_layers // self.group_size
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class PD:
+    """One parameter: shape, logical axis names, init kind and scale
+    (0 -> 1/sqrt(shape[0]), or 0.02 for "embed")."""
+    shape: tuple
+    axes: tuple
+    init: str = "normal"   # normal | zeros | ones | embed
+    scale: float = 0.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_leaves(tree, is_leaf=None) -> list:
+    """Leaves of a nest of dicts, lists and tuples, in JAX's order (dict
+    keys sorted), so that a leaf's index matches `jax.tree.leaves`."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """`fn` over the leaves of `tree` (and the matching leaves of `rest`),
+    in `tree_leaves` order, keeping its dicts, lists, tuples and
+    NamedTuples."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+               for i, t in enumerate(tree)]
+        if hasattr(tree, "_fields"):  # NamedTuple
+            return type(tree)(*out)
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def _is_pd(x) -> bool:
+    return isinstance(x, PD)
+
+
+def _leaf_init(pd: PD, generator: torch.Generator, dtype, device):
+    if pd.init == "zeros":
+        return torch.zeros(pd.shape, dtype=dtype, device=device)
+    if pd.init == "ones":
+        return torch.ones(pd.shape, dtype=dtype, device=device)
+    scale = pd.scale or (1.0 / max(pd.shape[0], 1) ** 0.5)
+    if pd.init == "embed":
+        scale = pd.scale or 0.02
+    x = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return x.mul_(scale).to(device=device, dtype=dtype)
+
+
+def init_params(desc, generator: torch.Generator, dtype=torch.float32,
+                device="cuda"):
+    """Materialize a PD tree with the scales of the JAX package's
+    `_leaf_init`. Normal leaves are drawn from `generator` (on its own
+    device) in JAX's leaf order; the values differ from `jax.random`'s,
+    so tests carry JAX's parameters over with `models.params`."""
+    dev = resolve_device(device)
+    return tree_map(lambda pd: _leaf_init(pd, generator, dtype, dev), desc,
+                    is_leaf=_is_pd)

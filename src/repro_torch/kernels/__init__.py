@@ -3,6 +3,10 @@ plain PyTorch versions, and the streaming pipeline around them."""
 
 from repro_torch.kernels import autotune, ops, ref, stream_kernels
 from repro_torch.kernels.distance import distance_cuda, distance_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.sti_fill import (
     rect_row_view,
     sti_fill_acc_cuda,
@@ -45,6 +49,8 @@ __all__ = [
     "stream_kernels",
     "distance_cuda",
     "distance_plain",
+    "flash_attention_cuda",
+    "flash_attention_plain",
     "sti_fill_cuda",
     "sti_fill_acc_cuda",
     "sti_fill_plain",

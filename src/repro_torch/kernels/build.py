@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the port; build_all compiles them in parallel
-SOURCES = ("distance", "sti_fill", "sti_megakernel")
+SOURCES = ("distance", "sti_fill", "sti_megakernel", "flash_attention")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

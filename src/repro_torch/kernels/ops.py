@@ -1,7 +1,12 @@
-"""Register the CUDA fill kernels with the core fill registries.
+"""Public kernel entry points and the CUDA fills' registration.
 
-Counterpart of `repro.kernels.ops`, which registers the Pallas fills as
-"pallas". Here the kernels register as "cuda" in all four registries:
+Counterpart of `repro.kernels.ops`. `flash_attention` picks by the device
+of its inputs: the CUDA kernel for CUDA tensors, the plain version for
+CPU tensors (the JAX package picks the Pallas kernel on a TPU and its
+oracle elsewhere).
+
+`repro.kernels.ops` registers the Pallas fills as "pallas". Here the
+kernels register as "cuda" in all four registries:
 
     sti_knn_interactions(..., fill="cuda")
 
@@ -20,6 +25,7 @@ from repro_torch.core.sti_knn import (
     register_rect_acc_fill_fn,
     register_rect_fill_fn,
 )
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.sti_fill import (
     sti_fill_acc_cuda,
     sti_fill_acc_rect_cuda,
@@ -27,7 +33,15 @@ from repro_torch.kernels.sti_fill import (
     sti_fill_rect_cuda,
 )
 
-__all__: list[str] = []
+__all__ = ["flash_attention"]
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """(b, h, s, d) attention with K/V heads already repeated: the kernel
+    of `csrc/flash_attention.cu` on CUDA tensors, `flash_attention_plain`
+    on CPU tensors (see `kernels.flash_attention`)."""
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
 
 register_fill_fn("cuda", sti_fill_cuda)
 register_acc_fill_fn("cuda", sti_fill_acc_cuda)

@@ -4,9 +4,11 @@ against these."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["sti_fill_ref", "distance_ref"]
+__all__ = ["sti_fill_ref", "distance_ref", "flash_attention_ref"]
 
 
 def sti_fill_ref(g: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
@@ -36,3 +38,28 @@ def distance_ref(x_test: torch.Tensor, x_train: torch.Tensor) -> torch.Tensor:
         + torch.sum(xn * xn, -1)[None, :]
     )
     return torch.clamp_min(d2, 0.0)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None
+                        ) -> torch.Tensor:
+    """(b, h, s, d) attention oracle with optional sliding window: f32
+    logits scaled by 1/sqrt(d), key k visible to query q when k <= q
+    (causal) and k > q - window (window), masked logits set to -1e30, a
+    softmax over keys, the f32 product with v, rounded once to q's type.
+    K/V heads are already repeated to match Q's."""
+    s, sk = q.shape[-2], k.shape[-2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,30 @@
+"""Carry LM parameters between the JAX package and the port.
+
+`params_from_jax` takes the JAX `params` pytree with its leaves as numpy
+arrays (`jax.tree.map(np.asarray, params)`) and returns the port's tree:
+the same dicts and lists, each leaf one tensor of the same shape, type and
+stacked layout (groups on the leading axis). `params_to_numpy` goes back.
+Both copy values exactly, so a round trip is bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import tree_map
+from repro_torch.device import resolve_device
+
+__all__ = ["params_from_jax", "params_to_numpy"]
+
+
+def params_from_jax(tree, device="cuda"):
+    """Numpy-leaved JAX params tree -> the port's params on `device`."""
+    dev = resolve_device(device)
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+
+
+def params_to_numpy(tree):
+    """The port's params -> the same tree with numpy leaves (on the host)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

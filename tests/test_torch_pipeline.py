@@ -334,7 +334,9 @@ def test_import_leaves_no_jax_or_repro_module():
         "import sys, repro_torch, repro_torch.launch.valuate, "
         "repro_torch.kernels.build, repro_torch.configs.sti_knn_paper, "
         "repro_torch.distributed.sharding, repro_torch.core.valuation, "
-        "repro_torch.kernels.sti_fill, repro_torch.kernels.autotune\n"
+        "repro_torch.kernels.sti_fill, repro_torch.kernels.autotune, "
+        "repro_torch.models, repro_torch.serving.engine, "
+        "repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
