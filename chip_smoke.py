@@ -27,8 +27,10 @@ and then the LM serving path at the full width and depth of qwen3-1.7b
 query and 8 KV heads of 128, vocab 151936):
 
   [8] the flash-attention kernel against its plain version (f32 and bf16,
-      the JAX tests' shapes, a ragged length, the path's shape) and its
-      times beside `scaled_dot_product_attention`; prefill/decode
+      the JAX tests' shapes, a ragged length, head dims 96 and 64 at
+      s = 2048, s = 4096, the path's shape), its times and TFLOP/s beside
+      `scaled_dot_product_attention`, and the bf16 kernel's SASS checked
+      for wgmma (HGMMA) and TMA (UTMALDG); prefill/decode
       consistency through the kernel (4 layers, f32); then
       `Engine(ServeConfig(max_slots=4, max_len=2112))` serving 8 requests
       of 1984-2048 prompt tokens greedily to max_len - 1, every prefill
@@ -44,6 +46,7 @@ version, kernel / plain / bound / library times); the last line is
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import subprocess
 import sys
@@ -186,8 +189,9 @@ def bf16_ulp(torch, x):
 def device_busy(torch, fn) -> dict | None:
     """Device time of `fn` from a torch.profiler trace: the sum of the
     durations of its kernels, copies and sets (one stream, so they do not
-    overlap), and the five kernels that take the most. None when the trace
-    holds no device event."""
+    overlap), the flash-attention kernels' share of it, and the five
+    kernels that take the most. None when the trace holds no device
+    event."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,6 +213,8 @@ def device_busy(torch, fn) -> dict | None:
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"busy_ms": sum(by_name.values()) / 1e3,
+            "flash_ms": sum(us for nm, us in by_name.items()
+                            if "flash_attention" in nm) / 1e3,
             "top": [(nm, us / 1e3) for nm, us in top]}
 
 
@@ -216,6 +222,7 @@ def lm_phase(torch, np, dev, entries) -> dict:
     """[8]: the flash-attention kernel and the LM serving path at the full
     width of qwen3-1.7b. Returns the serving numbers."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain)
     from repro_torch.models import build_model
@@ -254,14 +261,36 @@ def lm_phase(torch, np, dev, entries) -> dict:
                  f"window={window}: {err}")
         return q, k, v, err
 
+    # a barrier hang in a kernel blocks in C, where no Python timeout
+    # reaches: past this limit the process ends with a traceback
+    faulthandler.dump_traceback_later(300, exit=True)
+    path_case = (1, 16, 2048, 128, True, None)
+    # (the JAX tests' shapes, a ragged length, windows, non-causal, the
+    # head dims of phi3-mini (96) and smollm-360m (64), a 4096-token
+    # prompt and a served prompt's length (2039: ragged last q and key
+    # tiles) at the path's width, then the path's shape)
     for dtype in (torch.float32, torch.bfloat16):
         for case in ((1, 2, 64, 16, True, None), (2, 1, 128, 32, True, None),
                      (1, 2, 96, 16, True, 32), (1, 1, 64, 16, False, None),
                      (1, 2, 200, 64, True, None),
                      (1, 2, 200, 64, False, None),
                      (1, 2, 200, 64, False, 48), (1, 2, 200, 64, True, 48),
-                     (1, 16, 2048, 128, True, None)):
+                     (1, 32, 2048, 96, True, None),
+                     (1, 16, 2048, 64, True, None),
+                     (1, 16, 4096, 128, True, None),
+                     (1, 16, 2039, 128, True, None), path_case):
             q, k, v, err = hold(*case, dtype)
+            b_, h_, s_, d_, causal_, window_ = case
+            if dtype == torch.bfloat16 and s_ >= 2048 and case != path_case:
+                ms = cuda_ms(torch, lambda: flash_attention_cuda(
+                    q, k, v, causal=causal_, window=window_), reps=10)
+                bnd, _ = flash_bound_ms(b_, h_, s_, s_, d_, causal_,
+                                        window_, 2)
+                rate = 4.0 * b_ * h_ * d_ * visible_pairs(
+                    s_, s_, causal_, window_) / (ms * 1e-3) / 1e12
+                log(f"[8] flash_attention {case[:4]} bf16 causal: kernel "
+                    f"{ms:.4f} ms = {rate:.1f} TFLOP/s, bound {bnd:.4f} ms")
+    faulthandler.cancel_dump_traceback_later()
     # q, k, v, err: the path's shape, (1, 16, 2048, 128) bf16 causal
     fa_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v), reps=20)
     fa_plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v),
@@ -270,6 +299,10 @@ def lm_phase(torch, np, dev, entries) -> dict:
                       scaled_dot_product_attention(q, k, v, is_causal=True),
                       reps=20)
     bound, by = flash_bound_ms(1, 16, 2048, 2048, 128, True, None, 2)
+    # the function's operations over the kernel's time (the hi + lo split
+    # makes the kernel's own tensor work 1.5x this)
+    tflops = 4.0 * 16 * 128 * visible_pairs(2048, 2048, True, None) / (
+        fa_ms * 1e-3) / 1e12
     entries["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -278,11 +311,23 @@ def lm_phase(torch, np, dev, entries) -> dict:
         bound_by=by, library_ms=sdpa_ms,
         shape="b=1 h=16 s=2048 d=128 bf16 causal")
     log(f"[8] flash_attention (1, 16, 2048, 128) bf16 causal: kernel "
-        f"{fa_ms:.3f} ms, plain {fa_plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {sdpa_ms:.3f} ms, bound {bound:.4f} "
-        f"ms ({by})")
+        f"{fa_ms:.4f} ms = {tflops:.1f} TFLOP/s, plain {fa_plain_ms:.3f} "
+        f"ms, scaled_dot_product_attention {sdpa_ms:.4f} ms "
+        f"({fa_ms / sdpa_ms:.2f}x), bound {bound:.4f} ms ({by})")
     del q, k, v
     torch.cuda.empty_cache()
+    # the bf16 kernel must be the Hopper one: wgmma (HGMMA) and TMA loads
+    # (UTMALDG) in its SASS
+    bf16_sass = {n: t for n, t in build.sass("flash_attention").items()
+                 if "flash_attention_wgmma_kernel" in n}
+    for name, text in bf16_sass.items():
+        dp = name.split("ILi")[-1].split("E")[0]
+        log(f"[8] SASS of flash_attention_wgmma_kernel<{dp}>: HGMMA "
+            f"{text.count('HGMMA')}, UTMALDG {text.count('UTMALDG')}")
+    if not bf16_sass or not all("HGMMA" in t and "UTMALDG" in t
+                                for t in bf16_sass.values()):
+        fail("[8] the bf16 flash-attention kernel's SASS holds no HGMMA or "
+             "no UTMALDG")
 
     cfg = get_config("qwen3-1.7b")
     with torch.no_grad():
@@ -385,7 +430,8 @@ def lm_phase(torch, np, dev, entries) -> dict:
         decode_steps=timing["steps"],
         decode_ms_per_step=1e3 * timing["step_s"] / max(timing["steps"], 1),
         tokens_per_s=n_tok / serve_s, peak_gib=peak_gib,
-        flash_launches=launches)
+        flash_launches=launches,
+        flash_tflops=tflops)
     log(f"[8] served {len(results)} requests through {cfg.name} "
         f"({cfg.num_layers} layers, {model.num_params() / 1e9:.3f} B params, "
         f"init {init_s:.2f} s): {n_tok} tokens in {serve_s:.3f} s = "
@@ -428,13 +474,15 @@ def lm_phase(torch, np, dev, entries) -> dict:
         }
     if all(v is not None for v in busy.values()):
         busy["decode"]["busy_ms"] /= 3
+        busy["decode"]["flash_ms"] /= 3
         busy["decode"]["top"] = [(nm, ms / 3)
                                  for nm, ms in busy["decode"]["top"]]
         for key, wall in (("prefill", out["prefill_ms_per_request"]),
                           ("decode", out["decode_ms_per_step"])):
             busy[key]["busy_share"] = busy[key]["busy_ms"] / wall
             log(f"[8] {key}: device busy {busy[key]['busy_ms']:.2f} ms of "
-                f"{wall:.2f} ms wall ({100 * busy[key]['busy_share']:.1f} %); "
+                f"{wall:.2f} ms wall ({100 * busy[key]['busy_share']:.1f} %), "
+                f"flash attention {busy[key]['flash_ms']:.3f} ms; "
                 f"top kernels (ms): " + ", ".join(
                     f"{nm[:48]} {ms:.2f}" for nm, ms in busy[key]["top"]))
     else:

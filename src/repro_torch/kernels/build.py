@@ -22,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library", "sass"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -106,3 +106,18 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
         return lib
+
+
+def sass(name: str) -> dict[str, str]:
+    """The SASS of the built library of `csrc/<name>.cu` (building every
+    source first), by `cuobjdump -sass` from the toolkit beside `nvcc`:
+    {mangled kernel name: its instructions}."""
+    library(name)
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    kernels = {}
+    for part in text.split("Function : ")[1:]:
+        head, _, body = part.partition("\n")
+        kernels[head.strip()] = body
+    return kernels
