@@ -60,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # FMA counted as two operations
 SIMPLE_OPS_PER_S = F32_FLOP_PER_S / 2  # one f32/int instruction per lane
 BF16_FLOP_PER_S = 989e12        # tensor cores, dense
+TF32_FLOP_PER_S = 495e12        # tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -100,12 +101,31 @@ def max_abs(torch, a, rows: int = 4096) -> float:
                for r0 in range(0, a.shape[0], rows))
 
 
+def distance_tensor_ms(t, n, d, elt) -> float:
+    # the cross term on the tensor cores: three TF32 products for f32
+    # inputs (3xTF32: hi.lo, lo.hi, hi.hi), one bf16 product for bf16
+    if elt == 2:
+        return 1e3 * 2.0 * t * n * d / BF16_FLOP_PER_S
+    return 1e3 * 3 * 2.0 * t * n * d / TF32_FLOP_PER_S
+
+
 def distance_bound_ms(t, n, d, elt) -> tuple[float, str]:
-    nbytes = (t * d + n * d) * elt + t * n * 4
-    ops = 2.0 * t * n * d
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    # x_test and x_train read once, the (t, n) output written once
+    by_bytes = ((t * d + n * d) * elt + t * n * 4) / HBM_BYTES_PER_S
+    by_ops = distance_tensor_ms(t, n, d, elt) / 1e3
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
         "operations"
+
+
+def distance_other_bounds_ms(t, n, d, elt) -> str:
+    """The figures beside the bound, for continuity: the bytes with the
+    norm pre-pass reading both inputs a second time, and the cross term's
+    2 t n d f32 operations on the CUDA cores (the bound before the
+    tensor-core kernel)."""
+    pre = ((t * d + n * d) * elt * 2 + t * n * 4) / HBM_BYTES_PER_S
+    cores = 2.0 * t * n * d / F32_FLOP_PER_S
+    return (f"bytes with the norm pre-pass {1e3 * pre:.3f} ms, f32 CUDA-core "
+            f"operations {1e3 * cores:.3f} ms")
 
 
 def fill_bound_ms(t, n) -> tuple[float, str]:
@@ -138,21 +158,23 @@ def rect_fill_bound_ms(t, nr, n) -> tuple[float, str]:
 
 def sti_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
     # x_train, the batch and the labels read once, acc read and written
-    # once; the distance's 2 t n d f32 operations and the fill's (see
-    # fill_bound_ms) run on the same f32 pipes, so their times add. The
-    # sort and the tables are O(t n) and left out (~0.01 ms here).
+    # once; the fill's operations (see fill_bound_ms) on the CUDA cores and
+    # the distance's three TF32 products on the tensor cores, two pipes
+    # that could overlap, so the larger of the two. The sort and the
+    # tables are O(t n) and left out (~0.01 ms here).
     nbytes = 2 * n * n * 4 + (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
-    by_ops = (2.0 * t * n * d / F32_FLOP_PER_S
-              + (3.0 * t * n * (n + 1) / 2 + float(n) * n) / SIMPLE_OPS_PER_S)
+    by_ops = max(distance_tensor_ms(t, n, d, 4) / 1e3,
+                 (3.0 * t * n * (n + 1) / 2 + float(n) * n) / SIMPLE_OPS_PER_S)
     by_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
         "operations"
 
 
 def point_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
-    # x_train and the batch read once, vec read and written once
+    # x_train and the batch read once, vec read and written once; the
+    # distance's three TF32 products on the tensor cores
     nbytes = (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
-    by_ops, by_bytes = 2.0 * t * n * d / F32_FLOP_PER_S, \
+    by_ops, by_bytes = distance_tensor_ms(t, n, d, 4) / 1e3, \
         nbytes / HBM_BYTES_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
         "operations"
@@ -548,7 +570,7 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
     for name, rep in reports.items():
         for ln in rep.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if any(k in ln for k in ("registers", "spill", "wgmma")):
                 log(f"    {name}: {ln.strip()}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -578,6 +600,8 @@ def main() -> None:
     check_distance(tb, 8192, d_full, torch.float32, 1e-5)
     check_distance(tb, 8192, d_full, torch.bfloat16, 1e-5)
     check_distance(33, 65, 7, torch.float32, 1e-5)
+    check_distance(33, 65, 7, torch.bfloat16, 1e-5)
+    xtb, xnb, _ = check_distance(tb, n_full, d_full, torch.bfloat16, 1e-5)
     xt, xn, derr = check_distance(tb, n_full, d_full, torch.float32, 1e-5)
     # integer features in [-8, 8]: every product and sum is exact in f32,
     # so distances and ranks must be bit-equal to the plain version
@@ -590,9 +614,15 @@ def main() -> None:
     if not torch.equal(ranks_from_distances(di), ranks_from_distances(dp)):
         fail("ranks differ from plain on integer features")
     log("[2] integer features: distances and ranks bit-equal to plain")
+    # the kernel's times beside its plain version, torch.cdist and the
+    # bound, in turns (kernel, plain, cdist, plain, kernel)
     dist_ms = cuda_ms(torch, lambda: distance_cuda(xt, xn), reps=20)
     dist_plain_ms = cuda_ms(torch, lambda: distance_plain(xt, xn), reps=20)
     cdist_ms = cuda_ms(torch, lambda: torch.cdist(xt, xn), reps=20)
+    dist_plain_ms = min(dist_plain_ms, cuda_ms(
+        torch, lambda: distance_plain(xt, xn), reps=20))
+    dist_ms = min(dist_ms, cuda_ms(torch, lambda: distance_cuda(xt, xn),
+                                   reps=20))
     bound, by = distance_bound_ms(tb, n_full, d_full, 4)
     entries["distance"] = dict(
         name="distance", route="cuda", source="src/repro_torch/csrc/distance.cu",
@@ -601,9 +631,49 @@ def main() -> None:
         library_ms=cdist_ms, shape=f"t={tb} n={n_full} d={d_full} f32",
     )
     log(f"[2] distance ({tb}, {n_full}, {d_full}) f32: kernel "
-        f"{dist_ms:.3f} ms, plain {dist_plain_ms:.3f} ms, torch.cdist "
-        f"{cdist_ms:.3f} ms, bound {bound:.3f} ms ({by})")
-    del xt, xn, xi, xni, di, dp
+        f"{dist_ms:.4f} ms, plain {dist_plain_ms:.4f} ms, torch.cdist "
+        f"{cdist_ms:.4f} ms ({cdist_ms / dist_ms:.2f}x the kernel), bound "
+        f"{bound:.4f} ms ({by}: 3xTF32 at {TF32_FLOP_PER_S / 1e12:g} "
+        f"TFLOP/s; {distance_other_bounds_ms(tb, n_full, d_full, 4)})")
+    # where a call's device time goes: the norm pre-pass and the main
+    # kernel, from a torch.profiler trace of 5 calls
+    for label, a_, b_ in (("f32", xt, xn), ("bf16", xtb, xnb)):
+        busy = device_busy(torch, lambda: [distance_cuda(a_, b_)
+                                           for _ in range(5)])
+        if busy is None:
+            log("[2] torch.profiler traced no device time: the distance "
+                "breakdown is not measured")
+            break
+        log(f"[2] distance {label} device time per call: " + ", ".join(
+            f"{nm.split(')::')[-1].split('(')[0][:40]} {ms / 5:.4f} ms"
+            for nm, ms in busy["top"]))
+    dist_bf16_ms = cuda_ms(torch, lambda: distance_cuda(xtb, xnb), reps=20)
+    dist_bf16_plain_ms = cuda_ms(torch, lambda: distance_plain(xtb, xnb),
+                                 reps=20)
+    bound16, by16 = distance_bound_ms(tb, n_full, d_full, 2)
+    distance_bf16 = dict(ms=dist_bf16_ms, plain_ms=dist_bf16_plain_ms,
+                         bound_ms=bound16, bound_by=by16)
+    log(f"[2] distance ({tb}, {n_full}, {d_full}) bf16: kernel "
+        f"{dist_bf16_ms:.4f} ms, plain {dist_bf16_plain_ms:.4f} ms, bound "
+        f"{bound16:.4f} ms ({by16}; "
+        f"{distance_other_bounds_ms(tb, n_full, d_full, 2)})")
+    # the kernels must be the Hopper ones: wgmma (HGMMA) and TMA loads
+    # (UTMALDG) in both distance entry kernels, wgmma in the megakernel
+    dist_sass = {nm: txt for nm, txt in build.sass("distance").items()
+                 if "sq_dist_kernel" in nm}
+    mk_sass = build.sass("sti_megakernel")
+    for label, kernels in (("distance", dist_sass),
+                           ("sti_megakernel", mk_sass)):
+        for nm, txt in kernels.items():
+            log(f"[2] SASS of {label} {nm[:48]}: HGMMA "
+                f"{txt.count('HGMMA')}, UTMALDG {txt.count('UTMALDG')}")
+    if len(dist_sass) != 2 or not all("HGMMA" in x and "UTMALDG" in x
+                                      for x in dist_sass.values()):
+        fail("[2] a distance entry kernel's SASS holds no HGMMA or no "
+             "UTMALDG")
+    if not mk_sass or not all("HGMMA" in x for x in mk_sass.values()):
+        fail("[2] the megakernel's SASS holds no HGMMA")
+    del xt, xn, xtb, xnb, xi, xni, di, dp
 
     def fill_inputs(t, n):
         g = torch.randn((t, n), generator=gen, device=dev)
@@ -1346,6 +1416,7 @@ def main() -> None:
                                   for e in entries.values()],
                       "step_ms": step_ms, "total_s": total_s,
                       "megakernel_total_s": mega_s,
+                      "distance_bf16": distance_bf16,
                       "rank_phase": {"ms": rank_ms,
                                      "distance_and_torch_sort_ms": sort_ms,
                                      "shape": f"t={tb} n={n_full} "

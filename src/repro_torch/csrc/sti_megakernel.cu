@@ -18,13 +18,17 @@
 // keys, more than a block's 227 KB of shared memory, so that design does
 // not carry over. Here one persistent cooperative kernel (one 256-thread
 // block per SM: the fill's register tile leaves ptxas at ~200 registers
-// per thread; started with cudaLaunchCooperativeKernel) runs the phases
-// with grid-wide barriers between them, its (tb, n) tables in global
-// scratch that the wrapper allocates:
+// per thread, and the distance phase takes 160 KB of dynamic shared
+// memory; started with cudaLaunchCooperativeKernel) runs the phases with
+// grid-wide barriers between them, its (tb, n) tables in global scratch
+// that the wrapper allocates:
 //   0. row squared norms of the batch and of x_train (a warp per row);
-//   1. distance tiles (`distance_tile.cuh`, the code of `distance.cu`, so
-//      f32 distances are bit-equal to `distance_cuda`), written as sort
-//      keys: the f32 bits of the clamped, non-negative d2, -0 made +0;
+//   1. distance tiles of 128 train by 256 test points (`distance_tile.cuh`:
+//      `block_tile`, the k-step function and epilogue of `distance.cu`
+//      on the tensor cores, 3xTF32 `wgmma` for f32, so f32 distances are
+//      bit-equal to `distance_cuda`; the block's two warpgroups stage each
+//      k-step themselves, double-buffered, with no producer), written as
+//      sort keys: the f32 bits of the clamped, non-negative d2, -0 made +0;
 //   2. per test row (a block each): a stable LSD radix sort, four 8-bit
 //      passes over (key, index) pairs that start in index order -- the
 //      order of torch.sort(stable=True), i.e. of `merge_sorted_tile`;
@@ -39,21 +43,22 @@
 //      (`fill_tile.cuh`, the code of `sti_fill.cu`) over the row block.
 // acc and diag / vec are updated in place, which replaces the Pallas
 // kernel's input_output_aliases. With compute_dtype bf16 only the cross
-// term's operands are rounded to bf16 (f32 accumulate); the norms come
-// from the f32 inputs, as in the TPU kernel.
+// term's operands are rounded to bf16 (f32 accumulate, one bf16 `wgmma`
+// pass); the norms come from the f32 inputs, as in the TPU kernel.
 //
 // What bounds it (t = 256, n = 65536, d = 768): for sti/sii the fill, as
 // for `sti_fill.cu` (3 t n(n+1)/2 + n^2 simple operations, 49 ms at the
 // data-sheet instruction rate; the kernel computes all n^2 pairs); for
-// the point methods the distance's 2 t n d f32 operations (0.385 ms).
-// The sort and the tables are O(t n) and take a few ms at one block per
-// test row.
+// the point methods the distance's three TF32 products on the tensor cores
+// (3 * 2 t n d operations, 0.156 ms at 495 TFLOP/s). The sort and the
+// tables are O(t n) and take a few ms at one block per test row.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "distance_tile.cuh"
 #include "fill_tile.cuh"
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -63,7 +68,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int RADIX = 256;
 static_assert(THREADS == RADIX, "one thread per radix digit");
-static_assert(THREADS == dist_tile::THREADS && THREADS == fill_tile::THREADS,
+static_assert(THREADS == 2 * dist_tile::WG && THREADS == fill_tile::THREADS,
               "the shared tiles run on the megakernel's block");
 
 // what phase 3 computes (kept in step with kernels/sti_megakernel.py)
@@ -110,12 +115,17 @@ struct ScanSmem {
   int redi[WARPS];
 };
 
+// the phases' shared memory, one after another in the same dynamic
+// allocation: phase 1's two k-step stages, or one of these
 union Smem {
-  dist_tile::Smem dist;
   fill_tile::Smem fill;
   SortSmem sort;
   ScanSmem scan;
 };
+constexpr int DIST_BYTES = 2 * dist_tile::STAGE_BYTES;
+// +1024 to align the base for the swizzled tiles
+constexpr size_t SMEM_BYTES =
+    (DIST_BYTES > sizeof(Smem) ? DIST_BYTES : sizeof(Smem)) + 1024;
 
 // Stable LSD radix sort of one row of n (key, index) pairs, 8 bits per
 // pass, by one block. Each pass scatters a chunk of THREADS elements at a
@@ -331,7 +341,10 @@ __device__ void tables_row(const Params& P, int p, ScanSmem& s) {
 }
 
 __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
-  __shared__ Smem sm;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  unsigned char* aligned = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  Smem& sm = *reinterpret_cast<Smem*>(aligned);
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int tb = P.tb, n = P.n, d = P.d;
@@ -352,8 +365,12 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
 
   // 1. distance tiles -> (key, index) pairs in index order
   {
-    const int tiles_c = (n + dist_tile::BN - 1) / dist_tile::BN;
-    const int tiles = (tb + dist_tile::BM - 1) / dist_tile::BM * tiles_c;
+    const int tiles_c = (n + dist_tile::BM - 1) / dist_tile::BM;
+    const int tiles = (tb + dist_tile::BN - 1) / dist_tile::BN * tiles_c;
+    const uint32_t stages = sm90::smem_u32(aligned);
+    const bool vec = d % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(P.xb) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(P.xtr) % 16 == 0;
     uint32_t* keys = P.keys_a;
     int* idx = P.idx_a;
     auto store = [keys, idx, n](int r, int c, float v) {
@@ -363,14 +380,16 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
       idx[(size_t)r * n + c] = c;
     };
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int row0 = tile / tiles_c * dist_tile::BM;
-      const int col0 = tile % tiles_c * dist_tile::BN;
+      const int test0 = tile / tiles_c * dist_tile::BN;
+      const int train0 = tile % tiles_c * dist_tile::BM;
       if (P.bf16)
-        dist_tile::sq_dist_tile<true>(P.xb, P.xtr, P.norms, P.norms + tb, tb,
-                                      n, d, row0, col0, sm.dist, store);
+        dist_tile::block_tile<true, THREADS>(P.xb, P.xtr, P.norms,
+                                             P.norms + tb, tb, n, d, test0,
+                                             train0, stages, vec, store);
       else
-        dist_tile::sq_dist_tile<false>(P.xb, P.xtr, P.norms, P.norms + tb,
-                                       tb, n, d, row0, col0, sm.dist, store);
+        dist_tile::block_tile<false, THREADS>(P.xb, P.xtr, P.norms,
+                                              P.norms + tb, tb, n, d, test0,
+                                              train0, stages, vec, store);
     }
   }
   grid.sync();
@@ -413,6 +432,13 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
   }
 }
 
+// set on every launch: the attribute belongs to the current device
+cudaError_t set_smem_attribute() {
+  return cudaFuncSetAttribute(megakernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)SMEM_BYTES);
+}
+
 // Cooperative launch on the current device: one resident wave, as many
 // blocks as fit on every SM. Refused launches are reported, never
 // degraded: 801 (cudaErrorNotSupported) without cooperative launch.
@@ -425,14 +451,17 @@ int launch(const Params& P, void* stream) {
   if (!coop) return cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  e = set_smem_attribute();
+  if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, megakernel,
-                                                    THREADS, 0);
+                                                    THREADS, SMEM_BYTES);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   Params prm = P;
   void* args[] = {&prm};
   e = cudaLaunchCooperativeKernel((const void*)megakernel,
-                                  dim3(per_sm * sms), dim3(THREADS), args, 0,
+                                  dim3(per_sm * sms), dim3(THREADS), args,
+                                  SMEM_BYTES,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return static_cast<int>(cudaGetLastError());
@@ -512,6 +541,8 @@ extern "C" int megakernel_occupancy(int* per_sm, int* sms) {
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  e = set_smem_attribute();
+  if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, megakernel,
-                                                       THREADS, 0);
+                                                       THREADS, SMEM_BYTES);
 }

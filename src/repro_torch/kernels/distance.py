@@ -4,9 +4,16 @@
 `distance_cuda(x_test, x_train)` -> (t, n) f32 squared distances
 ||a||^2 - 2 a.b + ||b||^2, clamped at 0, with f32 accumulation for f32 or
 bf16 inputs. On CUDA tensors it launches the kernel of
-`csrc/distance.cu` (a tiled product on the CUDA cores, no TF32, with the
-norm epilogue fused into the store); on CPU tensors it takes
+`csrc/distance.cu` (a Hopper kernel: TMA-fed tiles, the cross term on the
+tensor cores as three TF32 products for f32 and one bf16 product for bf16,
+the norm epilogue fused into the store); on CPU tensors it takes
 `distance_plain`, the same expansion in plain PyTorch.
+
+The kernel's input contract is TMA's: rows of a multiple of 16 bytes,
+16-byte aligned. `tma_operands` pads d with zero columns to a multiple of
+4 (f32) or 8 (bf16) -- zero columns change neither the products nor the
+norms -- and copies a misaligned view; the main path (d = 768, fresh
+tensors) copies nothing.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 from repro_torch.core.sti_knn import pairwise_sq_dists
 from repro_torch.kernels.build import library
 
-__all__ = ["distance_plain", "distance_cuda"]
+__all__ = ["distance_plain", "distance_cuda", "tma_operands"]
 
 _DTYPES = {torch.float32: "sq_dist_f32", torch.bfloat16: "sq_dist_bf16"}
 
@@ -48,6 +55,22 @@ def _check(x_test: torch.Tensor, x_train: torch.Tensor) -> None:
         raise ValueError("distance_cuda needs contiguous row-major inputs")
 
 
+def tma_operands(x_test: torch.Tensor, x_train: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two (rows, d) operands as the kernel takes them: d padded with
+    zero columns to a multiple of 16 bytes, each 16-byte aligned. Returns
+    the inputs themselves where nothing needs to change."""
+    per16 = 16 // x_test.element_size()
+    pad = -x_test.shape[1] % per16
+
+    def fit(x):
+        if pad:
+            return torch.nn.functional.pad(x, (0, pad))
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    return fit(x_test), fit(x_train)
+
+
 def distance_cuda(x_test: torch.Tensor, x_train: torch.Tensor
                   ) -> torch.Tensor:
     """(t, d), (n, d) -> (t, n) f32 squared distances.
@@ -57,12 +80,13 @@ def distance_cuda(x_test: torch.Tensor, x_train: torch.Tensor
     if x_test.device.type == "cpu" and x_train.device.type == "cpu":
         return distance_plain(x_test, x_train)
     _check(x_test, x_train)
-    t, d = x_test.shape
-    n = x_train.shape[0]
+    t, n = x_test.shape[0], x_train.shape[0]
     dev = x_test.device
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if t == 0 or n == 0:
         return out
+    x_test, x_train = tma_operands(x_test, x_train)
+    d = x_test.shape[1]
     nt = torch.empty((t,), dtype=torch.float32, device=dev)
     nn = torch.empty((n,), dtype=torch.float32, device=dev)
     fn = getattr(library("distance"), _DTYPES[x_test.dtype])
