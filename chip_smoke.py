@@ -101,31 +101,32 @@ def max_abs(torch, a, rows: int = 4096) -> float:
                for r0 in range(0, a.shape[0], rows))
 
 
-def distance_tensor_ms(t, n, d, elt) -> float:
-    # the cross term on the tensor cores: three TF32 products for f32
-    # inputs (3xTF32: hi.lo, lo.hi, hi.hi), one bf16 product for bf16
-    if elt == 2:
-        return 1e3 * 2.0 * t * n * d / BF16_FLOP_PER_S
-    return 1e3 * 3 * 2.0 * t * n * d / TF32_FLOP_PER_S
+def distance_ops_ms(t, n, d, elt) -> float:
+    # the cross term's 2 t n d operations at the card's peak for the
+    # inputs' type: the tensor cores' TF32 rate for f32, bf16 for bf16
+    peak = BF16_FLOP_PER_S if elt == 2 else TF32_FLOP_PER_S
+    return 1e3 * 2.0 * t * n * d / peak
 
 
 def distance_bound_ms(t, n, d, elt) -> tuple[float, str]:
     # x_test and x_train read once, the (t, n) output written once
     by_bytes = ((t * d + n * d) * elt + t * n * 4) / HBM_BYTES_PER_S
-    by_ops = distance_tensor_ms(t, n, d, elt) / 1e3
+    by_ops = distance_ops_ms(t, n, d, elt) / 1e3
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
         "operations"
 
 
 def distance_other_bounds_ms(t, n, d, elt) -> str:
-    """The figures beside the bound, for continuity: the bytes with the
-    norm pre-pass reading both inputs a second time, and the cross term's
-    2 t n d f32 operations on the CUDA cores (the bound before the
-    tensor-core kernel)."""
+    """The figures beside the bound: the design's own floor (f32 as three
+    TF32 products, 3 x 2 t n d at the TF32 rate), the bytes with the norm
+    pre-pass reading both inputs a second time, and the cross term on the
+    CUDA cores at the f32 rate (the bound before the tensor-core kernel)."""
     pre = ((t * d + n * d) * elt * 2 + t * n * 4) / HBM_BYTES_PER_S
     cores = 2.0 * t * n * d / F32_FLOP_PER_S
-    return (f"bytes with the norm pre-pass {1e3 * pre:.3f} ms, f32 CUDA-core "
-            f"operations {1e3 * cores:.3f} ms")
+    floor = (f"3xTF32 floor {3 * distance_ops_ms(t, n, d, elt):.4f} ms, "
+             if elt == 4 else "")
+    return (f"{floor}bytes with the norm pre-pass {1e3 * pre:.4f} ms, f32 "
+            f"CUDA-core operations {1e3 * cores:.4f} ms")
 
 
 def fill_bound_ms(t, n) -> tuple[float, str]:
@@ -159,11 +160,11 @@ def rect_fill_bound_ms(t, nr, n) -> tuple[float, str]:
 def sti_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
     # x_train, the batch and the labels read once, acc read and written
     # once; the fill's operations (see fill_bound_ms) on the CUDA cores and
-    # the distance's three TF32 products on the tensor cores, two pipes
-    # that could overlap, so the larger of the two. The sort and the
+    # the distance's 2 t n d on the tensor cores (see distance_ops_ms), two
+    # pipes that could overlap, so the larger of the two. The sort and the
     # tables are O(t n) and left out (~0.01 ms here).
     nbytes = 2 * n * n * 4 + (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
-    by_ops = max(distance_tensor_ms(t, n, d, 4) / 1e3,
+    by_ops = max(distance_ops_ms(t, n, d, 4) / 1e3,
                  (3.0 * t * n * (n + 1) / 2 + float(n) * n) / SIMPLE_OPS_PER_S)
     by_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
@@ -172,9 +173,9 @@ def sti_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
 
 def point_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
     # x_train and the batch read once, vec read and written once; the
-    # distance's three TF32 products on the tensor cores
+    # distance's 2 t n d on the tensor cores (see distance_ops_ms)
     nbytes = (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
-    by_ops, by_bytes = distance_tensor_ms(t, n, d, 4) / 1e3, \
+    by_ops, by_bytes = distance_ops_ms(t, n, d, 4) / 1e3, \
         nbytes / HBM_BYTES_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
         "operations"
@@ -580,7 +581,7 @@ def main() -> None:
     tb = 256
     entries = {}
 
-    def check_distance(t, n, d, dtype, rel_tol):
+    def check_distance(t, n, d, dtype, rel_tol, gen=gen):
         xt = torch.randn((t, d), generator=gen, device=dev).to(dtype)
         xn = torch.randn((n, d), generator=gen, device=dev).to(dtype)
         got, want = distance_cuda(xt, xn), distance_plain(xt, xn)
@@ -600,9 +601,14 @@ def main() -> None:
     check_distance(tb, 8192, d_full, torch.float32, 1e-5)
     check_distance(tb, 8192, d_full, torch.bfloat16, 1e-5)
     check_distance(33, 65, 7, torch.float32, 1e-5)
-    check_distance(33, 65, 7, torch.bfloat16, 1e-5)
-    xtb, xnb, _ = check_distance(tb, n_full, d_full, torch.bfloat16, 1e-5)
     xt, xn, derr = check_distance(tb, n_full, d_full, torch.float32, 1e-5)
+    # the bf16 cases draw from a generator of their own, so every other
+    # check sees the same inputs as before they were added
+    gen16 = torch.Generator(device=dev)
+    gen16.manual_seed(16)
+    check_distance(33, 65, 7, torch.bfloat16, 1e-5, gen16)
+    xtb, xnb, _ = check_distance(tb, n_full, d_full, torch.bfloat16, 1e-5,
+                                 gen16)
     # integer features in [-8, 8]: every product and sum is exact in f32,
     # so distances and ranks must be bit-equal to the plain version
     xi = torch.randint(-8, 9, (tb, d_full), generator=gen, device=dev).float()
@@ -614,15 +620,14 @@ def main() -> None:
     if not torch.equal(ranks_from_distances(di), ranks_from_distances(dp)):
         fail("ranks differ from plain on integer features")
     log("[2] integer features: distances and ranks bit-equal to plain")
-    # the kernel's times beside its plain version, torch.cdist and the
-    # bound, in turns (kernel, plain, cdist, plain, kernel)
-    dist_ms = cuda_ms(torch, lambda: distance_cuda(xt, xn), reps=20)
-    dist_plain_ms = cuda_ms(torch, lambda: distance_plain(xt, xn), reps=20)
-    cdist_ms = cuda_ms(torch, lambda: torch.cdist(xt, xn), reps=20)
-    dist_plain_ms = min(dist_plain_ms, cuda_ms(
-        torch, lambda: distance_plain(xt, xn), reps=20))
-    dist_ms = min(dist_ms, cuda_ms(torch, lambda: distance_cuda(xt, xn),
-                                   reps=20))
+    # the kernel's times beside its plain version and torch.cdist, each
+    # the faster of two timings taken in turns (kernel, plain, cdist,
+    # cdist, plain, kernel)
+    timed = (lambda: distance_cuda(xt, xn), lambda: distance_plain(xt, xn),
+             lambda: torch.cdist(xt, xn))
+    first = [cuda_ms(torch, fn, reps=20) for fn in timed]
+    second = [cuda_ms(torch, fn, reps=20) for fn in reversed(timed)][::-1]
+    dist_ms, dist_plain_ms, cdist_ms = map(min, first, second)
     bound, by = distance_bound_ms(tb, n_full, d_full, 4)
     entries["distance"] = dict(
         name="distance", route="cuda", source="src/repro_torch/csrc/distance.cu",
@@ -633,8 +638,9 @@ def main() -> None:
     log(f"[2] distance ({tb}, {n_full}, {d_full}) f32: kernel "
         f"{dist_ms:.4f} ms, plain {dist_plain_ms:.4f} ms, torch.cdist "
         f"{cdist_ms:.4f} ms ({cdist_ms / dist_ms:.2f}x the kernel), bound "
-        f"{bound:.4f} ms ({by}: 3xTF32 at {TF32_FLOP_PER_S / 1e12:g} "
-        f"TFLOP/s; {distance_other_bounds_ms(tb, n_full, d_full, 4)})")
+        f"{bound:.4f} ms ({by}; 2tnd at {TF32_FLOP_PER_S / 1e12:g} TFLOP/s "
+        f"TF32 {distance_ops_ms(tb, n_full, d_full, 4):.4f} ms; "
+        f"{distance_other_bounds_ms(tb, n_full, d_full, 4)})")
     # where a call's device time goes: the norm pre-pass and the main
     # kernel, from a torch.profiler trace of 5 calls
     for label, a_, b_ in (("f32", xt, xn), ("bf16", xtb, xnb)):
@@ -872,7 +878,9 @@ def main() -> None:
     )
     log(f"[2b] point_megakernel step (knn_shapley, t={tb}, n={n_full}, "
         f"d={d_full}): kernel {pt_ms:.3f} ms, plain {pt_plain_ms:.3f} ms, "
-        f"bound {bound:.3f} ms ({by}); no single PyTorch call computes it")
+        f"bound {bound:.3f} ms ({by}; the distance phase's 3xTF32 floor "
+        f"{3 * distance_ops_ms(tb, n_full, d_full, 4):.3f} ms); no single "
+        f"PyTorch call computes it")
     del xb, yb, mask, xs, ys, got, want, vec_m
     torch.cuda.empty_cache()
     # the rank phase is a stable sort: bit-equal to torch.sort(stable=True)

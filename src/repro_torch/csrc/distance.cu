@@ -6,16 +6,18 @@
 // accumulation and f32 or bf16 inputs.
 //
 // What bounds it: at the main path's shape (t = 256, n = 65536, d = 768)
-// the cross term is 2 t n d = 2.6e10 operations. The f32 path runs it as
-// three TF32 products on the tensor cores (3xTF32, `distance_tile.cuh`:
-// 7.7e10 operations over 495 TFLOP/s = 0.156 ms), which keeps f32
-// accuracy (~2^-22 of |a||b| per product) and, unlike one TF32 pass, gives
+// the cross term is 2 t n d = 2.6e10 operations, 0.052 ms at the tensor
+// cores' TF32 rate (495 TFLOP/s), and the bytes (x_train and x_test read
+// once, the (t, n) output written once) are 0.27 GB: 0.080 ms, so the
+// function is bound by bytes. The f32 path runs the cross term as three
+// TF32 products (3xTF32, `distance_tile.cuh`), which keeps f32 accuracy
+// (~2^-22 of |a||b| per product) and, unlike one TF32 pass, gives
 // integer-valued features their exact products, so their distances and
-// ranks match the plain version bit for bit. The bytes (x_train and x_test
-// read once, the (t, n) output written once) are 0.27 GB: 0.080 ms, 0.14
-// ms with the norm pre-pass reading both again. bf16 inputs take one bf16
-// pass (0.026 ms of tensor work), so they are bound by their 0.17 GB of
-// bytes (0.050 ms).
+// ranks match the plain version bit for bit; that triples the tensor work,
+// whose 7.7e10 operations set this design's own floor at 0.156 ms. The
+// norm pre-pass reads both inputs again (0.14 ms of bytes in all). bf16
+// inputs take one bf16 pass (0.026 ms of tensor work), so they are bound
+// by their 0.17 GB of bytes (0.050 ms).
 //
 // Design: a pre-pass writes the row squared norms of both operands (one
 // warp per row, `row_sq_norm`: the bits of the megakernel's phase 0). The

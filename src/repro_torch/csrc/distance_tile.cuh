@@ -296,20 +296,15 @@ __device__ __forceinline__ void epilogue(const float* acc,
   }
 }
 
-// 16 bytes of row `row` (of `rows`, row stride d) from column `col`, as
-// four f32; zero past the row's end and past the last row. `vec`: the rows
-// are 16-byte aligned (d % 4 == 0 and an aligned base).
+// 16 bytes of row `row` (of `rows`, row stride d) from column `col` (a
+// multiple of 4), as four f32; zero past the row's end and past the last
+// row. The rows must be 16-byte aligned with d % 4 == 0: the wrappers pad
+// d with zero columns (`kernels/distance.py::tma_operands`, the contract
+// TMA sets for `distance.cu`), so a ragged d reaches both kernels alike.
 __device__ __forceinline__ float4 load4(const float* __restrict__ x, int row,
-                                        int rows, int col, int d, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= rows) return v;
-  const float* p = x + (size_t)row * d + col;
-  if (vec && col + 4 <= d) return *reinterpret_cast<const float4*>(p);
-  if (col < d) v.x = p[0];
-  if (col + 1 < d) v.y = p[1];
-  if (col + 2 < d) v.z = p[2];
-  if (col + 3 < d) v.w = p[3];
-  return v;
+                                        int rows, int col, int d) {
+  if (row >= rows || col >= d) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return *reinterpret_cast<const float4*>(x + (size_t)row * d + col);
 }
 
 __device__ __forceinline__ uint32_t bf16x2_rn(float a, float b) {
@@ -330,7 +325,7 @@ __device__ __forceinline__ void stage_tile(uint32_t buf,
                                            const float* __restrict__ xt,
                                            const float* __restrict__ xn,
                                            int t, int n, int d, int test0,
-                                           int train0, int k0, bool vec) {
+                                           int train0, int k0) {
   constexpr int GROUP = 4;
   constexpr int TRAIN = BM * CHUNKS, TOTAL = (BM + BN) * CHUNKS;
   static_assert(TRAIN % (GROUP * THREADS) == 0 &&
@@ -353,7 +348,7 @@ __device__ __forceinline__ void stage_tile(uint32_t buf,
 #pragma unroll
       for (int q = 0; q < LOADS; ++q)
         v[u][q] = load4(x, row0 + row, rows, k0 + (4 * LOADS) * ch + 4 * q,
-                        d, vec);
+                        d);
     }
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
@@ -394,7 +389,7 @@ __device__ __forceinline__ void block_tile(const float* __restrict__ xt,
                                            const float* __restrict__ nn,
                                            int t, int n, int d, int test0,
                                            int train0, uint32_t smem,
-                                           bool vec, Store store) {
+                                           Store store) {
   constexpr int KC = ROUND_BF16 ? kstep_cols<__nv_bfloat16>()
                                 : kstep_cols<float>();
   const int wg = threadIdx.x / WG;
@@ -403,8 +398,7 @@ __device__ __forceinline__ void block_tile(const float* __restrict__ xt,
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
   TF32Frags f;
-  stage_tile<ROUND_BF16, THREADS>(smem, xt, xn, t, n, d, test0, train0, 0,
-                                  vec);
+  stage_tile<ROUND_BF16, THREADS>(smem, xt, xn, t, n, d, test0, train0, 0);
   sm90::fence_proxy_async();
   __syncthreads();
   for (int s = 0; s < steps; ++s) {
@@ -419,7 +413,7 @@ __device__ __forceinline__ void block_tile(const float* __restrict__ xt,
     if (s + 1 < steps)
       stage_tile<ROUND_BF16, THREADS>(smem + ((s + 1) % 2) * STAGE_BYTES, xt,
                                       xn, t, n, d, test0, train0,
-                                      (s + 1) * KC, vec);
+                                      (s + 1) * KC);
     sm90::wgmma_wait<0>();
     if constexpr (ROUND_BF16)
       sm90::fence_acc<128>(acc);

@@ -368,9 +368,6 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
     const int tiles_c = (n + dist_tile::BM - 1) / dist_tile::BM;
     const int tiles = (tb + dist_tile::BN - 1) / dist_tile::BN * tiles_c;
     const uint32_t stages = sm90::smem_u32(aligned);
-    const bool vec = d % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(P.xb) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(P.xtr) % 16 == 0;
     uint32_t* keys = P.keys_a;
     int* idx = P.idx_a;
     auto store = [keys, idx, n](int r, int c, float v) {
@@ -385,11 +382,11 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
       if (P.bf16)
         dist_tile::block_tile<true, THREADS>(P.xb, P.xtr, P.norms,
                                              P.norms + tb, tb, n, d, test0,
-                                             train0, stages, vec, store);
+                                             train0, stages, store);
       else
         dist_tile::block_tile<false, THREADS>(P.xb, P.xtr, P.norms,
                                               P.norms + tb, tb, n, d, test0,
-                                              train0, stages, vec, store);
+                                              train0, stages, store);
     }
   }
   grid.sync();
@@ -443,6 +440,10 @@ cudaError_t set_smem_attribute() {
 // blocks as fit on every SM. Refused launches are reported, never
 // degraded: 801 (cudaErrorNotSupported) without cooperative launch.
 int launch(const Params& P, void* stream) {
+  // the distance phase's 16-byte loads (see dist_tile::load4)
+  if (P.d % 4 != 0 || reinterpret_cast<uintptr_t>(P.xb) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(P.xtr) % 16 != 0)
+    return cudaErrorInvalidValue;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -474,7 +475,9 @@ int launch(const Params& P, void* stream) {
 // indices, their two ping-pong buffers, ranks, g/values and u. `norms` is
 // f32 (tb + n,). acc (nr, n; NULL for point methods) and vec (nr,) are
 // updated in place. `kind` is a Kind above; `bf16` rounds the cross-term
-// operands to bf16. Returns a cudaError_t (0 = launched).
+// operands to bf16. d must be a multiple of 4 and xb and xtr 16-byte
+// aligned (the wrapper pads d with zero columns and copies a misaligned
+// view, as for `distance.cu`). Returns a cudaError_t (0 = launched).
 extern "C" int valuation_megakernel(float* acc, float* vec, const float* xb,
                                     const int* yb, const float* mask,
                                     const float* xtr, const int* ytr,

@@ -13,7 +13,10 @@ The kernel's input contract is TMA's: rows of a multiple of 16 bytes,
 16-byte aligned. `tma_operands` pads d with zero columns to a multiple of
 4 (f32) or 8 (bf16) -- zero columns change neither the products nor the
 norms -- and copies a misaligned view; the main path (d = 768, fresh
-tensors) copies nothing.
+tensors) copies nothing. The megakernel's distance phase stages its f32
+tiles with 16-byte loads under the same contract, and its wrapper passes
+its features through `tma_operands` too, so this function alone decides
+how a ragged or misaligned d reaches either kernel.
 """
 
 from __future__ import annotations
@@ -85,6 +88,8 @@ def distance_cuda(x_test: torch.Tensor, x_train: torch.Tensor
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if t == 0 or n == 0:
         return out
+    if x_test.shape[1] == 0:  # no features: every distance is 0
+        return out.zero_()
     x_test, x_train = tma_operands(x_test, x_train)
     d = x_test.shape[1]
     nt = torch.empty((t,), dtype=torch.float32, device=dev)

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core.sti_knn import ranks_from_order
 from repro_torch.kernels.build import library
+from repro_torch.kernels.distance import tma_operands
 from repro_torch.kernels.stream_kernels import make_megakernel_tables
 
 __all__ = [
@@ -268,10 +269,18 @@ def _operands(xb, yb, mask, x_train, y_train):
     for y in (yb, y_train):
         if y.dtype.is_floating_point or y.dtype == torch.bool:
             raise TypeError(f"labels must be integer, got {y.dtype}")
-    return (xb.to(torch.float32).contiguous(), yb.to(torch.int32).contiguous(),
-            mask.to(torch.float32).contiguous(),
-            x_train.to(torch.float32).contiguous(),
+    xb, x_train = _features(xb, x_train)
+    return (xb, yb.to(torch.int32).contiguous(),
+            mask.to(torch.float32).contiguous(), x_train,
             y_train.to(torch.int32).contiguous())
+
+
+def _features(xb, x_train):
+    """The f32 features as the distance phase takes them: contiguous, rows
+    padded to 16 bytes and aligned (`tma_operands`, the distance kernel's
+    contract); no copy for f32 contiguous features with d % 4 == 0."""
+    return tma_operands(xb.to(torch.float32).contiguous(),
+                        x_train.to(torch.float32).contiguous())
 
 
 def _state(x: torch.Tensor, shape: tuple, name: str) -> None:
@@ -385,8 +394,7 @@ def megakernel_rank_phase_cuda(xb, x_train, *, compute_dtype="float32"):
         raise ValueError("xb and x_train must share a device")
     if xb.ndim != 2 or x_train.ndim != 2 or xb.shape[1] != x_train.shape[1]:
         raise ValueError("features must be (tb, d) and (n, d)")
-    xb = xb.to(torch.float32).contiguous()
-    x_train = x_train.to(torch.float32).contiguous()
+    xb, x_train = _features(xb, x_train)
     bf16 = _round_bf16(compute_dtype)
     (tb, d), n = xb.shape, x_train.shape[0]
     dev = xb.device

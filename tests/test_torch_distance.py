@@ -28,7 +28,10 @@ from repro_torch.kernels.distance import (
     distance_plain,
     tma_operands,
 )
-from repro_torch.kernels.sti_megakernel import megakernel_rank_phase_cuda
+from repro_torch.kernels.sti_megakernel import (
+    _features,
+    megakernel_rank_phase_cuda,
+)
 
 HI_MASK = np.int32(-8192)  # 0xffffe000: sign, exponent, 10 mantissa bits
 
@@ -198,7 +201,44 @@ def test_tma_operands_copy_a_misaligned_view():
     assert px.data_ptr() % 16 == 0 and torch.equal(px, x)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 768])
+def test_megakernel_features_take_the_distance_padding(dtype, d):
+    """The megakernel's wrapper brings its features to f32 and then through
+    `tma_operands`, so a ragged d reaches its distance phase padded exactly
+    as it reaches `distance.cu`."""
+    rng = np.random.default_rng(d + 1)
+    xb = torch.from_numpy(rng.normal(size=(5, d)).astype(np.float32)).to(
+        dtype)
+    xs = torch.from_numpy(rng.normal(size=(11, d)).astype(np.float32)).to(
+        dtype)
+    fb, fs = _features(xb, xs)
+    wb, ws = tma_operands(xb.float(), xs.float())
+    assert fb.dtype == fs.dtype == torch.float32
+    assert torch.equal(fb, wb) and torch.equal(fs, ws)
+    assert fb.shape[1] % 4 == 0 and fb.data_ptr() % 16 == 0
+
+
+def test_zero_features_give_zero_distances():
+    """d = 0: every distance is 0, on the CPU as on the card."""
+    got = distance_cuda(torch.zeros((3, 0)), torch.zeros((5, 0)))
+    assert torch.equal(got, torch.zeros((3, 5)))
+
+
 # ------------------------------------------------------------ on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_distance_zero_features(cuda, dtype):
+    """d = 0 gives zeros, as the plain version does, with no launch."""
+    xt = torch.zeros((4, 0), dtype=dtype, device=cuda)
+    xn = torch.zeros((6, 0), dtype=dtype, device=cuda)
+    before = distance_cuda.launches
+    got = distance_cuda(xt, xn)
+    assert distance_cuda.launches == before
+    assert torch.equal(got, distance_plain(xt, xn))
+    assert torch.equal(got, torch.zeros((4, 6), device=cuda))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [7, 33, 768])
@@ -262,6 +302,27 @@ def test_cuda_rank_phase_bit_equal_to_sort_of_distance(cuda):
         np.float32)).to(cuda)
     xs = torch.from_numpy(rng.normal(size=(8192, 768)).astype(
         np.float32)).to(cuda)
+    d2s, order = megakernel_rank_phase_cuda(xb, xs)
+    want = torch.sort(distance_cuda(xb, xs), dim=-1, stable=True)
+    assert torch.equal(d2s, want.values)
+    assert torch.equal(order, want.indices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [7, 32])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_cuda_rank_phase_bit_equal_at_ragged_d(cuda, d, misaligned):
+    """A d that is no multiple of 4 (padded), and a view 4 bytes into its
+    storage (copied), reach the rank phase through the same padding as `distance_cuda`: its
+    values and order equal torch.sort(stable=True) of the kernel's
+    distances."""
+    rng = np.random.default_rng(d)
+    xb = torch.from_numpy(rng.normal(size=(70, d)).astype(np.float32)).to(
+        cuda)
+    flat = torch.from_numpy(rng.normal(size=(1 + 1000 * d,)).astype(
+        np.float32)).to(cuda)
+    xs = (flat[1:] if misaligned else flat[:-1]).view(1000, d)
+    assert (xs.data_ptr() % 16 != 0) == misaligned
     d2s, order = megakernel_rank_phase_cuda(xb, xs)
     want = torch.sort(distance_cuda(xb, xs), dim=-1, stable=True)
     assert torch.equal(d2s, want.values)
