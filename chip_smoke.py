@@ -46,8 +46,10 @@ version, kernel / plain / bound / library times); the last line is
 
 from __future__ import annotations
 
+import ctypes
 import faulthandler
 import json
+import re
 import subprocess
 import sys
 import time
@@ -134,7 +136,6 @@ def fill_bound_ms(t, n) -> tuple[float, str]:
     # symmetric, so the function needs only the n(n+1)/2 pairs on and above
     # the diagonal -- per test point one compare, one select and one add
     # each -- and one add per element to mirror them into the other half
-    # (the kernel itself computes all n^2 pairs)
     nbytes = 2 * n * n * 4 + 2 * t * n * 4
     ops = 3.0 * t * n * (n + 1) / 2 + float(n) * n
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / SIMPLE_OPS_PER_S
@@ -207,6 +208,86 @@ def bf16_ulp(torch, x):
     """One bf16 unit in the last place at |x| (8 significant bits)."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def with_clocks(fn):
+    """(fn(), the card's SM clock and power draw while it ran): mean MHz
+    and W over `nvidia-smi` samples taken every 100 ms beside it."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        try:
+            text = proc.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text = proc.communicate()[0]
+    rows = []
+    for ln in text.splitlines():
+        try:
+            mhz, watts = (float(v) for v in ln.split(","))
+        except ValueError:
+            continue
+        rows.append((mhz, watts))
+    mean = (lambda i: sum(r[i] for r in rows) / len(rows)) if rows else None
+    return out, {"sm_mhz": mean(0) if rows else None,
+                 "power_w": mean(1) if rows else None,
+                 "samples": len(rows)}
+
+
+def ptxas_usage(report: str) -> dict:
+    """{mangled kernel name: registers, spill stores and loads, stack
+    bytes} from an `nvcc -Xptxas -v` build log."""
+    usage, cur = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_loop(sass: str, marker: str, at_least: int) -> dict:
+    """The smallest loop of a kernel's SASS (`cuobjdump -sass`) that holds
+    at least `at_least` `marker` instructions: the instructions from a
+    branch's target up to the branch back to it, counted by opcode
+    (predicates and modifiers dropped, except the width of shared-memory
+    loads); {} if there is none."""
+    addrs, ops, best = [], [], {}
+    for ln in sass.splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if not m:
+            continue
+        text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+        op = text.split()[0] if text else ""
+        addrs.append(int(m.group(1), 16))
+        ops.append(op if op.startswith("LDS") else op.split(".")[0])
+        b = re.search(r"BRA\s+(?:\S+,\s*)?(0x[0-9a-f]+)", text)
+        if not b or int(b.group(1), 16) > addrs[-1]:
+            continue
+        first = next(i for i, a in enumerate(addrs)
+                     if a >= int(b.group(1), 16))
+        hist: dict = {}
+        for o in ops[first:]:
+            hist[o] = hist.get(o, 0) + 1
+        if hist.get(marker, 0) >= at_least and (
+                not best or sum(hist.values()) < sum(best.values())):
+            best = hist
+    return best
 
 
 def device_busy(torch, fn) -> dict | None:
@@ -546,8 +627,9 @@ def main() -> None:
     from repro_torch.data import flip_labels, make_gaussian_blobs
     from repro_torch.kernels import build
     from repro_torch.kernels.distance import distance_cuda, distance_plain
+    from repro_torch.kernels.sti_fill import TILE as FILL_TILE
     from repro_torch.kernels.sti_fill import (
-        rect_row_view, sti_fill_acc_cuda, sti_fill_acc_plain,
+        fill_tile_walk, rect_row_view, sti_fill_acc_cuda, sti_fill_acc_plain,
         sti_fill_acc_rect_cuda, sti_fill_acc_rect_plain, sti_fill_cuda,
         sti_fill_plain, sti_fill_rect_cuda, sti_fill_rect_plain)
     from repro_torch.kernels.sti_megakernel import (
@@ -573,6 +655,15 @@ def main() -> None:
         for ln in rep.splitlines():
             if any(k in ln for k in ("registers", "spill", "wgmma")):
                 log(f"    {name}: {ln.strip()}")
+    # registers and spills of the two kernels that run the fill tile
+    fill_usage = {}
+    for src_name, pattern in (("sti_fill", r"fill_acc_kernel"),
+                              ("sti_megakernel", r"\d+megakernelE")):
+        for fn, use in ptxas_usage(reports.get(src_name, "")).items():
+            if re.search(pattern, fn):
+                fill_usage[src_name] = use
+        log(f"[1] {src_name} fill kernel (ptxas -v): "
+            f"{fill_usage.get(src_name, 'not measured: not built here')}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -687,10 +778,12 @@ def main() -> None:
                               dim=1)
         return g, ranks
 
-    # The kernel adds the test points to each element in the plain
-    # version's order (p = 0, 1, ...), so the two should agree to the bit;
-    # the tolerance, 1e-6 of the largest |value| as for the JAX fills,
-    # would admit only rounding.
+    # The kernel sums the test points from zero in the plain version's
+    # order (p = 0, 1, ...) and adds the sum once, as plain does, so the
+    # two should agree to the bit (logged); the tolerance, 1e-6 of the
+    # largest |value| as for the JAX fills, would admit only rounding. The
+    # accumulators are not symmetric, so a mirrored tile that landed in the
+    # wrong place, or twice, would show.
     fill_tol = 1e-6
     for n in (4099, 8192):
         g, ranks = fill_inputs(tb, n)
@@ -702,11 +795,27 @@ def main() -> None:
         for label, a, b in (("acc", got, want), ("zero-init", got0, want0)):
             err, scale = float((a - b).abs().max()), float(b.abs().max())
             log(f"[2] fill {label} (t={tb}, n={n}): max_abs_err {err:.3e} "
-                f"(max |ref| {scale:.1f})")
+                f"(max |ref| {scale:.1f}); bit-equal to plain "
+                f"{bool(torch.equal(a, b))}")
             if not err <= fill_tol * scale:
                 fail(f"fill {label} kernel disagrees with plain at n={n}: "
                      f"{err} > {fill_tol} * {scale}")
         del g, ranks, acc0, got, want, got0, want0
+
+    # the tiles the square computes: the kernel's own count (its schedule,
+    # host side) and the Python copy of its walk, against all (n/128)^2
+    tiles_c = build.library("sti_fill").sti_fill_tiles
+    tiles_c.argtypes = [ctypes.c_int] * 3
+    tiles_c.restype = ctypes.c_longlong
+    fill_tiles = int(tiles_c(n_full, n_full, 0))
+    walked = sum(1 for _ in fill_tile_walk(n_full, n_full, 0))
+    all_tiles = (-(-n_full // FILL_TILE)) ** 2
+    log(f"[2] fill square n={n_full}: {fill_tiles} tiles computed (the "
+        f"Python walk: {walked}) of {all_tiles} = (n/128)^2, "
+        f"{fill_tiles / all_tiles:.4f} of them")
+    if fill_tiles != walked:
+        fail(f"the kernel's tile count {fill_tiles} is not the Python "
+             f"walk's {walked}")
 
     # the main path's shape: (t, n) = (256, 65536), one call each
     g, ranks = fill_inputs(tb, n_full)
@@ -720,15 +829,52 @@ def main() -> None:
     fill_plain_ms = 1e3 * (time.perf_counter() - t0)
     ferr = max_abs_diff(torch, acc_k, acc_p)
     fscale = max_abs(torch, acc_p)
+    fbits = all(bool(torch.equal(acc_k[r0:r0 + 4096], acc_p[r0:r0 + 4096]))
+                for r0 in range(0, n_full, 4096))
     log(f"[2] fill acc (t={tb}, n={n_full}): max_abs_err {ferr:.3e} "
-        f"(max |ref| {fscale:.1f}); plain {fill_plain_ms:.1f} ms")
+        f"(max |ref| {fscale:.1f}); bit-equal to plain {fbits}; plain "
+        f"{fill_plain_ms:.1f} ms")
     if not ferr <= fill_tol * fscale:
         fail(f"fill kernel disagrees with plain at n={n_full}: {ferr}")
     del acc_p
     torch.cuda.empty_cache()
-    fill_ms = cuda_ms(torch, lambda: sti_fill_acc_cuda(acc_k, g, ranks),
-                      reps=5)
+    fill_ms, clocks = with_clocks(
+        lambda: cuda_ms(torch, lambda: sti_fill_acc_cuda(acc_k, g, ranks),
+                        reps=5))
     bound, by = fill_bound_ms(tb, n_full)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    updates = fill_tiles * FILL_TILE * FILL_TILE * tb
+    per_clock = (updates / (fill_ms * 1e-3 * sms * clocks["sm_mhz"] * 1e6)
+                 if clocks["sm_mhz"] else None)
+    fill_sass = {nm: txt for nm, txt in build.sass("sti_fill").items()
+                 if "fill_acc_kernel" in nm}
+    mk_fill_sass = {nm: txt for nm, txt in build.sass(
+        "sti_megakernel").items() if re.search(r"\d+megakernelE", nm)}
+    # each test point adds 64 pair-point updates to a thread's 8 x 8
+    # micro-tile, as two predicated FADDs each: the per-point loop (the
+    # ragged last stage's) holds 128 FADDs, the unrolled stage of 16 points
+    # (with its copies and barrier) 2048
+    loops = {}
+    for label, kern in (("sti_fill", fill_sass),
+                        ("sti_megakernel", mk_fill_sass)):
+        for scope, need, per in (("point", 128, 64), ("stage", 2048, 1024)):
+            hist = sass_loop(next(iter(kern.values()), ""), "FADD", need)
+            loops[f"{label} {scope}"] = dict(
+                instructions=sum(hist.values()), updates=per,
+                per_update={op: c / per for op, c in sorted(
+                    hist.items(), key=lambda kv: -kv[1])})
+    fill_tile_report = dict(
+        tiles=fill_tiles, all_tiles=all_tiles, updates=updates,
+        clocks=clocks, sms=sms, updates_per_sm_per_clock=per_clock,
+        ptxas=fill_usage, hot_loop=loops)
+    log(f"[2] fill acc timing window: SM clock {clocks['sm_mhz']} MHz, "
+        f"power {clocks['power_w']} W ({clocks['samples']} nvidia-smi "
+        f"samples); {updates:.4g} pair-point updates in {fill_ms:.2f} ms on "
+        f"{sms} SMs = {per_clock} updates per SM per clock")
+    for label, loop in loops.items():
+        log(f"[2] {label} loop SASS: {loop['instructions']} instructions "
+            f"for {loop['updates']} updates a thread; per update "
+            f"{ {op: round(c, 4) for op, c in loop['per_update'].items()} }")
     entries["sti_fill_acc"] = dict(
         name="sti_fill_acc", route="cuda",
         source="src/repro_torch/csrc/sti_fill.cu",
@@ -801,13 +947,15 @@ def main() -> None:
                 hold(f"sti_megakernel {mode} {cd} ({t}, {n}, {d})", got,
                      want)
                 del got, want
-        off, nr = (n // 3, n // 4)
-        got = sti_megakernel_cuda(*zeros_state(nr, n), xb, yb, mask, xs, ys,
-                                  k=k, row_offset=off)
-        want = sti_megakernel_plain(*zeros_state(nr, n), xb, yb, mask, xs,
-                                    ys, k=k, row_offset=off)
-        hold(f"sti_megakernel rows [{off}, {off + nr}) ({t}, {n}, {d})", got,
-             want)
+        # a misaligned row block (every tile computed) and one at a
+        # multiple of 128 (its diagonal square mirrored)
+        for off, nr in ((n // 3, n // 4), (n // 2 // 128 * 128, n // 4)):
+            got = sti_megakernel_cuda(*zeros_state(nr, n), xb, yb, mask, xs,
+                                      ys, k=k, row_offset=off)
+            want = sti_megakernel_plain(*zeros_state(nr, n), xb, yb, mask,
+                                        xs, ys, k=k, row_offset=off)
+            hold(f"sti_megakernel rows [{off}, {off + nr}) ({t}, {n}, {d})",
+                 got, want)
         for method, opts in point_cases:
             kw = dict(method=method, k=k, opts=opts)
             got = point_megakernel_cuda(torch.zeros((n,), device=dev), xb, yb,
@@ -919,8 +1067,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------- 2c. the rect fill vs plain on the card
-    # The rect kernel runs the square kernel's tile code, adding the test
-    # points in order, so it should agree with plain to the bit; the
+    # The rect kernel runs the square kernel's tile code, summing the test
+    # points in plain's order, so it should agree with plain to the bit; the
     # tolerance, 1e-6 of the largest |value| as for the fills, would admit
     # only rounding.
     rect_tol = 1e-6
@@ -987,10 +1135,13 @@ def main() -> None:
         library_ms=None,
         shape=f"t={tb} rows={nl} at {(shards - 1) * nl} n={n_full}",
     )
+    rect_tiles = int(tiles_c(nl, n_full, (shards - 1) * nl))
     log(f"[2c] rect fill block (t={tb}, {nl} x {n_full}): kernel "
         f"{rect_ms:.2f} ms, plain {rect_plain_ms:.1f} ms (one call), bound "
         f"{bound:.2f} ms ({by}; {shards} blocks {shards * bound:.1f} ms); "
-        f"no single PyTorch call computes it")
+        f"{rect_tiles} tiles computed of "
+        f"{(nl // FILL_TILE) * (n_full // FILL_TILE)}; no single PyTorch "
+        f"call computes it")
     del acc_k, g, rr, rc
     torch.cuda.empty_cache()
 
@@ -1057,6 +1208,7 @@ def main() -> None:
     del x_all, y_all
     distance_cuda.launches = sti_fill_acc_cuda.launches = 0
     torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = get_method(CONFIG.mode)(
@@ -1071,7 +1223,8 @@ def main() -> None:
     log(f"[4] {CONFIG.mode} fused n={n_full} d={d_full} k={k} t={t_full} "
         f"(test_batch {tb}): {total_s:.3f} s total, resolved "
         f"fill={result.meta['fill']} distance={result.meta['distance']}, "
-        f"launches {launches}, peak device memory {main_peak_gib:.2f} GiB")
+        f"launches {launches}, peak device memory {main_peak_gib:.2f} GiB "
+        f"({held_gib:.2f} GiB held before by this script)")
     n_steps = -(-t_full // tb)
     for name, count in launches.items():
         if count == 0:
@@ -1106,9 +1259,11 @@ def main() -> None:
         g = superdiagonal_g(u, k, mode=CONFIG.mode)
         gt = torch.gather(g, 1, ranks)
         rr, gr = ranks[:, rows], gt[:, rows]
+        step_sum = torch.zeros_like(acc_rows)  # from zero, then added
         for p in range(tb):
-            acc_rows += torch.where(rr[p, :, None] >= ranks[p, None, :],
+            step_sum += torch.where(rr[p, :, None] >= ranks[p, None, :],
                                     gr[p, :, None], gt[p, None, :])
+        acc_rows += step_sum
         diag += torch.gather(u, 1, ranks).sum(0)
         v_sum += float(u[:, :k].sum(dtype=torch.float64))
     want_rows = acc_rows / t_full
@@ -1120,6 +1275,14 @@ def main() -> None:
         f"order)")
     if not rerr <= 1e-6 * rscale:
         fail(f"sampled rows of phi disagree with plain: {rerr}")
+    # the square fill computes the upper tiles and mirrors them: phi must
+    # be exactly symmetric (its diagonal, diag / t, is symmetric anyway)
+    symmetric = all(bool(torch.equal(phi[r0:r0 + 4096],
+                                     phi[:, r0:r0 + 4096].T))
+                    for r0 in range(0, n_full, 4096))
+    log(f"[4] phi exactly symmetric off the diagonal: {symmetric}")
+    if not symmetric:
+        fail("[4]'s phi is not exactly symmetric")
 
     # efficiency: sum(diag) + sum(upper triangle) = v(N), the likelihood
     # valuation. Exact in real arithmetic; in f32 the large terms the
@@ -1430,6 +1593,8 @@ def main() -> None:
                                      "shape": f"t={tb} n={n_full} "
                                               f"d={d_full}"},
                       "main_path_peak_gib": main_peak_gib,
+                      "fill_tile": fill_tile_report,
+                      "phi_symmetric": symmetric,
                       "sharded": sharded,
                       "serving": serving,
                       "power": smi}))

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory addresses, mbarriers, TMA loads and stores, the 128-byte-swizzled
-// wgmma matrix descriptor, the wgmma fence / commit / wait, and the host
-// side's tensor-map encoder. `flash_attention.cu`, `distance.cu` and
-// `sti_megakernel.cu` (through `distance_tile.cuh`) include it; each is
-// its own library, so everything here is internal to the including file.
+// memory addresses, mbarriers, TMA loads and stores, cp.async, the
+// 128-byte-swizzled wgmma matrix descriptor, the wgmma fence / commit /
+// wait, and the host side's tensor-map encoder. `flash_attention.cu`,
+// `distance.cu`, `sti_fill.cu` (through `fill_tile.cuh`) and
+// `sti_megakernel.cu` include it; each is its own library, so everything
+// here is internal to the including file.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
@@ -96,6 +97,23 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async of 8 bytes from global `src` to shared `dst`: the first
+// `src_bytes` (8 or 0) are read, the rest of the 8 are zero-filled
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // orders this thread's generic-proxy writes to shared memory before later

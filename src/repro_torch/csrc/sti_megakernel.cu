@@ -17,9 +17,8 @@
 // (d2, index) stream held in VMEM. At n = 65536 one such row is 512 KB of
 // keys, more than a block's 227 KB of shared memory, so that design does
 // not carry over. Here one persistent cooperative kernel (one 256-thread
-// block per SM: the fill's register tile leaves ptxas at ~200 registers
-// per thread, and the distance phase takes 160 KB of dynamic shared
-// memory; started with cudaLaunchCooperativeKernel) runs the phases with
+// block per SM: the distance phase takes 160 KB of dynamic shared memory;
+// started with cudaLaunchCooperativeKernel) runs the phases with
 // grid-wide barriers between them, its (tb, n) tables in global scratch
 // that the wrapper allocates:
 //   0. row squared norms of the batch and of x_train (a warp per row);
@@ -37,10 +36,16 @@
 //      recurrence; knn_shapley/wknn: the knn_shapley_from_sorted suffix
 //      recurrence, wknn's distance weights on the sorted d2 with a block
 //      reduction for the rbf row mean over d2 < 1e20; loo: the window
-//      delta), scattered to train coordinates with the ranks;
+//      delta), scattered to train coordinates with the ranks -- for
+//      sti/sii g as (rank, g) pairs packed for the fill;
 //   4. the update: one thread per accumulator row for diag / vec (test
 //      points added in order, no atomics), and for sti/sii the fill
-//      (`fill_tile.cuh`, the code of `sti_fill.cu`) over the row block.
+//      (`fill_tile.cuh`, the code of `sti_fill.cu`) over the row block,
+//      its tiles shared out over the blocks. The rows are the window of
+//      the (rank, g) table at row_offset, so at a row_offset that is a
+//      multiple of 128 (the whole square included) only the upper
+//      triangle of the block's (nr, nr) square on the diagonal is
+//      computed and mirrored into the lower one; elsewhere every tile.
 // acc and diag / vec are updated in place, which replaces the Pallas
 // kernel's input_output_aliases. With compute_dtype bf16 only the cross
 // term's operands are rounded to bf16 (f32 accumulate, one bf16 `wgmma`
@@ -48,10 +53,13 @@
 //
 // What bounds it (t = 256, n = 65536, d = 768): for sti/sii the fill, as
 // for `sti_fill.cu` (3 t n(n+1)/2 + n^2 simple operations, 49 ms at the
-// data-sheet instruction rate; the kernel computes all n^2 pairs); for
-// the point methods the distance's three TF32 products on the tensor cores
-// (3 * 2 t n d operations, 0.156 ms at 495 TFLOP/s). The sort and the
-// tables are O(t n) and take a few ms at one block per test row.
+// data-sheet instruction rate; the kernel computes the n(n+1)/2 pairs of
+// the upper tiles and mirrors them, as the function needs, but its tile
+// runs at this grid's one block, 8 warps, per SM, where the standalone
+// fill runs two); for the point methods the distance's three TF32
+// products on the tensor cores (3 * 2 t n d operations, 0.156 ms at 495
+// TFLOP/s). The sort and the tables are O(t n) and take a few ms at one
+// block per test row.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,8 +104,8 @@ struct Params {
   int* idx_a;          // (tb, n) train indices; sorted after phase 2
   uint32_t* keys_b;    // (tb, n) radix ping-pong
   int* idx_b;          // (tb, n) radix ping-pong
-  int* ranks;          // (tb, n) train coordinates
-  float* tab;          // (tb, n) train coordinates: g (sti/sii) or values
+  int2* pk;            // (tb, n) train coordinates: (rank, g bits), sti/sii
+  float* tab;          // (tb, n) train coordinates: point values
   float* ut;           // (tb, n) train coordinates: u (sti/sii)
   int tb, n, d, nr, row_offset, k, kind, bf16;
 };
@@ -205,17 +213,18 @@ __device__ void radix_sort_row(uint32_t* __restrict__ ka, int* __restrict__ va,
 }
 
 // Phase 3 for test row p: the method's table along the sorted stream of
-// row p (keys_a / idx_a), scattered to train coordinates: ranks[p, i],
-// tab[p, i] (g or the point value of train point i) and, for sti/sii,
-// ut[p, i]. Suffix sums run over chunks of THREADS positions from the end
-// of the row, a warp-shuffle scan within each chunk.
+// row p (keys_a / idx_a), scattered to train coordinates: for sti/sii
+// pk[p, i] = (rank of train point i, bits of g at that rank) and
+// ut[p, i], for the point methods tab[p, i] (the value of train point i).
+// Suffix sums run over chunks of THREADS positions from the end of the
+// row, a warp-shuffle scan within each chunk.
 __device__ void tables_row(const Params& P, int p, ScanSmem& s) {
   const int n = P.n, k = P.k, kind = P.kind;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t off = (size_t)p * n;
   const uint32_t* keys = P.keys_a + off;
   const int* ord = P.idx_a + off;
-  int* ranks = P.ranks + off;
+  int2* pk = P.pk + off;
   float* tab = P.tab + off;
   float* ut = P.ut + off;
   const int yp = P.yb[p];
@@ -270,9 +279,7 @@ __device__ void tables_row(const Params& P, int p, ScanSmem& s) {
     const float nxt = n > k ? u(k) : 0.f;
     for (int j = tid; j < n; j += THREADS) {
       const float v = j < k ? (u(j) - nxt) / kf : 0.f;
-      const int i = ord[j];
-      ranks[i] = j;
-      tab[i] = v;
+      tab[ord[j]] = v;
     }
     return;
   }
@@ -324,16 +331,14 @@ __device__ void tables_row(const Params& P, int p, ScanSmem& s) {
     __syncthreads();
     if (j < n) {
       const int i = ord[j];
-      float val;
       if (inter) {  // g[j] = last + sum over positions > j; g[0] = 0
         const float excl = tid + 1 < THREADS ? s.incl[tid + 1] : carry;
-        val = j == 0 ? 0.f : __fadd_rn(last, excl);
+        const float val = j == 0 ? 0.f : __fadd_rn(last, excl);
+        pk[i] = make_int2(j, __float_as_int(val));
         ut[i] = u(j);
       } else {      // s[j] = last + sum over positions >= j
-        val = __fadd_rn(last, incl);
+        tab[i] = __fadd_rn(last, incl);
       }
-      ranks[i] = j;
-      tab[i] = val;
     }
     carry = __fadd_rn(carry, total);
     __syncthreads();
@@ -415,17 +420,12 @@ __global__ void __launch_bounds__(THREADS, 1) megakernel(Params P) {
     }
   }
   if (inter) {
-    const int tiles_c = (n + fill_tile::TILE - 1) / fill_tile::TILE;
-    const int tiles =
-        (P.nr + fill_tile::TILE - 1) / fill_tile::TILE * tiles_c;
     // rows: the window of the block's train points; cols: all n
-    const fill_tile::Side rows{P.ranks + P.row_offset, P.tab + P.row_offset,
-                               n, P.nr};
-    const fill_tile::Side cols{P.ranks, P.tab, n, n};
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-      fill_tile::acc_tile(P.acc, rows, cols, tb,
-                          tile / tiles_c * fill_tile::TILE,
-                          tile % tiles_c * fill_tile::TILE, sm.fill);
+    const fill_tile::Side rows{P.pk + P.row_offset, n, P.nr};
+    const fill_tile::Side cols{P.pk, n, n};
+    fill_tile::fill(P.acc, rows, cols, tb,
+                    fill_tile::Schedule(P.nr, n, P.row_offset), blockIdx.x,
+                    gridDim.x, sm.fill);
   }
 }
 
@@ -472,7 +472,8 @@ int launch(const Params& P, void* stream) {
 
 // C interface, loaded with ctypes; all pointers are device pointers and
 // `stream` is a cudaStream_t. `scratch` is int32 (7, tb, n): sort keys,
-// indices, their two ping-pong buffers, ranks, g/values and u. `norms` is
+// indices, their two ping-pong buffers, then (rank, g) pairs over planes
+// 4-5 for sti/sii (the point values in plane 5 otherwise) and u. `norms` is
 // f32 (tb + n,). acc (nr, n; NULL for point methods) and vec (nr,) are
 // updated in place. `kind` is a Kind above; `bf16` rounds the cross-term
 // operands to bf16. d must be a multiple of 4 and xb and xtr 16-byte
@@ -498,7 +499,7 @@ extern "C" int valuation_megakernel(float* acc, float* vec, const float* xb,
   P.idx_a = scratch + plane;
   P.keys_b = reinterpret_cast<uint32_t*>(scratch + 2 * plane);
   P.idx_b = scratch + 3 * plane;
-  P.ranks = scratch + 4 * plane;
+  P.pk = reinterpret_cast<int2*>(scratch + 4 * plane);
   P.tab = reinterpret_cast<float*>(scratch + 5 * plane);
   P.ut = reinterpret_cast<float*>(scratch + 6 * plane);
   P.tb = tb;

@@ -13,20 +13,32 @@ engine's (n/D, n) row block, whose row table is `rect_row_view` of the
 column table. `sti_fill_cuda` / `sti_fill_rect_cuda` are the same kernels
 on a zeroed accumulator. On CUDA tensors they launch the kernel of
 `csrc/sti_fill.cu`; on CPU tensors they take the plain versions below.
-The design notes (why the TPU kernel's VMEM-resident g block does not
-carry over, and the compare-select identity used instead) are at the top
-of the CUDA source.
+
+Every form sums the increment from zero over the test points in order
+and adds that sum to the accumulator once (`add_tile_sum`), the order of
+the JAX acc kernel, in the kernel and the plain versions alike. The sum
+is symmetric, so where the row table is a window of the column table the
+kernel computes only the upper tiles of the window's diagonal square and
+mirrors them (`fill_tile_walk` is a copy of its tile walk). The design
+notes (why the TPU kernel's VMEM-resident g block does not carry over,
+the compare-select identity used instead, the mirror and the staging)
+are at the top of the CUDA source.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels.build import library
 
 __all__ = [
+    "TILE",
+    "add_tile_sum",
+    "fill_tile_walk",
+    "row_window",
     "sti_fill_plain",
     "sti_fill_acc_plain",
     "sti_fill_cuda",
@@ -39,18 +51,43 @@ __all__ = [
 ]
 
 
+# the kernel's output tile edge (`fill_tile::TILE`)
+TILE = 128
+
+# elements of a row block's temporaries in the plain sum (its sum, one
+# test point's term and their compare): 2^28, 1 GiB of f32 each
+_PLAIN_BLOCK_ELEMENTS = 1 << 28
+
+
+def add_tile_sum(acc: torch.Tensor, r_rows: torch.Tensor,
+                 g_rows: torch.Tensor, r_cols: torch.Tensor,
+                 g_cols: torch.Tensor) -> torch.Tensor:
+    """acc += S in place, S[a, b] = sum_p (r_rows[p, a] >= r_cols[p, b]
+    ? g_rows[p, a] : g_cols[p, b]) summed from zero over p = 0, 1, ... in
+    order: the order of the JAX acc kernel (`_tile_sum` added to the
+    seeded output) and of the CUDA fill, whatever acc held. `g_*` are g
+    gathered at each side's ranks. Row blocks bound the temporaries."""
+    nr, nc = acc.shape
+    step = max(1, _PLAIN_BLOCK_ELEMENTS // max(nc, 1))
+    for r0 in range(0, nr, step):
+        rr, gr = r_rows[:, r0:r0 + step], g_rows[:, r0:r0 + step]
+        s = torch.zeros_like(acc[r0:r0 + step])
+        for p in range(r_rows.shape[0]):
+            s.add_(torch.where(rr[p, :, None] >= r_cols[p, None, :],
+                               gr[p, :, None], g_cols[p, None, :]))
+        acc[r0:r0 + step].add_(s)
+    return acc
+
+
 def sti_fill_acc_plain(acc: torch.Tensor, g: torch.Tensor,
                        ranks: torch.Tensor) -> torch.Tensor:
     """acc[a, b] += sum_p g[p, max(ranks[p, a], ranks[p, b])], in place,
-    one test point at a time through the compare-select identity
-    g[p, max(r_a, r_b)] = (r_a >= r_b) ? g[p, r_a] : g[p, r_b].
-    Peak memory is one (n, n) temporary."""
+    through the compare-select identity
+    g[p, max(r_a, r_b)] = (r_a >= r_b) ? g[p, r_a] : g[p, r_b],
+    the sum over p taken from zero and then added (`add_tile_sum`)."""
     r = ranks.long()
     gt = torch.gather(g.to(torch.float32), 1, r)
-    for p in range(g.shape[0]):
-        acc.add_(torch.where(r[p, :, None] >= r[p, None, :],
-                             gt[p, :, None], gt[p, None, :]))
-    return acc
+    return add_tile_sum(acc, r, gt, r, gt)
 
 
 def sti_fill_plain(g: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
@@ -89,31 +126,43 @@ def sti_fill_acc_cuda(acc: torch.Tensor, g: torch.Tensor,
                       ranks: torch.Tensor) -> torch.Tensor:
     """acc[a, b] += sum_p g[p, max(ranks[p, a], ranks[p, b])] in place;
     returns `acc`. CPU tensors take `sti_fill_acc_plain`; CUDA tensors
-    launch the kernel (or raise). Ranks are cast to int32 for the kernel
-    (torch's gather/scatter produce int64). `sti_fill_acc_cuda.launches`
-    counts kernel launches."""
+    launch the kernel (or raise). The kernel reads int64 ranks, as torch's
+    gather and scatter make them, in place (other types are cast).
+    `sti_fill_acc_cuda.launches` counts kernel launches."""
     if all(x.device.type == "cpu" for x in (acc, g, ranks)):
         return sti_fill_acc_plain(acc, g, ranks)
     _check(acc, g, ranks)
     t, n = g.shape
     if t == 0 or n == 0:
         return acc
-    r32 = ranks.to(torch.int32).contiguous()
-    gt = torch.empty_like(g)  # g gathered at each train point's rank
-    fn = library("sti_fill").sti_fill_acc_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(acc.device):
-        rc = fn(acc.data_ptr(), g.data_ptr(), r32.data_ptr(), gt.data_ptr(),
-                t, n, torch.cuda.current_stream(acc.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"sti_fill kernel launch failed: CUDA error {rc}")
+    r64 = ranks.to(torch.int64).contiguous()
+    pk = _pairs(t, n, acc.device)
+    _launch("sti_fill_acc_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2,
+            acc.data_ptr(), g.data_ptr(), r64.data_ptr(), pk.data_ptr(), t,
+            n, dev=acc.device)
     sti_fill_acc_cuda.launches += 1
     return acc
 
 
 sti_fill_acc_cuda.launches = 0
+
+
+def _pairs(t: int, w: int, dev) -> torch.Tensor:
+    """Scratch for one side's packed (rank, gt bits) table: (t, w) pairs
+    of int32, in place of a gathered (t, w) g."""
+    return torch.empty((t, w, 2), dtype=torch.int32, device=dev)
+
+
+def _launch(fn_name: str, argtypes: list, *args, dev) -> None:
+    """Call `csrc/sti_fill.cu`'s C entry `fn_name` on the current stream
+    of `dev`; raises on a refused or failed launch."""
+    fn = getattr(library("sti_fill"), fn_name)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
 
 
 def sti_fill_cuda(g: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
@@ -144,16 +193,13 @@ def sti_fill_acc_rect_plain(acc: torch.Tensor, g: torch.Tensor,
                             ranks_rows: torch.Tensor,
                             ranks_cols: torch.Tensor) -> torch.Tensor:
     """acc[a, b] += sum_p g[p, max(ranks_rows[p, a], ranks_cols[p, b])],
-    in place, one test point at a time through the compare-select
-    identity, as `sti_fill_acc_plain` does for the square. Peak memory is
-    one (n_rows, n_cols) temporary."""
+    in place, through the compare-select identity, the sum over p taken
+    from zero and then added, as `sti_fill_acc_plain` does for the
+    square."""
     g = g.to(torch.float32)
     rr, rc = ranks_rows.long(), ranks_cols.long()
-    gr, gc = torch.gather(g, 1, rr), torch.gather(g, 1, rc)
-    for p in range(g.shape[0]):
-        acc.add_(torch.where(rr[p, :, None] >= rc[p, None, :],
-                             gr[p, :, None], gc[p, None, :]))
-    return acc
+    return add_tile_sum(acc, rr, torch.gather(g, 1, rr), rc,
+                        torch.gather(g, 1, rc))
 
 
 def sti_fill_rect_plain(g: torch.Tensor, ranks_rows: torch.Tensor,
@@ -194,14 +240,75 @@ def _check_rect(acc, g, ranks_rows, ranks_cols) -> None:
         raise ValueError("acc and g must be contiguous")
 
 
+def row_window(ranks_rows: torch.Tensor, ranks_cols: torch.Tensor) -> int:
+    """The column of `ranks_cols` at which `ranks_rows` is a window of it
+    (`rect_row_view`): both are views of one storage with the same dtype
+    and strides, rows of unit stride at least n_cols apart, and the
+    storage offsets differ by 0 <= off <= n_cols - n_rows. Else -1: the
+    tables are taken as independent."""
+    nr, nc = ranks_rows.shape[-1], ranks_cols.shape[-1]
+    if (ranks_rows.ndim != 2 or ranks_cols.ndim != 2
+            or ranks_rows.dtype != ranks_cols.dtype
+            or ranks_rows.shape[0] != ranks_cols.shape[0]
+            or ranks_rows.stride() != ranks_cols.stride()
+            or ranks_cols.stride(1) != 1
+            or (ranks_cols.shape[0] > 1 and ranks_cols.stride(0) < nc)):
+        return -1
+    if (ranks_rows.untyped_storage()._cdata
+            != ranks_cols.untyped_storage()._cdata):
+        return -1
+    off = ranks_rows.storage_offset() - ranks_cols.storage_offset()
+    return off if 0 <= off <= nc - nr else -1
+
+
+def fill_tile_walk(n_rows: int, n_cols: int, row_offset: int):
+    """The kernel's tile walk (`fill_tile::Schedule` in
+    `csrc/fill_tile.cuh`), in its order: one (row tile, column tile,
+    mirror tile or None) per tile the kernel computes on an (n_rows,
+    n_cols) block whose rows are the window at column `row_offset` of the
+    column table (-1: independent tables). With an offset that is a
+    multiple of TILE the window's diagonal square walks its upper triangle
+    and mirrors each tile above the diagonal into (k, j0 + i); every other
+    tile is computed where it lies."""
+    tr, tc = -(-n_rows // TILE), -(-n_cols // TILE)
+    j0 = (row_offset // TILE if row_offset >= 0 and row_offset % TILE == 0
+          and n_rows > 0 else -1)
+    if j0 < 0:
+        for L in range(tr * tc):
+            yield L // tc, L % tc, None
+        return
+    tri = tr * (tr + 1) // 2
+
+    def start(i):
+        return i * tr - i * (i - 1) // 2
+
+    b = 2.0 * tr + 1.0
+    for L in range(tri):
+        i = int((b - math.sqrt(b * b - 8.0 * L)) / 2.0)
+        while i > 0 and start(i) > L:
+            i -= 1
+        while i + 1 < tr and start(i + 1) <= L:
+            i += 1
+        k = i + (L - start(i))
+        yield i, j0 + k, ((k, j0 + i) if k > i else None)
+    w = tc - tr
+    for L in range(tr * w):
+        i, c = divmod(L, w)
+        yield i, (c if c < j0 else c + tr), None
+
+
 def sti_fill_acc_rect_cuda(acc: torch.Tensor, g: torch.Tensor,
                            ranks_rows: torch.Tensor,
                            ranks_cols: torch.Tensor) -> torch.Tensor:
     """acc[a, b] += sum_p g[p, max(ranks_rows[p, a], ranks_cols[p, b])] in
     place on the (n_rows, n_cols) block; returns `acc`. g is (t, n) and
     every rank is < n. CPU tensors take `sti_fill_acc_rect_plain`; CUDA
-    tensors launch the kernel (or raise). Each rank table is cast to a
-    contiguous int32 copy and g is gathered for each side on its own.
+    tensors launch the kernel (or raise). A row table that is a window of
+    the column table (`row_window`, decided before a cast, which would
+    copy) is read from the column table at its offset, and the kernel
+    mirrors the window's diagonal square; otherwise g is gathered for
+    each side on its own. The kernel reads int64 tables, as torch's
+    gather and scatter make them, in place (other types are cast).
     `sti_fill_acc_rect_cuda.launches` counts kernel launches."""
     if all(x.device.type == "cpu" for x in (acc, g, ranks_rows, ranks_cols)):
         return sti_fill_acc_rect_plain(acc, g, ranks_rows, ranks_cols)
@@ -209,22 +316,22 @@ def sti_fill_acc_rect_cuda(acc: torch.Tensor, g: torch.Tensor,
     (t, n), nr, nc = g.shape, ranks_rows.shape[1], ranks_cols.shape[1]
     if t == 0 or nr == 0 or nc == 0:
         return acc
-    rr32 = ranks_rows.to(torch.int32).contiguous()
-    rc32 = ranks_cols.to(torch.int32).contiguous()
-    gt_rows = torch.empty((t, nr), dtype=torch.float32, device=acc.device)
-    gt_cols = torch.empty((t, nc), dtype=torch.float32, device=acc.device)
-    fn = library("sti_fill").sti_fill_acc_rect_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(acc.device):
-        rc = fn(acc.data_ptr(), g.data_ptr(), rr32.data_ptr(),
-                rc32.data_ptr(), gt_rows.data_ptr(), gt_cols.data_ptr(), t,
-                n, nr, nc, rr32.stride(0),
-                torch.cuda.current_stream(acc.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"sti_fill rect kernel launch failed: CUDA error {rc}")
+    off = row_window(ranks_rows, ranks_cols)
+    rc64 = ranks_cols.to(torch.int64).contiguous()
+    pk_cols = _pairs(t, nc, acc.device)
+    rr64 = pk_rows = None
+    if off < 0:
+        rr64 = ranks_rows.to(torch.int64)
+        if rr64.stride(1) != 1:
+            rr64 = rr64.contiguous()
+        pk_rows = _pairs(t, nr, acc.device)
+    _launch("sti_fill_acc_rect_f32",
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
+            acc.data_ptr(), g.data_ptr(),
+            None if rr64 is None else rr64.data_ptr(), rc64.data_ptr(),
+            None if pk_rows is None else pk_rows.data_ptr(),
+            pk_cols.data_ptr(), t, n, nr, nc,
+            nr if rr64 is None else rr64.stride(0), off, dev=acc.device)
     sti_fill_acc_rect_cuda.launches += 1
     return acc
 

@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.sti_knn import ranks_from_order
 from repro_torch.kernels.build import library
 from repro_torch.kernels.distance import tma_operands
+from repro_torch.kernels.sti_fill import add_tile_sum
 from repro_torch.kernels.stream_kernels import make_megakernel_tables
 
 __all__ = [
@@ -67,7 +68,7 @@ _COMPUTE_DTYPES = ("float32", "bfloat16")
 _INTERACTION_KINDS = {"sti": 1, "sii": 2}
 _POINT_KINDS = {"knn_shapley": 3, "loo": 7}
 _WKNN_KINDS = {"rbf": 4, "inverse": 5, "uniform": 6}
-_STATE_PLANES = 7  # sort keys/indices, their ping-pong, ranks, g, u
+_STATE_PLANES = 7  # sort keys/indices, their ping-pong, (rank, g) pairs, u
 _RANK_PLANES = 4   # sort keys/indices and their ping-pong
 
 # sentinel distance for padded columns of the merge: sorts after every real
@@ -197,18 +198,16 @@ def sti_megakernel_plain(acc, diag, xb, yb, mask, x_train, y_train, *, k,
                          compute_dtype="float32"):
     """One fused interaction step in plain PyTorch, in place on the (nr, n)
     acc row block and its (nr,) diag; returns (acc, diag). Each acc
-    element adds the test points in order p = 0, 1, ..., as the kernel
-    does."""
+    element sums the step's test points from zero in order p = 0, 1, ...
+    and adds that sum once (`add_tile_sum`), as the kernel and the JAX
+    kernel do."""
     nr, n = acc.shape
     off = _row_offset(row_offset, nr, n)
     ranks, (g, u) = _sorted_tables(mode, k, None, xb, yb, mask, x_train,
                                    y_train, compute_dtype)
     gt = torch.gather(g, 1, ranks)
     rows = slice(off, off + nr)
-    ra, ga = ranks[:, rows], gt[:, rows]
-    for p in range(ranks.shape[0]):
-        acc.add_(torch.where(ra[p, :, None] >= ranks[p, None, :],
-                             ga[p, :, None], gt[p, None, :]))
+    add_tile_sum(acc, ranks[:, rows], gt[:, rows], ranks, gt)
     diag.add_(torch.gather(u, 1, ranks)[:, rows].sum(0))
     return acc, diag
 

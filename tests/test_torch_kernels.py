@@ -2,16 +2,19 @@
 
 On the CPU: each kernel's plain PyTorch version is held against
 `repro.kernels.ref` and against the Pallas kernel in interpret mode, at
-the shapes of tests/test_kernels.py, and the wrappers' argument checks are
-exercised on meta tensors. On a CUDA card (tests marked `cuda`, skipped
-elsewhere): each CUDA kernel is held against its plain version. Run those
-on a card with
+the shapes of tests/test_kernels.py, the wrappers' argument checks are
+exercised on meta tensors, and a copy of the fill kernel's tile walk
+(upper tiles of the square, mirrored) is held to write every element
+once and to give the plain version's bits. On a CUDA card (tests marked
+`cuda`, skipped elsewhere; each under a watchdog): each CUDA kernel is
+held against its plain version. Run those on a card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py -q
 
 The JAX-side tests skip where JAX is not installed (the card's machine).
 """
 
+import faulthandler
 import types
 
 import numpy as np
@@ -21,11 +24,15 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.distance import distance_cuda, distance_plain
 from repro_torch.kernels.sti_fill import (
+    TILE,
+    fill_tile_walk,
     sti_fill_acc_cuda,
     sti_fill_acc_plain,
     sti_fill_cuda,
     sti_fill_plain,
 )
+
+from _fill_tiles import emulate_fill, write_counts
 
 FILL_SHAPES = [  # (t, n, block_n, block_t) of tests/test_kernels.py
     (4, 16, 8, 2),
@@ -60,11 +67,18 @@ def jx():
     )
 
 
+# seconds a `cuda` test may take: past it the process ends with a
+# traceback (a hung kernel blocks in C, where no Python timeout reaches)
+CUDA_TEST_LIMIT_S = 300
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m cuda on the H100)")
-    return torch.device("cuda")
+    faulthandler.dump_traceback_later(CUDA_TEST_LIMIT_S, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
 
 
 def _fill_problem(t, n, seed):
@@ -98,8 +112,8 @@ def test_plain_fill_matches_jax_ref_and_pallas(jx, t, n, bn, bt):
 def test_plain_acc_fill_matches_pallas_in_place(jx, t, n, bn, bt):
     """The accumulate form adds into the caller's tensor and returns it;
     equal to the aliased Pallas kernel within 1e-6 of the largest value
-    (Pallas adds the tile's sum over p to acc, the plain version adds each
-    p to acc in turn)."""
+    (with block_t < t Pallas adds one sum per block of test points, the
+    plain version one sum over all of them)."""
     g, ranks, acc0 = _fill_problem(t, n, t + 7 * n)
     acc = torch.from_numpy(acc0.copy())
     out = sti_fill_acc_plain(acc, torch.from_numpy(g), torch.from_numpy(ranks))
@@ -146,6 +160,50 @@ def test_integer_feature_distances_are_exact(jx):
         jx.jnp.asarray(xt), jx.jnp.asarray(xn), block_t=16, block_n=16,
         block_d=64, interpret=True))
     np.testing.assert_array_equal(got, want)
+
+@pytest.mark.parametrize("t,n,bn", [(4, 16, 8), (7, 33, 16), (16, 64, 64),
+                                    (12, 60, 32), (5, 37, 32)])
+def test_plain_acc_fill_order_is_the_pallas_acc_kernels(jx, t, n, bn):
+    """With block_t >= t the Pallas acc kernel adds the tile's sum over p,
+    taken from zero, to the seeded output once: the plain version's (and
+    the CUDA kernel's) order. Held to 1e-6 of the largest value, and
+    bit-equal on this CPU."""
+    g, ranks, acc0 = _fill_problem(t, n, 5 * t + n)
+    acc = sti_fill_acc_plain(torch.from_numpy(acc0.copy()),
+                             torch.from_numpy(g), torch.from_numpy(ranks))
+    want = np.asarray(jx.sti_fill_acc_pallas(
+        jx.jnp.asarray(acc0), jx.jnp.asarray(g), jx.jnp.asarray(ranks),
+        block_n=bn, block_t=t, interpret=True))
+    assert np.abs(acc.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+# ---------------------------------------------- the kernel's tile walk
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 4099])
+def test_square_tile_walk_writes_each_element_once(n):
+    """The square computes only the T(T+1)/2 tiles on and above the
+    diagonal, T = ceil(n / 128), and with their mirrors writes each of
+    the n^2 elements exactly once."""
+    tiles, counts = write_counts(n, n, 0)
+    big = -(-n // TILE)
+    assert tiles == big * (big + 1) // 2
+    assert counts.min() == 1 and counts.max() == 1
+    walk = list(fill_tile_walk(n, n, 0))
+    assert all(i <= j for i, j, _ in walk)
+    assert [(i, j) for i, j, m in walk if m is None] == [
+        (i, i) for i in range(big)]
+
+
+@pytest.mark.parametrize("t,n", [(5, 129), (17, 300), (3, 260)])
+def test_square_tile_walk_gives_the_plain_bits(t, n):
+    """A numpy copy of the kernel's dataflow -- each upper tile's sum from
+    zero added to its tile and, transposed, to its mirror -- gives the
+    plain version's bits on a non-symmetric accumulator."""
+    g, ranks, acc0 = _fill_problem(t, n, 11 * n + t)
+    got = emulate_fill(acc0.copy(), g, ranks, ranks, 0)
+    want = sti_fill_acc_plain(torch.from_numpy(acc0.copy()),
+                              torch.from_numpy(g), torch.from_numpy(ranks))
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 # ------------------------------------------------- wrappers on the CPU
@@ -235,6 +293,25 @@ def test_cuda_fill_matches_plain(cuda, t, n):
     torch.testing.assert_close(acc, want, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(sti_fill_cuda(g_d, r_d.long()),
                                sti_fill_plain(g_d, r_d), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(37, 129), (20, 4099), (33, 8192)])
+def test_cuda_square_fill_mirror_is_bit_equal(cuda, t, n):
+    """Upper tiles mirrored into the lower half, on a non-symmetric
+    accumulator and ragged t: bit-equal to the plain version, and the
+    increment is exactly symmetric."""
+    g, ranks, _ = _fill_problem(t, n, n + 2 * t)
+    g_d, r_d = torch.from_numpy(g).to(cuda), torch.from_numpy(ranks).to(cuda)
+    acc0 = torch.randn((n, n), generator=torch.Generator(cuda).manual_seed(n),
+                       device=cuda)
+    got = sti_fill_acc_cuda(acc0.clone(), g_d, r_d)
+    want = sti_fill_acc_plain(acc0.clone(), g_d, r_d)
+    zero = sti_fill_cuda(g_d, r_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(zero, zero.T)
+    assert torch.equal(got, acc0 + zero)
 
 
 @pytest.mark.cuda

@@ -7,14 +7,16 @@ on tie-heavy data; the plain megakernels against the JAX Pallas
 megakernels in interpret mode (as tests/test_megakernel.py runs them),
 row blocks included, within 1e-5; and `fill="megakernel"` end to end for
 all five methods. On a CUDA card (tests marked `cuda`, skipped
-elsewhere): each kernel against its plain version and the rank phase bit
-for bit against `torch.sort` of `distance_cuda`. Run those on a card with
+elsewhere; each under a watchdog): each kernel against its plain version
+and the rank phase bit for bit against `torch.sort` of `distance_cuda`.
+Run those on a card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_megakernel.py -q
 
 The JAX-side tests skip where JAX is not installed (the card's machine).
 """
 
+import faulthandler
 import importlib
 import types
 
@@ -61,11 +63,18 @@ def jx():
     return types.SimpleNamespace(jnp=jnp, mk=jmk, pipe=jpipe)
 
 
+# seconds a `cuda` test may take: past it the process ends with a
+# traceback (a hung kernel blocks in C, where no Python timeout reaches)
+CUDA_TEST_LIMIT_S = 300
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m cuda on the H100)")
-    return torch.device("cuda")
+    faulthandler.dump_traceback_later(CUDA_TEST_LIMIT_S, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
 
 
 def _problem(n, t, d=6, classes=2, seed=0, integer=False, lo=-8, hi=8):
@@ -214,6 +223,33 @@ def test_plain_sti_megakernel_matches_pallas(jx, mode, n, t, real,
     assert out[0] is acc and out[1] is diag
     np.testing.assert_allclose(acc.numpy(), want[0], atol=1e-5)
     np.testing.assert_allclose(diag.numpy(), want[1], atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sti", "sii"])
+@pytest.mark.parametrize("n,t,row_block", [(64, 4, None), (200, 6, None),
+                                           (300, 5, (128, 150)),
+                                           (90, 3, (17, 40))])
+def test_plain_sti_megakernel_order_is_the_pallas_kernels(jx, mode, n, t,
+                                                          row_block):
+    """One step on a live, non-symmetric accumulator with block_t >= t:
+    the Pallas kernel adds the tile's sum over p, taken from zero, to the
+    seeded output once, as the plain version now does. Held to 1e-6 of
+    the largest value: the g tables come from two packages' scans (the
+    JAX recurrence and torch.cumsum), so the bits part in most of these
+    cases on this CPU, where the fills alone are bit-equal."""
+    x, y, xt, yt = _problem(n, t, seed=3 * n + t)
+    mask = _mask(t, t - 1)
+    rng = np.random.default_rng(n)
+    off, nr = row_block or (None, n)
+    acc0 = rng.normal(size=(nr, n)).astype(np.float32)
+    diag0 = rng.normal(size=(nr,)).astype(np.float32)
+    want = _jax_sti(jx, acc0, diag0, x, y, xt, yt, mask, k=3, mode=mode,
+                    row_offset=off, block_t=t)
+    acc, diag, xb, yb, m, xs, ys = _torch(acc0, diag0, xt, yt, mask, x, y)
+    sti_megakernel_plain(acc, diag, xb, yb, m, xs, ys, k=3, mode=mode,
+                         row_offset=off)
+    for got, w in ((acc.numpy(), want[0]), (diag.numpy(), want[1])):
+        assert np.abs(got - w).max() <= 1e-6 * np.abs(w).max()
 
 
 @pytest.mark.parametrize("method,opts", POINT_CASES)
@@ -574,6 +610,39 @@ def test_cuda_sti_megakernel_row_block(cuda, mode, off, nr):
     torch.cuda.synchronize()
     _close(acc, full[0][off:off + nr])
     _close(diag, full[1][off:off + nr])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sti", "sii"])
+@pytest.mark.parametrize("off,nr", [(0, 600), (128, 300), (256, 344),
+                                    (77, 200), (384, 100)])
+def test_cuda_sti_megakernel_row_offsets_on_a_live_block(cuda, mode, off,
+                                                         nr):
+    """Row blocks at aligned offsets (the window's diagonal square
+    mirrored, the whole square at 0) and a misaligned one: from zero
+    within 1e-6 of the plain version at the same offset, and on a
+    non-symmetric live block exactly that block plus the increment, so
+    each element is read and written once; the whole square's increment
+    is exactly symmetric."""
+    n = 600
+    xb, yb, m, xs, ys = _cuda_problem(cuda, 19, n, 8, 17, True, off + nr)
+    kw = dict(k=3, mode=mode, row_offset=off)
+    zero = torch.zeros(nr, n, device=cuda), torch.zeros(nr, device=cuda)
+    want = torch.zeros(nr, n, device=cuda), torch.zeros(nr, device=cuda)
+    sti_megakernel_cuda(*zero, xb, yb, m, xs, ys, **kw)
+    sti_megakernel_plain(*want, xb, yb, m, xs, ys, **kw)
+    gen = torch.Generator(cuda).manual_seed(off)
+    live0 = (torch.randn((nr, n), generator=gen, device=cuda),
+             torch.randn((nr,), generator=gen, device=cuda))
+    live = tuple(x.clone() for x in live0)
+    sti_megakernel_cuda(*live, xb, yb, m, xs, ys, **kw)
+    torch.cuda.synchronize()
+    _close(zero[0], want[0])
+    _close(zero[1], want[1])
+    assert torch.equal(live[0], live0[0] + zero[0])
+    assert torch.equal(live[1], live0[1] + zero[1])
+    if nr == n:
+        assert torch.equal(zero[0], zero[0].T)
 
 
 @pytest.mark.cuda

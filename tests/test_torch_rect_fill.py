@@ -6,16 +6,19 @@ On the CPU: the plain rect fill is held against the Pallas rect kernels
 in interpret mode and against `repro.core.sti_knn._rect_fill_xla` within
 1e-6 (the repo's fill tolerance) -- ragged shapes, independent row and
 column tables, `rect_row_view` windows and a `block_rows` that does not
-divide the row count on the JAX side -- and the wrappers' argument checks
-run on meta tensors. On a CUDA card (tests marked `cuda`, skipped
-elsewhere) the CUDA rect kernel is held against its plain version. Run
-those on a card with
+divide the row count on the JAX side -- the wrappers' argument checks
+and window detection run on meta tensors, and a copy of the kernel's tile
+walk is held to write every element of a row block once (its window's
+diagonal square mirrored at aligned offsets). On a CUDA card (tests
+marked `cuda`, skipped elsewhere; each under a watchdog) the CUDA rect
+kernel is held against its plain version. Run those on a card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_rect_fill.py -q
 
 The JAX-side tests skip where JAX is not installed (the card's machine).
 """
 
+import faulthandler
 import types
 import warnings
 
@@ -25,8 +28,11 @@ import torch
 
 from repro_torch.core import sti_knn as tcore
 from repro_torch.kernels import build
+from repro_torch.kernels import sti_fill as tfill
 from repro_torch.kernels.sti_fill import (
+    TILE,
     rect_row_view,
+    row_window,
     sti_fill_acc_plain,
     sti_fill_acc_rect_cuda,
     sti_fill_acc_rect_plain,
@@ -34,6 +40,8 @@ from repro_torch.kernels.sti_fill import (
     sti_fill_rect_cuda,
     sti_fill_rect_plain,
 )
+
+from _fill_tiles import emulate_fill, write_counts
 
 # (t, n_rows, n_cols, n, block_rows, block_cols, block_t): n is g's width
 # (every rank < n); block sizes are the Pallas kernel's, ragged on purpose
@@ -59,11 +67,18 @@ def jx():
     return types.SimpleNamespace(jnp=jnp, core=jcore, fill=jfill)
 
 
+# seconds a `cuda` test may take: past it the process ends with a
+# traceback (a hung kernel blocks in C, where no Python timeout reaches)
+CUDA_TEST_LIMIT_S = 300
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m cuda on the H100)")
-    return torch.device("cuda")
+    faulthandler.dump_traceback_later(CUDA_TEST_LIMIT_S, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
 
 
 def _rect_problem(t, nr, nc, n, seed):
@@ -127,6 +142,24 @@ def test_plain_acc_rect_fill_matches_pallas_in_place(jx, t, nr, nc, n, br,
     _close(acc.numpy(), want)
 
 
+@pytest.mark.parametrize("t,nr,nc,n,br,bc", [
+    (4, 8, 16, 16, 8, 8), (7, 5, 33, 33, 3, 16), (5, 12, 37, 40, 8, 16)])
+def test_plain_acc_rect_order_is_the_pallas_acc_kernels(jx, t, nr, nc, n,
+                                                       br, bc):
+    """With block_t >= t the Pallas rect acc kernel adds the tile's sum
+    over p, taken from zero, to the seeded output once: the plain
+    version's order. Held to 1e-6, and bit-equal on this CPU."""
+    g, rr, rc, acc0 = _rect_problem(t, nr, nc, n, seed=3 * nr + nc)
+    acc = sti_fill_acc_rect_plain(torch.from_numpy(acc0.copy()),
+                                  torch.from_numpy(g), torch.from_numpy(rr),
+                                  torch.from_numpy(rc))
+    want = np.asarray(jx.fill.sti_fill_acc_rect_pallas(
+        *(jx.jnp.asarray(a) for a in (acc0, g, rr, rc)), block_rows=br,
+        block_cols=bc, block_t=t, interpret=True))
+    _close(acc.numpy(), want)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
 @pytest.mark.parametrize("chunk", [1, 3])
 def test_chunked_rect_fills_match_jax(jx, chunk):
     """The port's chunked rect scan (zero-init and in place) against the
@@ -183,6 +216,94 @@ def test_rect_row_view_is_a_window_and_checks_bounds():
     for off, cnt in ((-1, 2), (8, 3)):
         with pytest.raises(ValueError, match="row window"):
             rect_row_view(r, off, cnt)
+
+
+# ----------------------------------------------- the kernel's tile walk
+@pytest.mark.parametrize("n", [1024, 1000])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_row_window_tile_walk_writes_each_element_once(n, shards):
+    """Every shard's (n/D, n) block at its row offset: each element is
+    written exactly once, and an offset that is a multiple of 128 computes
+    only the upper triangle of the window's diagonal square."""
+    nl = n // shards
+    for i in range(shards):
+        off = i * nl
+        tiles, counts = write_counts(nl, n, off)
+        assert counts.min() == 1 and counts.max() == 1
+        tr, tc = -(-nl // TILE), -(-n // TILE)
+        want = (tr * (tr + 1) // 2 + tr * (tc - tr) if off % TILE == 0
+                else tr * tc)
+        assert tiles == want
+
+
+@pytest.mark.parametrize("nr,nc,off", [(300, 1000, 77), (130, 260, 130),
+                                       (40, 300, -1), (129, 129, -1)])
+def test_unmirrored_tile_walks_write_each_element_once(nr, nc, off):
+    """A misaligned window and independent tables compute every tile
+    where it lies, none mirrored."""
+    tiles, counts = write_counts(nr, nc, off)
+    assert counts.min() == 1 and counts.max() == 1
+    assert tiles == -(-nr // TILE) * -(-nc // TILE)
+    assert all(m is None for *_, m in tfill.fill_tile_walk(nr, nc, off))
+
+
+@pytest.mark.parametrize("t,nr,n,off", [(5, 200, 600, 256), (9, 130, 300, 0),
+                                        (4, 100, 300, 77), (6, 300, 300, 0)])
+def test_row_window_tile_walk_gives_the_plain_bits(t, nr, n, off):
+    """A numpy copy of the kernel's dataflow on a row window gives the
+    plain rect fill's bits on a non-symmetric accumulator."""
+    g, ranks = _perm_problem(t, n, seed=nr + off)
+    g = g.astype(np.float32)
+    acc0 = np.random.default_rng(off).normal(size=(nr, n)).astype(np.float32)
+    got = emulate_fill(acc0.copy(), g, ranks[:, off:off + nr], ranks, off)
+    tr = torch.from_numpy(ranks)
+    want = sti_fill_acc_rect_plain(torch.from_numpy(acc0.copy()),
+                                   torch.from_numpy(g),
+                                   rect_row_view(tr, off, nr), tr)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_row_window_detects_views_of_the_column_table():
+    r = torch.arange(60).reshape(4, 15)
+    assert row_window(rect_row_view(r, 5, 7), r) == 5
+    assert row_window(r, r) == 0
+    assert row_window(rect_row_view(r, 0, 15), r) == 0
+    assert row_window(rect_row_view(r, 5, 7).clone(), r) == -1
+    assert row_window(rect_row_view(r, 5, 7).to(torch.int32), r) == -1
+    assert row_window(r[:, 1::2], r) == -1
+    assert row_window(r[1:, 2:6], r[:3]) == -1  # a shift of test points
+    assert row_window(rect_row_view(r, 2, 7), r[:, 3:]) == -1  # before it
+
+
+@pytest.mark.parametrize("case,want", [
+    ("window", 48), ("whole", 0), ("copy", -1), ("dtype", -1),
+    ("stride", -1)])
+def test_rect_wrapper_passes_the_window_offset(monkeypatch, case, want):
+    """A spy on the C call: a `rect_row_view` passes its column offset,
+    decided before the int32 cast; a copy, another dtype or another
+    stride passes -1 (and then the row table of its own)."""
+    m = torch.device("meta")
+    t, n = 3, 96
+    cols = torch.empty(t, n, dtype=torch.int64, device=m)
+    rows = {"window": rect_row_view(cols, 48, 40), "whole": cols,
+            "copy": rect_row_view(cols, 48, 40).clone(),
+            "dtype": rect_row_view(cols, 48, 40).to(torch.int32),
+            "stride": cols[:, ::2]}[case]
+    calls = []
+    monkeypatch.setattr(tfill, "_launch",
+                        lambda name, argtypes, *args, dev: calls.append(
+                            (name, len(argtypes), args)))
+    acc = torch.empty(rows.shape[1], n, device=m)
+    before = sti_fill_acc_rect_cuda.launches
+    out = sti_fill_acc_rect_cuda(acc, torch.empty(t, n, device=m), rows,
+                                 cols)
+    assert out is acc and sti_fill_acc_rect_cuda.launches == before + 1
+    [(name, nargs, args)] = calls
+    assert name == "sti_fill_acc_rect_f32" and nargs == len(args) == 12
+    assert args[-1] == want
+    assert args[6:10] == (t, n, rows.shape[1], n)
+    if want >= 0:
+        assert args[2] is None and args[4] is None  # no row table of its own
 
 
 @pytest.mark.parametrize("rows", ["window", "strided", "int32"])
@@ -337,6 +458,28 @@ def test_cuda_rect_fill_row_windows(cuda, t, n, shards):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert torch.equal(got, square[i * nl:(i + 1) * nl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,off,nr", [(37, 1000, 77, 300),
+                                        (20, 4099, 1024, 2048),
+                                        (16, 520, 384, 136)])
+def test_cuda_rect_fill_windows_on_a_live_block(cuda, t, n, off, nr):
+    """A misaligned window (every tile computed) and aligned ones (the
+    window's diagonal square mirrored, ragged at its last tile), on a
+    non-symmetric accumulator: bit-equal to the plain version, and to the
+    block's zero-init increment added to it."""
+    g, ranks = _perm_problem(t, n, seed=off + nr)
+    tg, tr = torch.from_numpy(g).to(cuda), torch.from_numpy(ranks).to(cuda)
+    rows = rect_row_view(tr, off, nr)
+    acc0 = torch.randn((nr, n), generator=torch.Generator(cuda).manual_seed(
+        off), device=cuda)
+    got = sti_fill_acc_rect_cuda(acc0.clone(), tg, rows, tr)
+    want = sti_fill_acc_rect_plain(acc0.clone(), tg, rows, tr)
+    zero = sti_fill_rect_cuda(tg, rows, tr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, acc0 + zero)
 
 
 @pytest.mark.cuda
