@@ -182,6 +182,16 @@ def point_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
         "operations"
 
 
+def sort_floor_ms(n, passes) -> float:
+    """The megakernel sort's own traffic over the card's memory rate: per
+    row, two prologue reads of the keys (the minimum and maximum, then the
+    digit histograms: 4 n bytes each), the first pass (keys read, keys and
+    indices written: 12 n) and each later pass (16 n), so 4 n + 16 n P
+    bytes for a row of P passes."""
+    return 1e3 * sum(4 * n + 16 * n * int(p) for p in passes) / \
+        HBM_BYTES_PER_S
+
+
 def visible_pairs(s, sk, causal, window) -> int:
     """(query, key) pairs that the causal / window masks leave visible."""
     total = 0
@@ -634,8 +644,8 @@ def main() -> None:
         sti_fill_plain, sti_fill_rect_cuda, sti_fill_rect_plain)
     from repro_torch.kernels.sti_megakernel import (
         megakernel_rank_phase_cuda, megakernel_rank_phase_plain,
-        point_megakernel_cuda, point_megakernel_plain, sti_megakernel_cuda,
-        sti_megakernel_plain)
+        point_megakernel_cuda, point_megakernel_plain, radix_passes,
+        sti_megakernel_cuda, sti_megakernel_plain)
     from repro_torch.kernels.sti_pipeline import (
         pad_test_batch, prepare_fused_step, stream_point_values)
 
@@ -1303,22 +1313,34 @@ def main() -> None:
     xb, yb, mask = pad_test_batch(x_test[:tb].to(dev), y_test[:tb].to(dev),
                                   tb)
     # the rank phase at full width on the blob data: bit-equal to
-    # torch.sort(stable=True) of distance_cuda's d2, continuous data and all
-    d2s, order = megakernel_rank_phase_cuda(xb, xtr)
+    # torch.sort(stable=True) of distance_cuda's d2, continuous data and
+    # all, and the passes each row took those that radix_passes counts
+    d2s, order, passes = megakernel_rank_phase_cuda(xb, xtr, with_passes=True)
     want = torch.sort(distance_cuda(xb, xtr), dim=-1, stable=True)
     torch.cuda.synchronize()
     if not (torch.equal(order, want.indices)
             and torch.equal(d2s, want.values)):
         fail("full-width rank phase is not bit-equal to torch.sort(stable="
              "True) of distance_cuda")
+    if not torch.equal(passes, radix_passes(want.values)):
+        fail(f"the sort's passes per row {passes.tolist()} differ from "
+             f"radix_passes of the same distances")
+    passes = passes.tolist()
     del d2s, order, want
     rank_ms = cuda_ms(torch, lambda: megakernel_rank_phase_cuda(xb, xtr),
                       reps=5)
     sort_ms = cuda_ms(torch, lambda: torch.sort(distance_cuda(xb, xtr),
                                                 dim=-1, stable=True), reps=5)
+    floor_ms = sort_floor_ms(n_full, passes)
+    by_passes = {p_: passes.count(p_) for p_ in sorted(set(passes))}
+    mk_use = fill_usage.get("sti_megakernel", "not measured: not built here")
     log(f"[5] rank phase (t={tb}, n={n_full}, d={d_full}): bit-equal to "
         f"torch.sort(stable=True) of distance_cuda; {rank_ms:.3f} ms vs "
-        f"{sort_ms:.3f} ms for distance_cuda + torch.sort")
+        f"{sort_ms:.3f} ms for distance_cuda + torch.sort; the sort's "
+        f"traffic floor {floor_ms:.4f} ms (rows by radix passes taken: "
+        f"{by_passes}); the distance's bound "
+        f"{distance_bound_ms(tb, n_full, d_full, 4)[0]:.4f} ms; megakernel "
+        f"(ptxas -v) {mk_use}")
 
     distance_cuda.launches = sti_fill_acc_cuda.launches = 0
     sti_megakernel_cuda.launches = point_megakernel_cuda.launches = 0
@@ -1519,6 +1541,7 @@ def main() -> None:
                            f"{got})", vals, want)
         sharded[f"knn_shapley_{fill}"] = dict(total_s=pt_s, max_abs_err=err,
                                               launches=got)
+        entries["point_megakernel"]["launches"] += got["point_megakernel"]
         del sess, vals
     # step times: one full batch into a sharded session, CUDA events
     for fill in ("auto", "megakernel"):
@@ -1590,6 +1613,9 @@ def main() -> None:
                       "distance_bf16": distance_bf16,
                       "rank_phase": {"ms": rank_ms,
                                      "distance_and_torch_sort_ms": sort_ms,
+                                     "sort_floor_ms": floor_ms,
+                                     "rows_by_passes": by_passes,
+                                     "megakernel_ptxas": mk_use,
                                      "shape": f"t={tb} n={n_full} "
                                               f"d={d_full}"},
                       "main_path_peak_gib": main_peak_gib,

@@ -107,6 +107,12 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                "l"(src), "r"(src_bytes)
                : "memory");
 }
+// cp.async of 16 bytes, 16-byte aligned at both ends, cached in L2 only
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -24,7 +24,11 @@ sort keys and every table stay f32, as in the TPU kernel.
 
 `megakernel_rank_phase_cuda` runs the kernel's rank phase alone and
 returns the sorted (d2, index) stream, so tests and the chip smoke run can
-hold the sort bit for bit against `torch.sort(stable=True)`.
+hold the sort bit for bit against `torch.sort(stable=True)`. The sort is
+a stable LSD radix sort of `RADIX_BITS`-bit digits over tiles of
+`SORT_TILE` keys; `radix_passes` says how many passes it takes on a row
+(a digit that is the same for every key - min of the row takes none,
+down to two passes).
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ __all__ = [
     "megakernel_static",
     "merge_sorted_tile",
     "streaming_merge_reference",
+    "RADIX_BITS",
+    "SORT_KEYS_PER_THREAD",
+    "SORT_THREADS",
+    "SORT_TILE",
+    "radix_passes",
     "megakernel_rank_phase_plain",
     "megakernel_rank_phase_cuda",
     "sti_megakernel_plain",
@@ -68,8 +77,18 @@ _COMPUTE_DTYPES = ("float32", "bfloat16")
 _INTERACTION_KINDS = {"sti": 1, "sii": 2}
 _POINT_KINDS = {"knn_shapley": 3, "loo": 7}
 _WKNN_KINDS = {"rbf": 4, "inverse": 5, "uniform": 6}
-_STATE_PLANES = 7  # sort keys/indices, their ping-pong, (rank, g) pairs, u
-_RANK_PLANES = 4   # sort keys/indices and their ping-pong
+# int32 (tb, n) scratch planes: the sorted keys and indices, then two
+# buffers of (key, index) pairs for the radix passes between, over which
+# the method's tables lie once the row is sorted (`csrc/sti_megakernel.cu`)
+_PLANES = 6
+
+# the kernel's sort (`csrc/sti_megakernel.cu`): digits of RADIX_BITS bits,
+# ranked in tiles of SORT_TILE keys, SORT_KEYS_PER_THREAD for each of the
+# block's SORT_THREADS threads
+RADIX_BITS = 8
+SORT_THREADS = 256
+SORT_KEYS_PER_THREAD = 16
+SORT_TILE = SORT_THREADS * SORT_KEYS_PER_THREAD
 
 # sentinel distance for padded columns of the merge: sorts after every real
 # entry, including the online service's ~1e30 dead-slot distances
@@ -165,11 +184,38 @@ def _megakernel_d2(xb, x_train, bf16: bool) -> torch.Tensor:
     return torch.clamp_min(d2, 0.0)
 
 
-def megakernel_rank_phase_plain(xb, x_train, *, compute_dtype="float32"):
+def _sort_keys(d2: torch.Tensor) -> torch.Tensor:
+    """(..., n) f32 distances -> the kernel's unsigned sort keys as int64:
+    the f32 bits, -0 made +0 (for d2 >= 0 their order is the floats')."""
+    bits = d2.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & 0xFFFFFFFF
+    return torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
+
+
+def radix_passes(d2: torch.Tensor) -> torch.Tensor:
+    """(tb,) int32: the passes the kernel's sort takes on each row of (tb,
+    n) distances, one for each RADIX_BITS-bit digit of key - min(key)
+    that differs between two keys of the row, and at least two (the first
+    reads the keys, the last writes the rows; a pass by a digit that every
+    key shares is the identity)."""
+    x = _sort_keys(d2)
+    x = x - x.min(-1, keepdim=True).values
+    passes = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+    for shift in range(0, 32, RADIX_BITS):
+        digit = (x >> shift) & ((1 << RADIX_BITS) - 1)
+        passes += (digit != digit[..., :1]).any(-1).to(torch.int32)
+    return passes.clamp_min(2)
+
+
+def megakernel_rank_phase_plain(xb, x_train, *, compute_dtype="float32",
+                                with_passes=False):
     """The rank phase in plain PyTorch: (tb, n) sorted f32 distances and
-    the int64 train indices in (d2, index) order."""
+    the int64 train indices in (d2, index) order, and with `with_passes`
+    the (tb,) `radix_passes` the kernel takes on them."""
     d2 = _megakernel_d2(xb, x_train, _round_bf16(compute_dtype))
     out = torch.sort(d2, dim=-1, stable=True)
+    if with_passes:
+        return out.values, out.indices, radix_passes(d2)
     return out.values, out.indices
 
 
@@ -326,9 +372,9 @@ def _step_cuda(acc, vec, xb, yb, mask, x_train, y_train, *, k, kind,
     if tb == 0 or n == 0 or nr == 0:
         return False
     dev = xb.device
-    norms = torch.empty((tb + n,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((_STATE_PLANES, tb, n), dtype=torch.int32,
-                          device=dev)
+    # the norms, then the recurrence's coefficient at each sorted position
+    norms = torch.empty((tb + 2 * n,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_PLANES, tb, n), dtype=torch.int32, device=dev)
     _launch("valuation_megakernel", _STEP_ARGTYPES,
             None if acc is None else acc.data_ptr(), vec.data_ptr(),
             xb.data_ptr(), yb.data_ptr(), mask.data_ptr(), x_train.data_ptr(),
@@ -380,15 +426,18 @@ def point_megakernel_cuda(vec, xb, yb, mask, x_train, y_train, *, method, k,
 point_megakernel_cuda.launches = 0
 
 
-def megakernel_rank_phase_cuda(xb, x_train, *, compute_dtype="float32"):
+def megakernel_rank_phase_cuda(xb, x_train, *, compute_dtype="float32",
+                               with_passes=False):
     """The kernel's rank phase alone (distances and the stable radix sort):
     (tb, n) sorted f32 distances and int64 train indices, the same as
-    `megakernel_rank_phase_plain` gives. CPU tensors take the plain
-    version. For tests and diagnostics: its launches count on
+    `megakernel_rank_phase_plain` gives, and with `with_passes` the (tb,)
+    int32 radix passes each row took. CPU tensors take the plain version.
+    For tests and diagnostics: its launches count on
     `megakernel_rank_phase_cuda.launches`, not on the step wrappers."""
     if _on_cpu(xb, x_train):
         return megakernel_rank_phase_plain(xb, x_train,
-                                           compute_dtype=compute_dtype)
+                                           compute_dtype=compute_dtype,
+                                           with_passes=with_passes)
     if xb.device != x_train.device:
         raise ValueError("xb and x_train must share a device")
     if xb.ndim != 2 or x_train.ndim != 2 or xb.shape[1] != x_train.shape[1]:
@@ -397,16 +446,18 @@ def megakernel_rank_phase_cuda(xb, x_train, *, compute_dtype="float32"):
     bf16 = _round_bf16(compute_dtype)
     (tb, d), n = xb.shape, x_train.shape[0]
     dev = xb.device
-    scratch = torch.empty((_RANK_PLANES, tb, n), dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty((_PLANES, tb, n), dtype=torch.int32, device=dev)
+    passes = torch.zeros((tb,), dtype=torch.int32, device=dev)
     if tb and n:
         norms = torch.empty((tb + n,), dtype=torch.float32, device=dev)
-        _launch("megakernel_rank_phase", [ctypes.c_void_p] * 4 +
+        _launch("megakernel_rank_phase", [ctypes.c_void_p] * 5 +
                 [ctypes.c_int] * 4 + [ctypes.c_void_p],
                 xb.data_ptr(), x_train.data_ptr(), norms.data_ptr(),
-                scratch.data_ptr(), tb, n, d, int(bf16), dev=dev)
+                scratch.data_ptr(), passes.data_ptr(), tb, n, d, int(bf16),
+                dev=dev)
         megakernel_rank_phase_cuda.launches += 1
-    return scratch[0].view(torch.float32), scratch[1].long()
+    out = scratch[0].view(torch.float32), scratch[1].long()
+    return out + (passes,) if with_passes else out
 
 
 megakernel_rank_phase_cuda.launches = 0

@@ -18,6 +18,7 @@ The JAX-side tests skip where JAX is not installed (the card's machine).
 
 import faulthandler
 import importlib
+import re
 import types
 
 import numpy as np
@@ -29,15 +30,21 @@ try:
 except ModuleNotFoundError:
     from _hypothesis_fallback import given, settings, st
 
+from _sort_tiles import keys_of, radix_sort_model
 from repro_torch.core.sti_knn import ranks_from_order
 from repro_torch.kernels.distance import distance_cuda
 from repro_torch.kernels.sti_megakernel import (
+    RADIX_BITS,
+    SORT_KEYS_PER_THREAD,
+    SORT_THREADS,
+    SORT_TILE,
     megakernel_rank_phase_cuda,
     megakernel_rank_phase_plain,
     megakernel_static,
     merge_sorted_tile,
     point_megakernel_cuda,
     point_megakernel_plain,
+    radix_passes,
     sti_megakernel_cuda,
     sti_megakernel_plain,
     streaming_merge_reference,
@@ -386,6 +393,85 @@ def test_build_target_hashes_the_included_headers(monkeypatch, tmp_path):
     assert "sti_megakernel" in build.SOURCES
 
 
+# ------------------------------------------------- the kernel's radix sort
+def _sort_row(case):
+    """(n,) f32 distances for one sort-model case, and the passes the case
+    must take where it fixes them (None where the data decides)."""
+    rng = np.random.default_rng(len(case))
+    if case in _RAGGED:
+        return rng.uniform(1e3, 2.5e3, _RAGGED[case]).astype(np.float32), None
+    if case == "all_equal":
+        return np.full(5000, 3.5, np.float32), 2
+    if case == "integer_ties":  # squared distances of integer features
+        x = rng.integers(-2, 3, size=(6000, 8)).astype(np.float32)
+        return ((x - x[0]) ** 2).sum(1).astype(np.float32), None
+    if case == "constant_byte":  # bits 8-15 equal in every key - min
+        hi = rng.integers(0, 64, 9000) << 16
+        lo = rng.integers(0, 256, 9000)
+        hi[0] = lo[0] = 0  # the minimum: its low byte is 0
+        keys = (0x40000000 + hi + (0x5A << 8) + lo).astype(np.uint32)
+        return keys.view(np.float32), 2
+    if case == "inf_padding":
+        d2 = rng.uniform(0.0, 50.0, 7000).astype(np.float32)
+        d2[rng.random(7000) < 0.1] = np.inf
+        return d2, None
+    if case == "neg_zero":  # -0 sorts as +0, ties by index
+        d2 = rng.choice(np.array([0.0, -0.0, 1.0, 2.5], np.float32), 6000)
+        return d2, None
+    raise ValueError(case)
+
+
+_RAGGED = {"n=1": 1, "n=tile-1": SORT_TILE - 1, "n=tile+1": SORT_TILE + 1,
+           "n=65536+3": 65536 + 3}
+SORT_CASES = [*_RAGGED, "all_equal", "integer_ties", "constant_byte",
+              "inf_padding", "neg_zero"]
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_sort_model_is_torch_stable_sort(case):
+    """The CPU model of the kernel's tiled radix sort (`tests/_sort_tiles.py`)
+    gives torch.sort(stable=True)'s order, bit for bit, and takes the
+    passes `radix_passes` counts: ragged rows around the tile, equal keys,
+    ties, a constant digit (its pass skipped), inf padding and -0."""
+    d2, fixed = _sort_row(case)
+    keys, idx, passes = radix_sort_model(d2)
+    want = torch.sort(torch.from_numpy(d2), stable=True)
+    np.testing.assert_array_equal(idx, want.indices.numpy())
+    np.testing.assert_array_equal(keys, keys_of(want.values.numpy()))
+    assert passes == int(radix_passes(torch.from_numpy(d2)[None])[0])
+    if fixed is not None:
+        assert passes == fixed
+
+
+def test_sort_constants_match_the_cuda_source():
+    """The module's sort constants, which the CPU model runs on, are the
+    kernel's."""
+    from pathlib import Path
+
+    import repro_torch
+
+    src = (Path(repro_torch.__file__).parent / "csrc" /
+           "sti_megakernel.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("RADIX_BITS"), const("KPT"), const("THREADS")) == (
+        RADIX_BITS, SORT_KEYS_PER_THREAD, SORT_THREADS)
+    assert SORT_TILE == SORT_THREADS * SORT_KEYS_PER_THREAD
+
+
+def test_rank_phase_reports_the_plain_passes_on_cpu():
+    x, _, xt, _ = _problem(300, 5, seed=9, integer=True, lo=-1, hi=1)
+    xb, xs = _torch(xt, x)
+    d2s, order, passes = megakernel_rank_phase_cuda(xb, xs, with_passes=True)
+    want = megakernel_rank_phase_plain(xb, xs)
+    assert torch.equal(d2s, want[0]) and torch.equal(order, want[1])
+    d2 = torch.sort(d2s, dim=-1).values  # the passes do not see the order
+    assert torch.equal(passes, radix_passes(d2))
+    assert passes.dtype == torch.int32 and passes.shape == (5,)
+
+
 # ------------------------------------------------ fill="megakernel" end to end
 def _jax_points(jx, method, x, y, xt, yt, k, tb, **kw):
     j = jx.jnp.asarray
@@ -647,7 +733,8 @@ def test_cuda_sti_megakernel_row_offsets_on_a_live_block(cuda, mode, off,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method,opts", POINT_CASES)
-@pytest.mark.parametrize("t,n,d,real", CUDA_SHAPES)
+@pytest.mark.parametrize("t,n,d,real", CUDA_SHAPES + [
+    (9, SORT_TILE, 16, 9), (9, 2 * SORT_TILE + 1, 16, 7)])
 @pytest.mark.parametrize("row_block", [None, (40, 30)])
 def test_cuda_point_megakernel_matches_plain(cuda, method, opts, t, n, d,
                                              real, row_block):
@@ -684,21 +771,36 @@ def test_cuda_empty_batch_launches_nothing(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,n,d,lo,hi", [
-    (4, 16, 3, -2, 2), (33, 65, 7, -2, 2), (16, 5000, 8, -2, 2),
-    (8, 3000, 768, -8, 8),
+@pytest.mark.parametrize("t,n,d,lo,hi,rows", [
+    (4, 16, 3, -2, 2, "drawn"), (33, 65, 7, -2, 2, "drawn"),
+    (16, 5000, 8, -2, 2, "drawn"), (8, 3000, 768, -8, 8, "drawn"),
+    (7, SORT_TILE - 1, 16, -2, 2, "drawn"),
+    (7, SORT_TILE + 1, 16, -2, 2, "drawn"),
+    (9, 5000, 16, -8, 8, "equal_rows"), (9, 6001, 16, -8, 8, "one_value"),
 ])
-def test_cuda_rank_phase_is_a_stable_sort(cuda, t, n, d, lo, hi):
+def test_cuda_rank_phase_is_a_stable_sort(cuda, t, n, d, lo, hi, rows):
     """Tie-heavy integer features: the sorted stream is bit-equal to
     torch.sort(stable=True) of distance_cuda's d2, and bf16 gives the same
-    bits as f32 (integers in [-8, 8] are exact in bf16)."""
+    bits as f32 (integers in [-8, 8] are exact in bf16); each row takes
+    the passes `radix_passes` counts. Rows below one sort tile and one past
+    it, every test row the same point ("equal_rows"), and rows of a single
+    value (every train point the same, "one_value": the two passes that
+    every row takes at the least)."""
     xb, _, _, xs, _ = _cuda_problem(cuda, t, n, d, t, True, n, lo, hi)
+    if rows == "equal_rows":
+        xb = xb[:1].repeat(t, 1)
+    elif rows == "one_value":
+        xs = xs[:1].repeat(n, 1)
     want = torch.sort(distance_cuda(xb, xs), dim=-1, stable=True)
     for cd in ("float32", "bfloat16"):
-        d2s, order = megakernel_rank_phase_cuda(xb, xs, compute_dtype=cd)
+        d2s, order, passes = megakernel_rank_phase_cuda(
+            xb, xs, compute_dtype=cd, with_passes=True)
         torch.cuda.synchronize()
         assert torch.equal(order, want.indices), cd
         assert torch.equal(d2s, want.values), cd
+        assert torch.equal(passes, radix_passes(want.values)), cd
+    if rows == "one_value":
+        assert bool((passes == 2).all())
 
 
 @pytest.mark.cuda
