@@ -36,6 +36,30 @@ query and 8 KV heads of 128, vocab 151936):
       of 1984-2048 prompt tokens greedily to max_len - 1, every prefill
       through the kernel (28 launches a request).
 
+and then the approximate engine and the tuner, this run's tuning cache a
+fresh temporary file ($REPRO_TORCH_AUTOTUNE_CACHE), so every "auto" of
+[1]-[9] resolves from the heuristic as it did before the cache existed:
+
+  [9] `engine="approx"` (LSH top-m candidates, no kernel of its own; the
+      recall probe's exact rows take the distance kernel) on [4]-[6]'s
+      data at top_m = 64 with the default index (4 tables x window 32)
+      and every row probed: sti and sii within the certified bound of
+      [4]'s phi and an exact sii phi, phi exactly symmetric and its
+      diagonal bit-equal to the exact one; the three point methods within
+      the bound of [6]'s exact values (wknn with 1e-5 slack); top_m = n
+      bit-identical to the exact engine; two runs, and a session
+      checkpointed after batch 1 and restored, bit-identical; each step's
+      time by stage (candidates, probe, values / COO emission by CUDA
+      events, the host pair merge by the host clock) and peak memory;
+  [9f] knn_shapley at the approx engine's own scale, n = 2^20 (3 GiB of
+      features drawn on the card from a seeded torch.Generator), t = 384,
+      top_m = 256, within the bound of the exact streamed engine on the
+      same data, both timed;
+  [10] the tuners (distance, fill, rect fill, LSH index, whole step for
+      sti and knn_shapley) on the card, every candidate's time, the
+      winners served back, an entry planted under the CPU platform never
+      served, and `fill="auto"` valuations launching what the cache names.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -49,10 +73,14 @@ from __future__ import annotations
 import ctypes
 import faulthandler
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -330,6 +358,484 @@ def device_busy(torch, fn) -> dict | None:
             "flash_ms": sum(us for nm, us in by_name.items()
                             if "flash_attention" in nm) / 1e3,
             "top": [(nm, us / 1e3) for nm, us in top]}
+
+
+def approx_breakdown(torch, sess, xb, yb, mask, xtr, ytr) -> dict:
+    """Where one approx step of `sess` goes on a full batch: the candidate
+    stage, the recall probe and the whole on-device step by CUDA events
+    (the values or COO emission is the step less the other two), the
+    host merge of an interaction step's COO triplets (device-to-host copy
+    included) by the host clock, and `sess.update` of the batch (probe
+    fold and merge included) by the host clock, three times."""
+    from repro_torch.kernels.ann import (
+        matched_prefix_and_recall, topm_candidates)
+    from repro_torch.kernels.sti_pipeline import (
+        ApproxPairAccumulator, make_approx_interaction_step,
+        make_approx_point_step)
+
+    n, k, m = int(sess.x_train.shape[0]), sess.k, sess.m
+    w, tables = sess._resolved["window"], sess._tables
+    s = min(sess.recall_sample, xb.shape[0])
+    out = {"candidates_ms": cuda_ms(
+        torch, lambda: topm_candidates(xb, xtr, tables, m, w), reps=5)}
+    cand = topm_candidates(xb, xtr, tables, m, w)[0]
+    out["probe_ms"] = cuda_ms(torch, lambda: matched_prefix_and_recall(
+        cand[:s], xb[:s], xtr, sess._probe_k), reps=3)
+    state = torch.zeros((n,), device=xb.device)
+    if sess._pairs is None:
+        step = make_approx_point_step(
+            sess.mode, k, n, m, w, s, sess._probe_k,
+            tuple(sorted(sess.method_opts.items())))
+    else:
+        step = make_approx_interaction_step(sess.mode, k, n, m, w, s,
+                                            sess._probe_k)
+    out["device_step_ms"] = cuda_ms(
+        torch, lambda: step(state, xb, yb, mask, xtr, ytr, tables), reps=3)
+    out["emission_ms"] = (out["device_step_ms"] - out["candidates_ms"]
+                          - out["probe_ms"])
+    if sess._pairs is not None:
+        _, rows, cols, vals, _, _ = step(state, xb, yb, mask, xtr, ytr,
+                                         tables)
+        torch.cuda.synchronize()
+        merge = []
+        for held in (None, sess._pairs):
+            acc = ApproxPairAccumulator(n)
+            if held is not None:  # into the pairs a whole run stored
+                acc.load(*held.state())
+            t0 = time.perf_counter()
+            acc.add(rows, cols, vals)
+            merge.append(1e3 * (time.perf_counter() - t0))
+        out["host_merge_ms"], out["host_merge_into_run_ms"] = merge
+        out["pairs_emitted"] = int((rows < n).sum())
+    updates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.update(xb, yb)
+        torch.cuda.synchronize()
+        updates.append(1e3 * (time.perf_counter() - t0))
+    out["session_update_ms"] = updates
+    return out
+
+
+def log_step(label: str, step: dict) -> None:
+    log(f"{label}: " + ", ".join(
+        f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"
+        for key, val in step.items() if key != "session_update_ms")
+        + "; session update ms " + ", ".join(
+        f"{u:.2f}" for u in step["session_update_ms"]))
+
+
+def approx_phase(torch, dev, c) -> dict:
+    """[9]: engine="approx" at the paper configuration's full width, on
+    [4]-[6]'s data, held to the certified bound against [4]'s phi, an
+    exact sii phi and [6]'s exact point values; top_m = n bit-identical
+    to the exact engine; two runs and a checkpoint/restore bit-identical;
+    the step's time by stage."""
+    import tempfile
+
+    from repro_torch import ApproxValuationSession, get_method
+    from repro_torch.kernels.autotune import default_ann
+
+    k, tb, n, m = c.k, c.tb, c.n, 64
+    opts = dict(k=k, engine="approx", test_batch=tb, top_m=m, device=dev,
+                approx_params={"recall_sample": 384})
+    out = {"top_m": m, "index": default_ann(n, m)}
+
+    def run(method, **extra):
+        c.zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = get_method(method)(c.x_train, c.y_train, c.x_test, c.y_test,
+                                 **{**opts, **extra})
+        torch.cuda.synchronize()
+        return res, {"total_s": time.perf_counter() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": c.read_counts()}
+
+    def meta_of(res):
+        return {key: res.meta.get(key) for key in (
+            "approx_exact", "recall_estimate", "matched_prefix",
+            "error_bound", "pairs_stored", "n_tables", "window", "probe_k",
+            "probed_rows")}
+
+    def same_meta(a, b):
+        return all(a.meta.get(key) == b.meta.get(key) for key in (
+            "recall_estimate", "matched_prefix", "error_bound",
+            "pairs_stored"))
+
+    def symmetric(phi):
+        return all(bool(torch.equal(phi[r0:r0 + 4096],
+                                    phi[:, r0:r0 + 4096].T))
+                   for r0 in range(0, n, 4096))
+
+    def equal(a, b):
+        return all(bool(torch.equal(a[r0:r0 + 4096], b[r0:r0 + 4096]))
+                   for r0 in range(0, a.shape[0], 4096))
+
+    def hold_pairs(label, res, info, exact):
+        meta = res.meta
+        err = max_abs_diff(torch, res.phi, exact)
+        bound = meta["error_bound"]
+        sym = symmetric(res.phi)
+        diag_eq = bool(torch.equal(res.phi.diagonal(), exact.diagonal()))
+        log(f"[9a] {label} approx top_m={m} (index {meta['n_tables']} "
+            f"tables x window {meta['window']}, {meta['probed_rows']} rows "
+            f"probed at depth {meta['probe_k']}): {info['total_s']:.3f} s, "
+            f"peak {info['peak_gib']:.2f} GiB, launches {info['launches']}; "
+            f"pairs stored {meta['pairs_stored']}, matched prefix "
+            f"{meta['matched_prefix']}, recall {meta['recall_estimate']:.4f}"
+            f"; max |phi - exact| {err:.3e} <= certified bound {bound:.4f} "
+            f"+ 1e-6: {err <= bound + 1e-6}; symmetric {sym}; diagonal "
+            f"bit-equal {diag_eq}")
+        if res.phi.shape != (n, n) or res.phi.device.type != dev.type:
+            fail(f"[9a] {label} phi {tuple(res.phi.shape)} on "
+                 f"{res.phi.device}")
+        if not err <= bound + 1e-6:
+            fail(f"[9a] {label}: error {err} exceeds the certified bound "
+                 f"{bound}")
+        if not (sym and diag_eq):
+            fail(f"[9a] {label}: phi symmetric {sym}, diagonal bit-equal "
+                 f"{diag_eq}")
+        c.expect(f"[9a] {label}", info["launches"], distance=c.n_steps)
+        return dict(info, max_abs_err=err, symmetric=sym,
+                    diagonal_bit_equal=diag_eq, **meta_of(res))
+
+    xb, yb, mask = c.pad(c.x_test[:tb], c.y_test[:tb])
+    xtr, ytr = c.xtr, c.ytr
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    # (a), (d), (e) for sti: [4]'s phi is the exact one
+    res_a, info = run("sti")
+    out["sti"] = hold_pairs("sti", res_a, info, c.phi)
+    res_b, _ = run("sti")
+    runs_equal = equal(res_a.phi, res_b.phi) and same_meta(res_a, res_b)
+    del res_b
+    torch.cuda.empty_cache()
+    kw = dict(k=k, mode="sti", test_batch=tb, top_m=m, recall_sample=384,
+              device=dev)
+    first = ApproxValuationSession(c.x_train, c.y_train, **kw)
+    first.update(c.x_test[:tb], c.y_test[:tb]).checkpoint(
+        Path(ckpt_dir) / "sti")
+    del first
+    resumed = ApproxValuationSession.restore(Path(ckpt_dir) / "sti",
+                                             c.x_train, c.y_train,
+                                             device=dev)
+    res_e = resumed.update(c.x_test[tb:], c.y_test[tb:]).finalize()
+    restore_equal = equal(res_a.phi, res_e.phi) and same_meta(res_a, res_e)
+    out["sti"].update(two_runs_bit_identical=runs_equal,
+                      restore_bit_identical=restore_equal)
+    log(f"[9d] sti: two runs bit-identical (phi and meta) {runs_equal}; "
+        f"[9e] checkpointed after batch 1 and restored: bit-identical "
+        f"{restore_equal}")
+    if not (runs_equal and restore_equal):
+        fail("[9d/e] sti approx runs are not bit-identical")
+    del res_e, resumed
+    torch.cuda.empty_cache()
+    sess = ApproxValuationSession(c.x_train, c.y_train, **kw)
+    out["sti"]["step"] = approx_breakdown(torch, sess, xb, yb, mask,
+                                          xtr, ytr)
+    log_step(f"[9] sti approx step (t={tb})", out["sti"]["step"])
+    del sess, res_a
+    torch.cuda.empty_cache()
+    # (c) sti at top_m = n: the exact engine's step, bit for bit
+    res_c, info = run("sti", top_m=n, approx_params=None)
+    full_equal = equal(res_c.phi, c.phi)
+    log(f"[9c] sti approx top_m=n={n}: {info['total_s']:.3f} s, launches "
+        f"{info['launches']}, approx_exact {res_c.meta['approx_exact']}, "
+        f"error_bound {res_c.meta['error_bound']}, bit-identical to [4]'s "
+        f"exact phi {full_equal}")
+    c.expect("[9c] sti top_m=n", info["launches"], distance=c.n_steps,
+             sti_fill_acc=c.n_steps)
+    if not (full_equal and res_c.meta["approx_exact"] is True
+            and res_c.meta["error_bound"] == 0.0):
+        fail("[9c] sti at top_m=n is not the exact engine bit for bit")
+    out["sti_full_m"] = dict(info, bit_identical=full_equal)
+    del res_c
+    torch.cuda.empty_cache()
+    # (a) sii: against an exact sii phi of the fused engine
+    exact_sii = get_method("sii")(c.x_train, c.y_train, c.x_test, c.y_test,
+                                  k=k, engine="fused", test_batch=tb,
+                                  device=dev).phi
+    res, info = run("sii")
+    out["sii"] = hold_pairs("sii", res, info, exact_sii)
+    del res, exact_sii
+    torch.cuda.empty_cache()
+    # (b) the point methods against [6]'s exact values; (c)-(e) knn_shapley
+    for method in ("knn_shapley", "wknn", "loo"):
+        res, info = run(method)
+        want = c.exact_points[method]
+        err = float((res.point_values - want).abs().max())
+        bound, slack = res.meta["error_bound"], 1e-5 if method == "wknn" \
+            else 1e-6
+        log(f"[9b] {method} approx top_m={m}: {info['total_s']:.3f} s, peak "
+            f"{info['peak_gib']:.2f} GiB, launches {info['launches']}; "
+            f"matched prefix {res.meta['matched_prefix']}, recall "
+            f"{res.meta['recall_estimate']:.4f}; max |values - exact| "
+            f"{err:.3e} <= bound {bound:.4f} + {slack:g}: "
+            f"{err <= bound + slack}")
+        if res.point_values.shape != (n,) or not bool(
+                torch.isfinite(res.point_values).all()):
+            fail(f"[9b] {method} values: shape "
+                 f"{tuple(res.point_values.shape)} or non-finite")
+        if not err <= bound + slack:
+            fail(f"[9b] {method}: error {err} exceeds the bound {bound}")
+        c.expect(f"[9b] {method}", info["launches"], distance=c.n_steps)
+        out[method] = dict(info, max_abs_err=err, **meta_of(res))
+        if method != "knn_shapley":
+            continue
+        again, _ = run(method)
+        runs_equal = bool(torch.equal(again.point_values,
+                                      res.point_values)) and same_meta(
+            again, res)
+        kw = dict(k=k, mode=method, test_batch=tb, top_m=m,
+                  recall_sample=384, device=dev)
+        first = ApproxValuationSession(c.x_train, c.y_train, **kw)
+        first.update(c.x_test[:tb], c.y_test[:tb]).checkpoint(
+            Path(ckpt_dir) / method)
+        resumed = ApproxValuationSession.restore(
+            Path(ckpt_dir) / method, c.x_train, c.y_train, device=dev)
+        res_e = resumed.update(c.x_test[tb:], c.y_test[tb:]).finalize()
+        restore_equal = bool(torch.equal(res_e.point_values,
+                                         res.point_values)) and same_meta(
+            res_e, res)
+        exact = get_method(method)(c.x_train, c.y_train, c.x_test,
+                                   c.y_test, k=k, engine="streamed",
+                                   test_batch=tb, device=dev)
+        full, info_c = run(method, top_m=n, approx_params=None)
+        full_equal = bool(torch.equal(full.point_values,
+                                      exact.point_values))
+        log(f"[9d] {method}: two runs bit-identical {runs_equal}; [9e] "
+            f"restored after batch 1: bit-identical {restore_equal}; [9c] "
+            f"top_m=n: approx_exact {full.meta['approx_exact']}, "
+            f"error_bound {full.meta['error_bound']}, bit-identical to the "
+            f"streamed engine {full_equal} ({info_c['total_s']:.3f} s)")
+        if not (runs_equal and restore_equal and full_equal
+                and full.meta["approx_exact"] is True
+                and full.meta["error_bound"] == 0.0):
+            fail(f"[9c-e] {method}: not bit-identical")
+        out[method].update(two_runs_bit_identical=runs_equal,
+                           restore_bit_identical=restore_equal,
+                           full_m_bit_identical=full_equal)
+        sess = ApproxValuationSession(c.x_train, c.y_train, **kw)
+        out[method]["step"] = approx_breakdown(torch, sess, xb, yb, mask,
+                                               xtr, ytr)
+        log_step(f"[9] {method} approx step (t={tb})", out[method]["step"])
+        del again, first, resumed, res_e, exact, full, sess
+    import shutil
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def approx_scale_phase(torch, dev, c) -> dict:
+    """[9f]: knn_shapley on the approx engine at its own scale, n = 2^20
+    train points of d = 768 (3 GiB of f32 features drawn on the card from
+    a seeded torch.Generator: two Gaussian blobs, 10 % of train labels
+    flipped), t = 384, top_m = 256, held to the certified bound against
+    the exact streamed engine on the same data; both valuations timed."""
+    from repro_torch import ApproxValuationSession, get_method
+
+    n, d, t, k, tb, m = c.scale_n, c.d, 384, c.k, c.tb, 256
+    gen = torch.Generator(device=dev).manual_seed(20)
+    centers = 2.0 * torch.randn((2, d), generator=gen, device=dev)
+
+    def blobs(rows):
+        y = torch.randint(0, 2, (rows,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x = centers[y.long()] + 0.3 * torch.randn(
+            (rows, d), generator=gen, device=dev)
+        return x, y
+
+    x, y = blobs(n)
+    flip = torch.rand((n,), generator=gen, device=dev) < 0.1
+    y = torch.where(flip, 1 - y, y)
+    xt, yt = blobs(t)
+    out = {"n": n, "d": d, "t": t, "top_m": m}
+    results = {}
+    for engine, extra in (("approx", {"top_m": m}),
+                          ("streamed", {"distance": "cuda"})):
+        c.zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = get_method("knn_shapley")(x, y, xt, yt, k=k, engine=engine,
+                                        test_batch=tb, device=dev, **extra)
+        torch.cuda.synchronize()
+        info = {"total_s": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": c.read_counts()}
+        results[engine] = res
+        out[engine] = info
+        log(f"[9f] knn_shapley {engine} n={n} d={d} t={t}: "
+            f"{info['total_s']:.3f} s, peak {info['peak_gib']:.2f} GiB, "
+            f"launches {info['launches']}")
+        c.expect(f"[9f] {engine}", info["launches"], distance=c.n_steps)
+    ap, ex = results["approx"], results["streamed"]
+    err = float((ap.point_values - ex.point_values).abs().max())
+    bound = ap.meta["error_bound"]
+    out["approx"].update(max_abs_err=err, error_bound=bound,
+                         matched_prefix=ap.meta["matched_prefix"],
+                         recall_estimate=ap.meta["recall_estimate"],
+                         n_tables=ap.meta["n_tables"],
+                         window=ap.meta["window"])
+    log(f"[9f] approx index {ap.meta['n_tables']} tables x window "
+        f"{ap.meta['window']}, {ap.meta['probed_rows']} rows probed: "
+        f"matched prefix {ap.meta['matched_prefix']}, recall "
+        f"{ap.meta['recall_estimate']:.4f}; max |approx - exact| {err:.3e} "
+        f"<= certified bound {bound:.4f} + 1e-6: {err <= bound + 1e-6}")
+    if not (bool(torch.isfinite(ap.point_values).all())
+            and err <= bound + 1e-6):
+        fail(f"[9f] approx at n={n}: error {err} vs bound {bound}")
+    del results, ap, ex
+    torch.cuda.empty_cache()
+    xb, yb, mask = c.pad(xt[:tb], yt[:tb])
+    sess = ApproxValuationSession(x, y, k=k, mode="knn_shapley",
+                                  test_batch=tb, top_m=m, device=dev)
+    out["approx"]["step"] = approx_breakdown(torch, sess, xb, yb, mask,
+                                             sess.x_train, sess.y_train)
+    log_step(f"[9f] knn_shapley approx step (t={tb}, n={n})",
+             out["approx"]["step"])
+    del sess
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.distance import distance_cuda
+    from repro_torch.kernels.stream_kernels import accumulator_spec
+    from repro_torch.kernels.sti_pipeline import make_point_step
+
+    step = make_point_step("knn_shapley", k, (), "cuda")
+    vec = accumulator_spec("knn_shapley").init(n, dev)[0]
+    out["streamed"]["step_ms"] = cuda_ms(
+        torch, lambda: step(vec, xb, yb, mask, x, y), reps=3)
+    out["streamed"]["distance_ms"] = cuda_ms(
+        torch, lambda: distance_cuda(xb, x), reps=3)
+    log(f"[9f] knn_shapley streamed step (t={tb}, n={n}): "
+        f"{out['streamed']['step_ms']:.3f} ms, of it the distance kernel "
+        f"{out['streamed']['distance_ms']:.3f} ms")
+    del x, y, xt, yt, vec, xb, yb, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def tuner_phase(torch, dev, c) -> dict:
+    """[10]: the persistent autotuner on the card, writing only to this
+    run's temporary cache: every candidate's time, the winners served back
+    by `best_*`, an entry planted under the CPU platform never served to
+    this CUDA process, and `fill="auto"` valuations launching what the
+    cache names."""
+    from repro_torch import ValuationSession, get_method
+    from repro_torch.kernels import autotune as at
+
+    n, d, k, tb, m, rows = c.n, c.d, c.k, c.tb, 64, c.n // 4
+    out = {"platform": at.device_platform("cuda"),
+           "cache": at.cache_path()}
+    t0 = time.perf_counter()
+    won = {
+        "distance": at.autotune_distance(tb, n, d, backend="cuda"),
+        "fill": at.autotune_fill(n, tb, backend="cuda"),
+        "rect_fill": at.autotune_rect_fill(rows, n, tb, backend="cuda"),
+        "ann": at.autotune_ann(n, tb, d, m, backend="cuda"),
+        "megastep_sti": at.autotune_megastep(n, d, k, tb, method="sti",
+                                             backend="cuda"),
+        "megastep_knn_shapley": at.autotune_megastep(
+            n, d, k, tb, method="knn_shapley", backend="cuda"),
+    }
+    out["tune_s"] = time.perf_counter() - t0
+    cache = at._load(None)
+    keys = {
+        "distance": at._key(f"distance_d{d}", "cuda", n, tb),
+        "fill": at._key("fill", "cuda", n, tb),
+        "rect_fill": at._key("rectfill", "cuda", n, tb, rows=rows),
+        "ann": at._ann_key(n, tb, d, m, "cuda"),
+        "megastep_sti": at._megastep_key(n, tb, d, "sti", "cuda"),
+        "megastep_knn_shapley": at._megastep_key(n, tb, d, "knn_shapley",
+                                                 "cuda"),
+    }
+    for name, key in keys.items():
+        entry = cache.get(key)
+        if not isinstance(entry, dict):
+            fail(f"[10] the {name} tuner wrote no entry under {key}")
+        out[name] = {"winner": won[name], "key": key,
+                     "candidates": entry["candidates"]}
+        log(f"[10] {name} at {key}: winner {won[name]}; candidates "
+            + ", ".join(f"{lbl}: " + (f"{v:.1f} us" if isinstance(v, float)
+                                      else f"{v['us']:.1f} us, recall@16 "
+                                           f"{v['recall']:.4f}")
+                        for lbl, v in entry["candidates"].items()))
+    log(f"[10] beside the measured steps: [4] three-stage step "
+        f"{c.step_ms:.2f} ms at t={tb}, [5] megakernel step "
+        f"{c.mega_step_ms:.2f} ms (the tuner times t={at._SAMPLE_T} rows)")
+    served = {
+        "distance": at.best_distance(tb, n, d, backend="cuda"),
+        "fill": at.best_fill(n, tb, backend="cuda"),
+        "rect_fill": at.best_rect_fill(rows, n, tb, backend="cuda"),
+        "ann": at.best_ann(n, tb, d, m, backend="cuda"),
+        "megastep_sti": at.best_megastep(n, tb, d, k, method="sti",
+                                         backend="cuda"),
+        "megastep_knn_shapley": at.best_megastep(
+            n, tb, d, k, method="knn_shapley", backend="cuda"),
+    }
+    for name, got in served.items():
+        if tuple(got) != tuple(won[name]):
+            fail(f"[10] best_{name} served {got}, the tuner cached "
+                 f"{won[name]}")
+    log("[10] every best_* served the cached winner")
+    # a winner planted under the CPU platform -- with the cpu backend and
+    # with this process's -- is never served here
+    sizes = f"n{at._bucket(n)}:t{at._bucket(tb)}"
+    other_step = ("stages" if won["megastep_sti"][0] == "megakernel"
+                  else "megakernel")
+    for backend, devices in (("cpu", 1),
+                             ("cuda", torch.cuda.device_count())):
+        seg = f"{backend}:cpu:dev{devices}:{sizes}"
+        at._store(None, f"fill:{seg}",
+                  {"fill": "chunked", "params": {"chunk": 8}})
+        at._store(None, f"megastep_sti_d{d}:{seg}",
+                  {"step": other_step, "params": {}})
+    if at.best_fill(n, tb, backend="cuda") != tuple(won["fill"]) or \
+            at.best_megastep(n, tb, d, k, method="sti",
+                             backend="cuda") != tuple(won["megastep_sti"]):
+        fail("[10] an entry planted under the cpu platform was served to "
+             "the CUDA process")
+    if at.lookup_fill(n, tb, backend="cpu") != ("chunked", {"chunk": 8}):
+        fail("[10] the planted cpu entry is not where a CPU run reads it")
+    log("[10] entries planted under the cpu platform slug: not served to "
+        "this CUDA process (a CPU run reads them)")
+    # fill="auto" runs what the cache names
+    want_sti = ({"sti_megakernel": c.n_steps}
+                if won["megastep_sti"][0] == "megakernel" else
+                {"distance": c.n_steps if won["distance"][0] == "cuda" else 0,
+                 "sti_fill_acc": c.n_steps if won["fill"][0] == "cuda"
+                 else 0})
+    c.zero_counts()
+    res = get_method("sti")(c.x_train, c.y_train, c.x_test, c.y_test, k=k,
+                            engine="fused", test_batch=tb, device=dev)
+    torch.cuda.synchronize()
+    got_sti = c.read_counts()
+    log(f"[10] sti fused fill=auto after the tune: resolved "
+        f"fill={res.meta['fill']} distance={res.meta['distance']}, "
+        f"launches {got_sti}")
+    c.expect("[10] sti fill=auto", got_sti, **want_sti)
+    del res
+    torch.cuda.empty_cache()
+    want_pt = ({"point_megakernel": c.n_steps}
+               if won["megastep_knn_shapley"][0] == "megakernel" else
+               {"distance": c.n_steps if won["distance"][0] == "cuda"
+                else 0})
+    c.zero_counts()
+    sess = ValuationSession(c.x_train, c.y_train, k=k, mode="knn_shapley",
+                            test_batch=tb, device=dev)
+    sess.update(c.x_test, c.y_test).finalize()
+    torch.cuda.synchronize()
+    got_pt = c.read_counts()
+    log(f"[10] knn_shapley session fill=auto after the tune: resolved "
+        f"fill={sess._resolved['fill']} distance="
+        f"{sess._resolved['distance']}, launches {got_pt}")
+    c.expect("[10] knn_shapley fill=auto", got_pt, **want_pt)
+    out["auto_after_tune"] = {"sti": got_sti, "knn_shapley": got_pt}
+    del sess
+    torch.cuda.empty_cache()
+    return out
 
 
 def lm_phase(torch, np, dev, entries) -> dict:
@@ -619,6 +1125,12 @@ def main() -> None:
         fail(f"{src / 'repro_torch'} is missing: run from a checkout of the "
              f"repository")
     sys.path.insert(0, str(src))
+    # the tuning cache of this run only, empty until [10] tunes: every
+    # "auto" of [1]-[9] resolves from the heuristic, whatever an earlier
+    # run left in ~/.cache
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(tune_dir) / "autotune.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1380,6 +1892,7 @@ def main() -> None:
 
     # -------------------- 6. ValuationSession per point method, megakernel
     point_total = 0
+    exact_points = {}
     for method in ("knn_shapley", "wknn", "loo"):
         distance_cuda.launches = point_megakernel_cuda.launches = 0
         sti_megakernel_cuda.launches = sti_fill_acc_cuda.launches = 0
@@ -1416,6 +1929,7 @@ def main() -> None:
         if not perr <= 1e-6 * pscale:
             fail(f"{method} megakernel session disagrees: {perr} > 1e-6 * "
                  f"{pscale}")
+        exact_points[method] = want
         del sess, vals, want
     entries["point_megakernel"]["launches"] = point_total
 
@@ -1555,6 +2069,27 @@ def main() -> None:
         del sess
         torch.cuda.empty_cache()
 
+    # ------------------------ 9. the approx engine at full width ([4]'s data)
+    def expect_counts(label, got, **want):
+        full = {name: 0 for name in counted}
+        full.update(want)
+        if got != full:
+            fail(f"{label} launched {got}, expected {full}")
+
+    ctx = types.SimpleNamespace(
+        k=k, tb=tb, n=n_full, d=d_full, n_steps=n_steps, x_train=x_train,
+        y_train=y_train, x_test=x_test, y_test=y_test, xtr=xtr, ytr=ytr,
+        phi=phi, exact_points=exact_points, zero_counts=zero_counts,
+        read_counts=read_counts, expect=expect_counts,
+        pad=lambda xs, ys: pad_test_batch(xs.to(dev).contiguous(),
+                                          ys.to(dev), tb),
+        mega_step_ms=entries["sti_megakernel"]["ms"], scale_n=1 << 20)
+    t9 = time.perf_counter()
+    approx = approx_phase(torch, dev, ctx)
+    approx["phase_s"] = time.perf_counter() - t9
+    log(f"[9] phase {approx['phase_s']:.1f} s")
+    ctx.phi = None
+
     # step time at full width, reusing phi's buffer as the accumulator
     step, _ = prepare_fused_step(n_full, d_full, k, mode=CONFIG.mode,
                                  test_batch=tb, device=dev)
@@ -1596,6 +2131,18 @@ def main() -> None:
     serving = lm_phase(torch, np, dev, entries)
     serving["phase_s"] = time.perf_counter() - t8
     log(f"[8] phase {serving['phase_s']:.1f} s")
+
+    # ------------------ 9f. the approx engine at n = 2^20; 10. the tuner
+    t9 = time.perf_counter()
+    approx_1m = approx_scale_phase(torch, dev, ctx)
+    approx_1m["phase_s"] = time.perf_counter() - t9
+    log(f"[9f] phase {approx_1m['phase_s']:.1f} s")
+    ctx.step_ms = step_ms
+    t10 = time.perf_counter()
+    autotune = tuner_phase(torch, dev, ctx)
+    autotune["phase_s"] = time.perf_counter() - t10
+    log(f"[10] phase {autotune['phase_s']:.1f} s")
+    shutil.rmtree(tune_dir, ignore_errors=True)
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -1623,6 +2170,9 @@ def main() -> None:
                       "phi_symmetric": symmetric,
                       "sharded": sharded,
                       "serving": serving,
+                      "approx": approx,
+                      "approx_1m": approx_1m,
+                      "autotune": autotune,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

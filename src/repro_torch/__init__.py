@@ -10,6 +10,8 @@ mirror it (`repro_torch.kernels.sti_fill` is the counterpart of
     values = get_method("knn_shapley")(x_train, y_train, x_test, y_test)
     sharded = get_method("sti")(x_train, y_train, x_test, y_test, k=5,
                                 engine="sharded", devices=["cuda"] * 4)
+    approx = get_method("knn_shapley")(x_train, y_train, x_test, y_test,
+                                       engine="approx", top_m=256)
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version.
@@ -20,6 +22,7 @@ The LM substrate (dense decoders) lives in `repro_torch.models` and
 
 from repro_torch.core import (
     ENGINES,
+    ApproxValuationSession,
     ShardedValuationSession,
     ValuationMethod,
     ValuationResult,
@@ -53,6 +56,7 @@ __all__ = [
     "ValuationResult",
     "ValuationSession",
     "ShardedValuationSession",
+    "ApproxValuationSession",
     "ValuationMethod",
     "register_method",
     "get_method",

@@ -15,6 +15,7 @@ from repro_torch.core.sti_knn import (
     sti_knn_interactions,
     sti_knn_matrix_one_test,
     superdiagonal_g,
+    superdiagonal_g_topm,
 )
 from repro_torch.core import analysis
 from repro_torch.core.knn_shapley import (
@@ -24,6 +25,7 @@ from repro_torch.core.knn_shapley import (
 from repro_torch.core.loo import loo_values
 from repro_torch.core.results import ValuationResult
 from repro_torch.core.session import (
+    ApproxValuationSession,
     ShardedValuationSession,
     ValuationSession,
 )
@@ -44,6 +46,7 @@ __all__ = [
     "sti_knn_interactions",
     "sti_knn_matrix_one_test",
     "superdiagonal_g",
+    "superdiagonal_g_topm",
     "pairwise_sq_dists",
     "ranks_from_distances",
     "ranks_from_order",
@@ -65,6 +68,7 @@ __all__ = [
     "ValuationResult",
     "ValuationSession",
     "ShardedValuationSession",
+    "ApproxValuationSession",
     "ValuationMethod",
     "ENGINES",
     "register_method",

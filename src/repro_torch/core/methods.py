@@ -20,10 +20,15 @@ The `ENGINES` table maps every method to its ported engines (first entry
     sharded   the fused pipeline over D shards, (n/D, n) row blocks of
               the accumulator filled by the CUDA rect kernel on a card
               (`fill="megakernel"`: one fused launch per shard a step)
+    approx    LSH top-m candidate preselection and a sparse COO pair
+              accumulator (`ApproxValuationSession`; certified error knob
+              top_m / recall_target, measured recall and bound in meta)
   "knn_shapley" / "wknn" / "loo" (per-point values):
     streamed  the streaming pipeline via a `ValuationSession` (default)
     eager     direct call of the public function (same step, no session)
     sharded   a `ShardedValuationSession`, (n/D,) vector rows per shard
+    approx    LSH top-m candidates and O(m) deterministic scatters, the
+              same certified error reporting
     oracle    O(2^n) brute-force subset enumeration, for parity tests
               only, guarded to n <= 16 ("knn_shapley" / "wknn")
 
@@ -31,9 +36,12 @@ The sharded engine takes `shards=` (default: every local card, clamped to
 a divisor of n) or `devices=`, one device per shard, repeats allowed (so
 `devices=["cuda"] * 4` runs four shards on one card); one usable shard
 falls back to the single-device step. Either option without
-`engine="sharded"` raises. Every entry point takes `device=` ("cuda" by
-default; "cpu" must be asked for) and raises when a CUDA device is asked
-for and absent.
+`engine="sharded"` raises, as do the approx options (`top_m`, `seed`,
+`recall_target`, `approx_params`) without `engine="approx"`.
+`autotune=True` tunes what "auto" finds missing from the tuning cache
+(`repro_torch.kernels.autotune`). Every entry point takes `device=`
+("cuda" by default; "cpu" must be asked for) and raises when a CUDA
+device is asked for and absent.
 """
 
 from __future__ import annotations
@@ -57,12 +65,22 @@ __all__ = [
 ]
 
 ENGINES: dict[str, tuple[str, ...]] = {
-    "sti": ("fused", "scan", "sharded"),
-    "sii": ("fused", "scan", "sharded"),
-    "knn_shapley": ("streamed", "eager", "sharded", "oracle"),
-    "wknn": ("streamed", "eager", "sharded", "oracle"),
-    "loo": ("streamed", "eager", "sharded"),
+    "sti": ("fused", "scan", "sharded", "approx"),
+    "sii": ("fused", "scan", "sharded", "approx"),
+    "knn_shapley": ("streamed", "eager", "sharded", "approx", "oracle"),
+    "wknn": ("streamed", "eager", "sharded", "approx", "oracle"),
+    "loo": ("streamed", "eager", "sharded", "approx"),
 }
+
+# result-meta keys the approx engine reports, copied from the session's
+# finalize meta into the registry result
+_APPROX_META_KEYS = (
+    "top_m", "approx_exact", "recall_estimate", "matched_prefix",
+    "error_bound", "pairs_stored", "n_tables", "n_bits", "window",
+    "recall_target", "recall_target_met", "probe_k", "probed_rows",
+)
+# the knobs `engine="approx"` accepts at the registry level
+_APPROX_OPTIONS = ("top_m", "seed", "recall_target", "approx_params")
 
 # the O(2^n) oracles enumerate every subset: parity tests only
 _ORACLE_MAX_N = 16
@@ -121,6 +139,27 @@ def _check_shard_options(engine: str, shards, devices) -> None:
         )
 
 
+def _check_approx_options(engine: str, approx: dict) -> None:
+    """The approx knobs only with the approx engine: never silently drop a
+    knob that changes the result's error story."""
+    if approx and engine != "approx":
+        raise ValueError(
+            f"options {sorted(approx)} are only meaningful with "
+            f"engine='approx' (got engine={engine!r})"
+        )
+
+
+def _run_approx(x_train, y_train, x_test, y_test, approx: dict, **kw):
+    """Drive an `ApproxValuationSession` over the whole test set; returns
+    (result, session)."""
+    from repro_torch.core.session import ApproxValuationSession
+
+    akw = dict(approx.get("approx_params") or {})
+    akw.update({nm: v for nm, v in approx.items() if nm != "approx_params"})
+    sess = ApproxValuationSession(x_train, y_train, **kw, **akw)
+    return sess.update(x_test, y_test).finalize(), sess
+
+
 def _keyword_options(fn: Callable) -> frozenset:
     """Names of the keyword-only options `fn` accepts."""
     return frozenset(
@@ -146,7 +185,7 @@ class _InteractionMethod:
 
     accepted_options = frozenset({
         "engine", "test_batch", "fill", "fill_params", "distance", "device",
-        "shards", "devices",
+        "shards", "devices", "autotune", *_APPROX_OPTIONS,
     })
 
     def __init__(self, name: str, mode: str):
@@ -157,17 +196,24 @@ class _InteractionMethod:
                  engine: str = "fused", test_batch: int = 256,
                  fill: str = "auto", fill_params: Optional[dict] = None,
                  distance: str = "auto", device="cuda",
-                 shards: Optional[int] = None,
-                 devices=None) -> ValuationResult:
+                 shards: Optional[int] = None, devices=None,
+                 autotune: bool = False, top_m: Optional[int] = None,
+                 seed: Optional[int] = None,
+                 recall_target: Optional[float] = None,
+                 approx_params: Optional[dict] = None) -> ValuationResult:
         if engine not in ENGINES[self.name]:
             raise _engine_error(self.name, engine)
         _check_shard_options(engine, shards, devices)
+        approx = {nm: v for nm, v in dict(
+            top_m=top_m, seed=seed, recall_target=recall_target,
+            approx_params=approx_params).items() if v is not None}
+        _check_approx_options(engine, approx)
         if devices is not None:
             device = devices[0]
         dev = resolve_device(device)
         meta = _base_meta(x_train, x_test, k, dev)
         meta.update(method=self.name, mode=self.mode, engine=engine,
-                    streamed=engine in ("fused", "sharded"))
+                    streamed=engine in ("fused", "sharded", "approx"))
         tb = max(1, min(int(test_batch), int(x_test.shape[0])))
         t0 = time.perf_counter()
         if engine == "fused":
@@ -177,7 +223,7 @@ class _InteractionMethod:
             _, resolved = prepare_fused_step(
                 x_train.shape[0], x_train.shape[1], k, mode=self.mode,
                 test_batch=tb, fill=fill, fill_params=fill_params,
-                distance=distance, device=dev,
+                distance=distance, autotune=autotune, device=dev,
             )
             phi = fused_sti_knn_interactions(
                 x_train, y_train, x_test, y_test, k, mode=self.mode,
@@ -193,9 +239,20 @@ class _InteractionMethod:
                 x_train, y_train, x_test, y_test, k, mode=self.mode,
                 test_batch=test_batch, shards=shards, devices=devices,
                 fill=fill, fill_params=fill_params, distance=distance,
-                device=dev, return_info=True,
+                autotune=autotune, device=dev, return_info=True,
             )
             meta.update(resolved)
+        elif engine == "approx":
+            res, sess = _run_approx(
+                x_train, y_train, x_test, y_test, approx, k=k,
+                mode=self.mode, test_batch=tb, fill=fill,
+                fill_params=fill_params, distance=distance,
+                autotune=autotune, device=dev)
+            phi = res.phi
+            meta.update(test_batch=tb, fill=sess._resolved.get("fill"),
+                        distance=sess._resolved.get("distance"))
+            meta.update({nm: res.meta[nm] for nm in _APPROX_META_KEYS
+                         if nm in res.meta})
         else:  # scan
             from repro_torch.core.sti_knn import (
                 resolve_fill, sti_knn_interactions)
@@ -203,7 +260,7 @@ class _InteractionMethod:
             phi = sti_knn_interactions(
                 x_train, y_train, x_test, y_test, k, mode=self.mode,
                 test_batch=test_batch, fill=fill, fill_params=fill_params,
-                device=dev,
+                autotune=autotune, device=dev,
             )
             meta.update(
                 fill=resolve_fill(fill, x_train.shape[0], tb,
@@ -223,8 +280,9 @@ class _PointValueMethod:
     over the ported engines (ENGINES[name], first = default). "streamed"
     drives a `ValuationSession(mode=name)`, "eager" calls the public
     function, "sharded" drives a `ShardedValuationSession` ((n/D,) vector
-    rows per shard), "oracle" runs the registered O(2^n) brute force
-    (n <= 16).
+    rows per shard), "approx" an `ApproxValuationSession` (LSH top-m
+    candidates, certified error meta), "oracle" runs the registered
+    O(2^n) brute force (n <= 16).
     The distance defaults to "plain" on every engine, as the reference's
     point engines default to its deterministic "xla" distance; pass
     distance="auto" or "cuda" for the CUDA kernel."""
@@ -237,7 +295,7 @@ class _PointValueMethod:
         self._eager_kw = _keyword_options(fn)
         self.accepted_options = self._eager_kw | {
             "engine", "test_batch", "distance", "device", "shards",
-            "devices"}
+            "devices", "autotune", *_APPROX_OPTIONS}
 
     def __call__(self, x_train, y_train, x_test, y_test, *, k: int = 5,
                  engine: Optional[str] = None, **opts) -> ValuationResult:
@@ -255,16 +313,18 @@ class _PointValueMethod:
         _check_shard_options(engine, shards, devices)
         device = opts.pop("device", "cuda")
         dev = resolve_device(device if devices is None else devices[0])
+        approx = {nm: opts.pop(nm) for nm in _APPROX_OPTIONS if nm in opts}
+        _check_approx_options(engine, approx)
         # execution options passed EXPLICITLY go to the engine that runs,
         # and an engine that cannot honour them rejects them
-        explicit = {nm: opts.pop(nm) for nm in ("test_batch", "distance")
-                    if nm in opts}
+        explicit = {nm: opts.pop(nm) for nm in
+                    ("test_batch", "distance", "autotune") if nm in opts}
         test_batch = int(explicit.get("test_batch", 512))
         kw = dict(opts)   # method statics, e.g. weights
         meta = _base_meta(x_train, x_test, k, dev)
         meta.update(
             method=self.name, engine=engine,
-            streamed=engine in ("streamed", "sharded"),
+            streamed=engine in ("streamed", "sharded", "approx"),
             resolved_fill=None,
             **{k_: v for k_, v in {**kw, **explicit}.items()
                if isinstance(v, (str, int, float))},
@@ -279,8 +339,27 @@ class _PointValueMethod:
             values = self._run_oracle(x_train, y_train, x_test, y_test, k,
                                       kw).to(dev)
         elif engine == "eager":
+            unsupported = set(explicit) - self._eager_kw
+            if unsupported:
+                raise ValueError(
+                    f"options {sorted(unsupported)} are not supported by "
+                    f"engine='eager' for method {self.name!r}"
+                )
             values = self._fn(x_train, y_train, x_test, y_test, k,
                               device=dev, **dict(kw, **explicit))
+        elif engine == "approx":
+            t = int(x_test.shape[0])
+            res, sess = _run_approx(
+                x_train, y_train, x_test, y_test, approx, k=k,
+                mode=self.name, test_batch=max(1, min(test_batch, t)),
+                distance=explicit.get("distance", "plain"),
+                autotune=bool(explicit.get("autotune", False)),
+                method_opts=kw or None, device=dev)
+            values = res.point_values
+            meta.update({nm: res.meta[nm] for nm in _APPROX_META_KEYS
+                         if nm in res.meta})
+            meta.update({nm: v for nm, v in sess._resolved.items()
+                         if nm in ("distance", "test_batch")})
         else:  # streamed | sharded
             from repro_torch.core.session import (
                 ShardedValuationSession, ValuationSession)
@@ -289,6 +368,7 @@ class _PointValueMethod:
             skw = dict(k=k, mode=self.name,
                        test_batch=max(1, min(test_batch, t)),
                        distance=explicit.get("distance", "plain"),
+                       autotune=bool(explicit.get("autotune", False)),
                        method_opts=kw or None, device=dev)
             if engine == "sharded":
                 sess = ShardedValuationSession(

@@ -14,6 +14,7 @@ Loaded arrays are CPU tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -88,6 +89,24 @@ class ValuationResult:
                 "no interaction matrix (use an interaction method: sti/sii)"
             )
         return self.phi
+
+    def restrict(self, indices) -> "ValuationResult":
+        """Sub-result over the given train-point rows (stable order): `phi`
+        keeps the `indices x indices` block and `point_values` the
+        `indices` entries, on the result's device; `meta` gains
+        ``restricted_from`` (the original n) and the new ``n``."""
+        idx = torch.as_tensor(np.asarray(indices, np.int64))
+        phi = pv = None
+        if self.phi is not None:
+            i = idx.to(self.phi.device)
+            phi = self.phi[i][:, i]
+        if self.point_values is not None:
+            pv = self.point_values[idx.to(self.point_values.device)]
+        return self.replace(
+            phi=phi, point_values=pv,
+            meta={**self.meta, "restricted_from": self.n,
+                  "n": int(idx.shape[0])},
+        )
 
     def efficiency_gap(self, test_accuracy) -> torch.Tensor:
         """|value mass - v(N)| (float64): the STI efficiency axiom for
@@ -178,3 +197,11 @@ class ValuationResult:
             meta=head.get("meta", {}),
         )
 
+    def replace(self, **kw) -> "ValuationResult":
+        """Functional update: a copy with the given fields replaced."""
+        return dataclasses.replace(self, **kw)
+
+    def with_meta(self, **updates) -> "ValuationResult":
+        """A copy with `updates` merged into `meta` (the original is
+        unchanged)."""
+        return self.replace(meta={**self.meta, **updates})

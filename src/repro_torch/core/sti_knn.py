@@ -38,6 +38,7 @@ from repro_torch.device import resolve_device, to_device
 
 __all__ = [
     "superdiagonal_g",
+    "superdiagonal_g_topm",
     "ranks_from_order",
     "ranks_from_distances",
     "pairwise_sq_dists",
@@ -98,20 +99,40 @@ def superdiagonal_g(u_sorted: torch.Tensor, k: int, *,
     """(..., n) sorted valuations u -> (..., n) g with g[j0] =
     phi_{alpha_{j0-1}, alpha_{j0}}; g[0] is unused (set to 0). For train
     indices a != b: phi_ab = g[max(rank_a, rank_b)]."""
-    n = u_sorted.shape[-1]
-    if n < 2:
-        return torch.zeros_like(u_sorted)
+    return _g_recurrence(u_sorted, k, u_sorted.shape[-1], mode)
+
+
+def superdiagonal_g_topm(u_topm: torch.Tensor, k: int, n_total: int, *,
+                         mode: InteractionMode = "sti") -> torch.Tensor:
+    """Truncated-g estimator of `engine="approx"`: (..., m) valuations of
+    the m CLOSEST of `n_total` train points (sorted, position 0 closest)
+    -> (..., m) estimate of g. The exact recurrence runs over the m known
+    entries; the step coefficients depend on the position only, so every
+    term over the matched prefix is exact, while the anchor
+    `last_coef(n_total) * u_topm[m-1]` stands in for the unobservable
+    tail (what `repro_torch.core.approx.interaction_error_bound`
+    certifies). With m == n_total this is `superdiagonal_g`."""
+    return _g_recurrence(u_topm, k, n_total, mode)
+
+
+def _g_recurrence(u: torch.Tensor, k: int, n_total: int,
+                  mode: InteractionMode) -> torch.Tensor:
+    """The g recurrence over the last axis of `u`, anchored with the
+    `n_total`-point coefficient (the two functions above)."""
+    n = u.shape[-1]
+    if n < 2 or n_total < 2:
+        return torch.zeros_like(u)
     last_coef, step_coef = _recurrence_coeffs(
-        n, k, mode, u_sorted.dtype, u_sorted.device
+        n, k, mode, u.dtype, u.device, n_total=n_total
     )
-    du = u_sorted - torch.roll(u_sorted, 1, dims=-1)  # j0=0 junk, zeroed
+    du = u - torch.roll(u, 1, dims=-1)  # j0=0 junk, zeroed
     term = step_coef * du
     # R[j0] = sum_{m >= j0} term[m]; suffix[j0] = R[j0+1]
     rev_cumsum = torch.flip(torch.cumsum(torch.flip(term, [-1]), -1), [-1])
     suffix = torch.cat(
         [rev_cumsum[..., 1:], torch.zeros_like(rev_cumsum[..., :1])], dim=-1
     )
-    g = last_coef * u_sorted[..., -1:] + suffix
+    g = last_coef * u[..., -1:] + suffix
     g[..., 0] = 0.0
     return g
 
@@ -278,18 +299,21 @@ def resolve_fill(
     *,
     fill_params: Optional[dict] = None,
     backend: str = "cuda",
+    autotune: bool = False,
 ) -> tuple[str, tuple]:
     """Resolve a fill request to (registry_name, hashable static params).
 
-    "auto" takes the heuristic of `repro_torch.kernels.autotune.best_fill`
-    for `backend` ("cuda" -> the CUDA kernel, "cpu" -> chunked). Explicit
-    `fill_params` are a hint: ones the winner does not accept are dropped
-    under "auto" and rejected for an explicit fill name."""
+    "auto" takes `repro_torch.kernels.autotune.best_fill` for `backend`:
+    the tuning cache's winner on a hit, a fresh tune with
+    `autotune=True`, else the heuristic ("cuda" -> the CUDA kernel,
+    "cpu" -> chunked). Explicit `fill_params` are a hint: ones the winner
+    does not accept are dropped under "auto" and rejected for an explicit
+    fill name."""
     params = dict(fill_params or {})
     if fill == "auto":
         from repro_torch.kernels.autotune import best_fill  # lazy: no cycle
 
-        name, tuned = best_fill(n, t, backend=backend)
+        name, tuned = best_fill(n, t, backend=backend, allow_tune=autotune)
         tuned.update(params)
         params = _accepted_params(_FILL_FNS[name], tuned)
         fill = name
@@ -408,10 +432,13 @@ def resolve_rect_fill(
     *,
     fill_params: Optional[dict] = None,
     backend: str = "cuda",
+    autotune: bool = False,
 ) -> tuple[str, tuple]:
     """Resolve a rect fill request to (registry_name, hashable static
     params). "auto" takes `repro_torch.kernels.autotune.best_rect_fill`
-    for `backend` ("cuda" -> the CUDA rect kernel, "cpu" -> chunked). A
+    for the (n_rows, n_cols) block on `backend` (a cache hit, a fresh tune
+    with `autotune=True`, else "cuda" -> the CUDA rect kernel, "cpu" ->
+    chunked). A
     SQUARE registry name with no rect twin (e.g. "onehot", restored from a
     single-device checkpoint) runs the chunked rect scan with a warning:
     the sharded engine keeps running. Explicit `fill_params` the winner
@@ -420,7 +447,8 @@ def resolve_rect_fill(
     if fill == "auto":
         from repro_torch.kernels.autotune import best_rect_fill  # no cycle
 
-        name, tuned = best_rect_fill(backend=backend)
+        name, tuned = best_rect_fill(n_rows, n_cols, t, backend=backend,
+                                     allow_tune=autotune)
         tuned.update(params)
         params = _accepted_params(_RECT_FILL_FNS[name], tuned)
         fill = name
@@ -469,6 +497,7 @@ def sti_knn_interactions(
     test_batch: int = 256,
     fill: str = "auto",
     fill_params: Optional[dict] = None,
+    autotune: bool = False,
     device="cuda",
 ) -> torch.Tensor:
     """Full STI-KNN by the `scan` engine: (n, n) symmetric interaction
@@ -476,7 +505,8 @@ def sti_knn_interactions(
 
     Test points stream in batches of `test_batch`; a trailing partial batch
     runs unpadded, as the JAX scan engine does. Inputs may be numpy arrays
-    or tensors and are moved to `device`.
+    or tensors and are moved to `device`. `autotune=True` tunes the fill
+    when "auto" finds no cached winner.
     """
     dev = resolve_device(device)
     x_train, x_test = to_device(x_train, dev), to_device(x_test, dev)
@@ -491,7 +521,8 @@ def sti_knn_interactions(
     n = x_train.shape[0]
     tb = min(int(test_batch), t)
     fill_name, fill_static = resolve_fill(
-        fill, n, tb, fill_params=fill_params, backend=dev.type
+        fill, n, tb, fill_params=fill_params, backend=dev.type,
+        autotune=autotune,
     )
     acc = torch.zeros((n, n), dtype=torch.float32, device=dev)
     diag = torch.zeros((n,), dtype=torch.float32, device=dev)

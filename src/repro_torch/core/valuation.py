@@ -5,7 +5,9 @@ the valuation method registry (`repro_torch.core.methods`): `run()`
 returns the full `ValuationResult`, the legacy accessors
 (`interaction_matrix`, `shapley_values`, `loo`) return bare tensors, and
 `session()` opens a streaming session -- a `ShardedValuationSession` when
-the valuator's engine is "sharded". New code should use
+the valuator's engine is "sharded", an `ApproxValuationSession` when it
+is "approx" -- and `autotune()` pre-tunes the fill and distance into the
+tuning cache. New code should use
 `get_method(name)(...)` and the sessions directly.
 """
 
@@ -34,7 +36,7 @@ class DataValuator:
       test_batch, fill: defaults passed to every run and session.
       engine: an engine of the method's `ENGINES` row; None = the method's
         own default. "sharded" makes `session()` open a
-        `ShardedValuationSession`.
+        `ShardedValuationSession`, "approx" an `ApproxValuationSession`.
       device: where runs and sessions go ("cuda" unless "cpu" is asked
         for).
     """
@@ -110,12 +112,35 @@ class DataValuator:
                 "shards= and devices= require DataValuator(engine='sharded')"
             )
         opts.setdefault("device", self.device)
+        if self.engine == "approx":
+            from repro_torch.core.session import ApproxValuationSession
+
+            return ApproxValuationSession(x_train, y_train, **opts)
         return ValuationSession(x_train, y_train, **opts)
 
-    def interaction_matrix(self, x_train, y_train, x_test, y_test):
-        """The (n, n) interaction matrix of this valuator's method."""
-        return self.run(x_train, y_train, x_test, y_test
+    def interaction_matrix(self, x_train, y_train, x_test, y_test, *,
+                           autotune: bool = False):
+        """The (n, n) interaction matrix of this valuator's method
+        (`autotune=True` tunes what "auto" finds missing from the tuning
+        cache first)."""
+        return self.run(x_train, y_train, x_test, y_test, autotune=autotune
                         ).interaction_matrix()
+
+    def autotune(self, n: int, t: int, d: Optional[int] = None
+                 ) -> tuple[str, dict]:
+        """Pre-tune the fill (and, given the feature dim `d`, the distance)
+        for an (n, t) problem on this valuator's device; the winners
+        persist in the tuning cache (`repro_torch.kernels.autotune`), so
+        later "auto" runs in any process pick them up. Pass the per-call
+        test batch as `t` when streaming. Returns the fill winner."""
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels.autotune import (
+            autotune_distance, autotune_fill)
+
+        backend = resolve_device(self.device).type
+        if d is not None:
+            autotune_distance(t, n, d, backend=backend)
+        return autotune_fill(n, t, backend=backend)
 
     def shapley_values(self, x_train, y_train, x_test, y_test):
         """KNN-Shapley values of the train points."""

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["make_circles", "make_gaussian_blobs", "flip_labels"]
+__all__ = ["make_circles", "make_moons", "make_gaussian_blobs", "flip_labels"]
 
 
 def _tensors(x: np.ndarray, y: np.ndarray):
@@ -25,6 +25,19 @@ def make_circles(n_per_class: int, noise: float = 0.05, seed: int = 0):
     r = np.concatenate([np.full(n_per_class, 1.0), np.full(n_per_class, 0.5)])
     x = np.stack([r * np.cos(theta), r * np.sin(theta)], -1)
     x += rng.normal(scale=noise, size=x.shape)
+    y = np.concatenate([np.zeros(n_per_class), np.ones(n_per_class)]
+                       ).astype(np.int32)
+    return _tensors(x, y)
+
+
+def make_moons(n_per_class: int, noise: float = 0.05, seed: int = 0):
+    """Two interleaved half-moons (paper Appendix B). Returns (x, y)."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, np.pi, size=n_per_class)
+    x0 = np.stack([np.cos(t), np.sin(t)], -1)
+    x1 = np.stack([1.0 - np.cos(t), 0.5 - np.sin(t)], -1)
+    x = np.concatenate([x0, x1], 0) + rng.normal(
+        scale=noise, size=(2 * n_per_class, 2))
     y = np.concatenate([np.zeros(n_per_class), np.ones(n_per_class)]
                        ).astype(np.int32)
     return _tensors(x, y)

@@ -28,7 +28,8 @@ import torch
 from repro_torch.core.sti_knn import pairwise_sq_dists
 from repro_torch.kernels.build import library
 
-__all__ = ["distance_plain", "distance_cuda", "tma_operands"]
+__all__ = ["distance_plain", "distance_cuda", "tma_operands",
+           "candidate_sq_dists"]
 
 _DTYPES = {torch.float32: "sq_dist_f32", torch.bfloat16: "sq_dist_bf16"}
 
@@ -36,6 +37,29 @@ _DTYPES = {torch.float32: "sq_dist_f32", torch.bfloat16: "sq_dist_bf16"}
 # The plain version is the core expansion, the same one the fused step's
 # "plain" distance runs: ||a||^2 - 2 a.b + ||b||^2 in f32, clamped at 0.
 distance_plain = pairwise_sq_dists
+
+
+def candidate_sq_dists(x_test: torch.Tensor, x_train: torch.Tensor,
+                       cand: torch.Tensor, *,
+                       train_norms: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """(tb, d) test rows, (n, d) train set, (tb, P) candidate ids -> (tb, P)
+    exact squared L2 distances to the candidates only (the counterpart of
+    `repro.kernels.distance.candidate_sq_dists`, which is no Pallas
+    kernel either: a gather and a batched contraction). Same expansion as
+    the dense row, ||a||^2 - 2 a.b + ||b||^2 clamped at 0, at O(tb P d)
+    instead of O(tb n d). `train_norms` (n,) may be precomputed once per
+    train set (the LSH index keeps it); otherwise the norms are taken
+    over the gathered rows."""
+    xt = x_test.to(torch.float32)
+    rows = x_train.to(torch.float32)[cand]              # (tb, P, d)
+    cross = torch.einsum("td,tpd->tp", xt, rows)
+    nt = torch.sum(xt * xt, dim=-1, keepdim=True)       # (tb, 1)
+    if train_norms is not None:
+        nn = train_norms.to(torch.float32)[cand]        # (tb, P)
+    else:
+        nn = torch.sum(rows * rows, dim=-1)
+    return torch.clamp_min(nt - 2.0 * cross + nn, 0.0)
 
 
 def _check(x_test: torch.Tensor, x_train: torch.Tensor) -> None:

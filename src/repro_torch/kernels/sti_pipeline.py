@@ -76,21 +76,27 @@ __all__ = [
     "prepare_sharded_step",
     "prepare_sharded_stream_step",
     "sharded_sti_knn_interactions",
+    "make_approx_point_step",
+    "make_approx_interaction_step",
+    "ApproxPairAccumulator",
 ]
 
 _DISTANCES = ("plain", "cuda")
 
 
 def resolve_distance(
-    distance: str, t: int, n: int, d: int, *, backend: str = "cuda"
+    distance: str, t: int, n: int, d: int, *, backend: str = "cuda",
+    autotune: bool = False,
 ) -> str:
     """Resolve "auto" | "plain" | "cuda" to a distance implementation name.
-    "auto" takes the heuristic of `autotune.best_distance` for
-    `backend`."""
+    "auto" takes `autotune.best_distance` for `backend`: the tuning
+    cache's winner, a fresh tune with `autotune=True`, else the
+    heuristic."""
     if distance == "auto":
         from repro_torch.kernels.autotune import best_distance
 
-        distance, _ = best_distance(t, n, d, backend=backend)
+        distance, _ = best_distance(t, n, d, backend=backend,
+                                    allow_tune=autotune)
     if distance not in _DISTANCES:
         raise ValueError(
             f"unknown distance impl: {distance!r}; known: {_DISTANCES}"
@@ -293,18 +299,31 @@ def _vector_state(inner: Callable) -> Callable:
     return step
 
 
-def _resolve_megakernel(fill: str, fill_params: Optional[dict]
-                        ) -> Optional[tuple]:
+def _resolve_megakernel(fill: str, fill_params: Optional[dict],
+                        step_key: Optional[tuple] = None,
+                        autotune: bool = False) -> Optional[tuple]:
     """The megakernel's static-param tuple when a step should run as the
-    fused kernel, else None for the three-stage step. Only
-    `fill="megakernel"` selects it: the JAX package's "auto" takes it only
-    on a hit in its step-level tuning cache, and the port has no tuning
-    cache, so "auto" keeps the three-stage step."""
-    if fill != "megakernel":
-        return None
+    fused kernel, else None for the three-stage step. `fill="megakernel"`
+    forces it. `fill="auto"` with a `step_key` (method, n, d, k, tb,
+    backend) consults the step-level tuning cache
+    (`autotune.best_megastep`, platform-keyed; `autotune=True` tunes on a
+    miss): the megakernel runs only where a tuned run measured it faster
+    than the three-stage step, and a miss keeps the three-stage step. The
+    sharded steps pass no key, so "auto" never picks it there."""
     from repro_torch.kernels.sti_megakernel import megakernel_static
 
-    return megakernel_static(fill_params)
+    if fill == "megakernel":
+        return megakernel_static(fill_params)
+    if fill != "auto" or step_key is None:
+        return None
+    from repro_torch.kernels.autotune import best_megastep
+
+    method, n, d, k, tb, backend = step_key
+    name, params = best_megastep(n, tb, d, k, method=method,
+                                 backend=backend, allow_tune=autotune)
+    if name != "megakernel":
+        return None
+    return megakernel_static({**params, **(fill_params or {})})
 
 
 def prepare_fused_step(
@@ -317,23 +336,30 @@ def prepare_fused_step(
     fill: str = "auto",
     fill_params: Optional[dict] = None,
     distance: str = "auto",
+    autotune: bool = False,
     device="cuda",
 ) -> tuple[Callable, dict]:
     """Resolve fill/distance for an (n, d) train set streamed in batches of
     `test_batch` on `device` and return `(step, resolved)` (see
     `make_fused_step`), `resolved` naming the concrete {"fill",
     "distance"} implementations; {"fill": "megakernel", "distance":
-    "fused"} for the fused kernel, whose distance runs inside it."""
+    "fused"} for the fused kernel, whose distance runs inside it (forced
+    by `fill="megakernel"`, or picked by "auto" where the step-level
+    tuning cache says it wins). `autotune=True` tunes what "auto" finds
+    missing from the cache."""
     backend = resolve_device(device).type
     tb = max(1, int(test_batch))
-    mega = _resolve_megakernel(fill, fill_params)
+    mega = _resolve_megakernel(fill, fill_params,
+                               (mode, n, d, int(k), tb, backend), autotune)
     if mega is not None:
         step = make_fused_step(int(k), mode, "megakernel", mega)
         return step, {"fill": "megakernel", "distance": "fused"}
     fill_name, fill_static = resolve_fill(
-        fill, n, tb, fill_params=fill_params, backend=backend
+        fill, n, tb, fill_params=fill_params, backend=backend,
+        autotune=autotune,
     )
-    dist_name = resolve_distance(distance, tb, n, d, backend=backend)
+    dist_name = resolve_distance(distance, tb, n, d, backend=backend,
+                                 autotune=autotune)
     step = make_fused_step(int(k), mode, fill_name, fill_static, dist_name)
     return step, {"fill": fill_name, "distance": dist_name}
 
@@ -348,6 +374,7 @@ def prepare_stream_step(
     fill: str = "auto",
     fill_params: Optional[dict] = None,
     distance: str = "auto",
+    autotune: bool = False,
     method_opts: Optional[dict] = None,
     device="cuda",
 ) -> tuple[Callable, dict, AccumulatorSpec]:
@@ -359,25 +386,30 @@ def prepare_stream_step(
 
     where `state` is `spec.init(n, device)`-shaped ((acc, diag) or
     (vec,)). Point methods have no fill stage (resolved["fill"] is None)
-    except `fill="megakernel"`, which routes any method through its fused
-    kernel. `method_opts` carries method statics such as the wknn weight
-    kind. This is the per-batch unit `ValuationSession` drives."""
+    except `fill="megakernel"` (or an "auto" whose step-level tuning
+    cache entry for the method names it), which routes any method through
+    its fused kernel. `method_opts` carries method statics such as the
+    wknn weight kind. This is the per-batch unit `ValuationSession`
+    drives."""
     spec = accumulator_spec(method)
     tb = max(1, int(test_batch))
     if spec.kind == "interaction":
         inner, resolved = prepare_fused_step(
             n, d, k, mode=method, test_batch=tb, fill=fill,
-            fill_params=fill_params, distance=distance, device=device,
+            fill_params=fill_params, distance=distance, autotune=autotune,
+            device=device,
         )
         return _tuple_state(inner), dict(resolved), spec
-    mega = _resolve_megakernel(fill, fill_params)
+    backend = resolve_device(device).type
+    mega = _resolve_megakernel(fill, fill_params,
+                               (method, n, d, int(k), tb, backend), autotune)
     if mega is not None:
         inner = make_point_step(method, int(k), _method_static(method_opts),
                                 fill="megakernel", fill_static=mega)
         return (_vector_state(inner),
                 {"fill": "megakernel", "distance": "fused"}, spec)
-    backend = resolve_device(device).type
-    dist_name = resolve_distance(distance, tb, n, d, backend=backend)
+    dist_name = resolve_distance(distance, tb, n, d, backend=backend,
+                                 autotune=autotune)
     inner = make_point_step(method, int(k), _method_static(method_opts),
                             dist_name)
     return _vector_state(inner), {"fill": None, "distance": dist_name}, spec
@@ -485,6 +517,7 @@ def fused_sti_knn_interactions(
     fill: str = "auto",
     fill_params: Optional[dict] = None,
     distance: str = "auto",
+    autotune: bool = False,
     device="cuda",
 ) -> torch.Tensor:
     """STI-KNN via the fused streaming pipeline: the (n, n) matrix on
@@ -502,11 +535,190 @@ def fused_sti_knn_interactions(
     tb = max(1, min(int(test_batch), t))
     step, _ = prepare_fused_step(
         n, d, k, mode=mode, test_batch=tb, fill=fill, fill_params=fill_params,
-        distance=distance, device=dev,
+        distance=distance, autotune=autotune, device=dev,
     )
     state = _stream(_tuple_state(step), INTERACTION_STATE.init(n, dev),
                     x_test, y_test, tb, dev, fdt, x_train, y_train)
     return INTERACTION_STATE.result_arrays(state, t)["phi"]
+
+
+# ------------------------------------------------------------------- approx
+# engine="approx": the steps below swap the dense (tb, n) distance row for
+# the LSH candidate stage (`repro_torch.kernels.ann.topm_candidates`), run
+# the per-method recurrences on the (tb, m) candidate vectors (sorted by
+# exact distance, so candidate position == sorted coordinate), and land
+# the results sparsely: a deterministic scatter for the (n,) point
+# vectors, flattened COO triplets for the interaction pairs, merged on the
+# host by `ApproxPairAccumulator`, so n = 10^6 stores only pairs that ever
+# co-occur in a candidate set. Each step also runs the recall probe on its
+# first `probe` rows; the measured matched prefix feeds the certified
+# bounds of `repro_torch.core.approx`. Every operation here is plain
+# PyTorch on the device (the reference's are XLA, no Pallas kernel);
+# the probe's exact rows take the distance kernel on a card.
+
+
+def _probe_stats(probe: int, probe_k: int) -> Callable:
+    """Bind the in-step recall probe: `run(cand, xb, x_train)` returns the
+    (min(probe, tb),) matched-prefix and recall rows of
+    `repro_torch.kernels.ann.matched_prefix_and_recall` (empty tensors
+    when probing is off). Probing the FIRST rows is sound because
+    `pad_test_batch` puts the real test points first."""
+    from repro_torch.kernels.ann import matched_prefix_and_recall
+
+    def run(cand, xb, x_train):
+        s = min(int(probe), cand.shape[0])
+        if s <= 0:
+            return (torch.zeros((0,), dtype=torch.int32, device=xb.device),
+                    torch.zeros((0,), dtype=torch.float32, device=xb.device))
+        return matched_prefix_and_recall(cand[:s], xb[:s], x_train,
+                                         int(probe_k))
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def make_approx_point_step(method: str, k: int, n: int, m: int, window: int,
+                           probe: int = 0, probe_k: int = 0,
+                           method_static: tuple = ()) -> Callable:
+    """The approx step of a point-value method:
+
+        step(vec, xb, yb, mask, x_train, y_train, tables)
+            -> (vec, prefix, recall)
+
+    vec (n,) f32 accumulates the scattered candidate values in place;
+    `tables` is the `LSHTables` the session built once per train set. Per
+    batch: top-m candidates -> label match -> candidate-space recurrence
+    (`stream_kernels.make_approx_values`) -> deterministic O(tb m)
+    scatter, plus the `probe`-row recall probe. Cached per static
+    configuration."""
+    from repro_torch.kernels.ann import full_mean_sq_dist, topm_candidates
+    from repro_torch.kernels.stream_kernels import (
+        make_approx_values, scatter_point_update)
+
+    values_fn = make_approx_values(method, k, opts=dict(method_static))
+    probe_fn = _probe_stats(probe, probe_k)
+    m, window = int(m), int(window)
+
+    def step(vec, xb, yb, mask, x_train, y_train, tables):
+        cand, d2m, valid = topm_candidates(xb, x_train, tables, m, window)
+        match = (y_train[cand] == yb[:, None]).to(torch.float32)
+        sigma2 = full_mean_sq_dist(xb, tables)
+        vals = values_fn(d2m, match, valid, mask, sigma2)
+        scatter_point_update(vec, cand, vals, valid)
+        prefix, recall = probe_fn(cand, xb, x_train)
+        return vec, prefix, recall
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_approx_interaction_step(mode: InteractionMode, k: int, n: int,
+                                 m: int, window: int, probe: int = 0,
+                                 probe_k: int = 0) -> Callable:
+    """The approx step of "sti"/"sii":
+
+        step(diag, xb, yb, mask, x_train, y_train, tables)
+            -> (diag, rows, cols, vals, prefix, recall)
+
+    The DIAGONAL (paper Eq. 4: the mean of u, a label comparison) is
+    accumulated exactly and densely into diag in place, by the same
+    (tb, n) reduction as the exact step, so it keeps the exact engine's
+    bits. The off-diagonal pairs run the truncated recurrence
+    (`superdiagonal_g_topm`) on the (tb, m) candidate vector and come back
+    as flattened (tb m^2,) COO triplets: pair value g[max(pos_a, pos_b)]
+    over candidate positions, padded rows, invalid slots and the diagonal
+    redirected to row index n (the host accumulator drops them). Peak
+    step memory is O(tb m^2 + tb n). Cached per static configuration."""
+    from repro_torch.core.sti_knn import superdiagonal_g_topm
+    from repro_torch.kernels.ann import topm_candidates
+
+    probe_fn = _probe_stats(probe, probe_k)
+    n, m, window = int(n), int(m), int(window)
+
+    def step(diag, xb, yb, mask, x_train, y_train, tables):
+        cand, d2m, valid = topm_candidates(xb, x_train, tables, m, window)
+        match = (y_train[cand] == yb[:, None]).to(torch.float32)
+        u = match * valid * (mask / k)[:, None]
+        g = superdiagonal_g_topm(u, k, n, mode=mode)             # (tb, m)
+        pos = torch.arange(m, device=xb.device)
+        gm = g[:, torch.maximum(pos[:, None], pos[None, :])]     # (tb, m, m)
+        ok = ((valid[:, :, None] > 0) & (valid[:, None, :] > 0)
+              & (pos[:, None] != pos[None, :])[None, :, :]
+              & (mask > 0)[:, None, None])
+        rows = torch.where(ok, cand[:, :, None], n)
+        cols = torch.where(ok, cand[:, None, :], n)
+        vals = torch.where(ok, gm, 0.0)
+        # the exact dense diagonal: the mean-of-u main terms need only the
+        # labels; u in train coordinates, as the exact step gathers it
+        dm = (y_train[None, :] == yb[:, None]).to(torch.float32)
+        diag.add_((dm * (mask / k)[:, None]).sum(0))
+        prefix, recall = probe_fn(cand, xb, x_train)
+        return (diag, rows.reshape(-1), cols.reshape(-1), vals.reshape(-1),
+                prefix, recall)
+
+    return step
+
+
+class ApproxPairAccumulator:
+    """Host-side deterministic COO accumulator of approx interactions.
+
+    Each approx interaction step emits (tb m^2,) flattened (row, col, val)
+    triplets; this class merges them into a sorted unique key list (key =
+    row * n + col, int64) with `np.unique` + `np.add.at` -- a sequential,
+    order-stable reduction, so two identical runs (and a checkpoint /
+    restore) give bit-identical sparse states. Memory is O(pairs that ever
+    co-occur in a candidate set): STI at n = 10^6 never holds an (n, n)
+    accumulator until `to_dense`."""
+
+    def __init__(self, n: int):
+        """Empty accumulator for an n-point training set."""
+        self.n = int(n)
+        self._keys = np.zeros((0,), np.int64)
+        self._vals = np.zeros((0,), np.float32)
+
+    @property
+    def nnz(self) -> int:
+        """Number of distinct off-diagonal pairs stored so far."""
+        return int(self._keys.shape[0])
+
+    def add(self, rows, cols, vals) -> None:
+        """Merge one step's flattened triplets (numpy arrays or tensors);
+        entries with row >= n (the step's invalid/diagonal redirect) are
+        dropped."""
+        rows, cols, vals = (np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                       else a) for a in (rows, cols, vals))
+        vals = vals.astype(np.float32, copy=False)
+        keep = rows < self.n
+        new = rows[keep].astype(np.int64) * self.n + cols[keep].astype(
+            np.int64)
+        keys = np.concatenate([self._keys, new])
+        allv = np.concatenate([self._vals, vals[keep]])
+        uniq, inv = np.unique(keys, return_inverse=True)
+        acc = np.zeros(uniq.shape[0], np.float32)
+        np.add.at(acc, inv.reshape(-1), allv)
+        self._keys, self._vals = uniq, acc
+
+    def state(self) -> tuple:
+        """(keys, vals) checkpoint arrays (sorted int64 keys, f32 sums)."""
+        return self._keys.copy(), self._vals.copy()
+
+    def load(self, keys, vals) -> None:
+        """Restore from `state()` arrays (checkpoint resume)."""
+        self._keys = np.asarray(keys, np.int64).copy()
+        self._vals = np.asarray(vals, np.float32).copy()
+
+    def to_dense(self, diag: torch.Tensor, t: int) -> torch.Tensor:
+        """The (n, n) f32 interaction matrix on diag's device: off-diagonal
+        sums / t at their keys and the exactly accumulated diag / t on the
+        main diagonal (the finalize rule of `AccumulatorSpec.
+        result_arrays`). The division is the same IEEE f32 division as the
+        reference's numpy one, so the bits agree."""
+        dev = diag.device
+        phi = torch.zeros((self.n, self.n), dtype=torch.float32, device=dev)
+        keys = torch.from_numpy(self._keys).to(dev)
+        phi.view(-1)[keys] = torch.from_numpy(self._vals).to(dev) / t
+        phi.diagonal().copy_(diag / t)
+        return phi
 
 
 # ------------------------------------------------------------------ sharded
@@ -659,6 +871,7 @@ def prepare_sharded_step(
     fill: str = "auto",
     fill_params: Optional[dict] = None,
     distance: str = "auto",
+    autotune: bool = False,
 ) -> tuple[Callable, dict, object]:
     """Resolve the shard group, fill and distance of the sharded engine and
     return `(step, resolved, group)`. `resolved` names the concrete
@@ -683,8 +896,10 @@ def prepare_sharded_step(
     # the fill sees the (n/D, n) row block and ALL tb gathered test
     # points; the distance stage runs on (tb/D, n) slices
     fill_name, fill_static = resolve_rect_fill(
-        fill, n // num, n, tb, fill_params=fill_params, backend=backend)
-    dist_name = resolve_distance(distance, tb // num, n, d, backend=backend)
+        fill, n // num, n, tb, fill_params=fill_params, backend=backend,
+        autotune=autotune)
+    dist_name = resolve_distance(distance, tb // num, n, d, backend=backend,
+                                 autotune=autotune)
     step = make_sharded_step(group, int(k), mode, fill_name, fill_static,
                              dist_name)
     resolved = {
@@ -711,6 +926,7 @@ def prepare_sharded_stream_step(
     fill: str = "auto",
     fill_params: Optional[dict] = None,
     distance: str = "auto",
+    autotune: bool = False,
     method_opts: Optional[dict] = None,
 ) -> tuple[Callable, dict, object, AccumulatorSpec]:
     """Method-generic form of `prepare_sharded_step`: `(step, resolved,
@@ -724,7 +940,7 @@ def prepare_sharded_stream_step(
         inner, resolved, group = prepare_sharded_step(
             n, d, k, devices=devices, shards=shards, mode=method,
             test_batch=test_batch, fill=fill, fill_params=fill_params,
-            distance=distance,
+            distance=distance, autotune=autotune,
         )
         return _tuple_state(inner), resolved, group, spec
     group = _shard_group(n, shards, devices)
@@ -739,7 +955,8 @@ def prepare_sharded_stream_step(
                 {"fill": "megakernel", "distance": "fused", "shards": num,
                  "test_batch": tb}, group, spec)
     dist_name = resolve_distance(distance, tb // num, n, d,
-                                 backend=group.devices[0].type)
+                                 backend=group.devices[0].type,
+                                 autotune=autotune)
     inner = make_sharded_point_step(group, method, int(k),
                                     _method_static(method_opts), dist_name)
     return (_vector_state(inner),
@@ -761,6 +978,7 @@ def sharded_sti_knn_interactions(
     fill: str = "auto",
     fill_params: Optional[dict] = None,
     distance: str = "auto",
+    autotune: bool = False,
     device="cuda",
     return_info: bool = False,
 ):
@@ -786,7 +1004,8 @@ def sharded_sti_knn_interactions(
     sess = ShardedValuationSession(
         x_train, y_train, shards=shards, devices=devices, k=k, mode=mode,
         test_batch=max(1, min(int(test_batch), t)), fill=fill,
-        fill_params=fill_params, distance=distance, device=device,
+        fill_params=fill_params, distance=distance, autotune=autotune,
+        device=device,
     )
     phi = sess.update(x_test, y_test).finalize().phi
     if return_info:

@@ -53,6 +53,9 @@ __all__ = [
     "has_stream_kernel",
     "register_megakernel_tables",
     "make_megakernel_tables",
+    "approx_point_methods",
+    "make_approx_values",
+    "scatter_point_update",
 ]
 
 
@@ -397,6 +400,90 @@ def _loo_megatables(k, opts):
         return _loo_window(match_s * mask[:, None], k)
 
     return tables
+
+
+# ------------------------------------------------------ approx (candidate)
+# engine="approx" replaces the dense (tb, n) sorted pipeline with the
+# (tb, m) CANDIDATE vectors of the LSH stage
+# (`repro_torch.kernels.ann.topm_candidates`): candidates arrive sorted by
+# exact distance, so candidate position IS the sorted coordinate and the
+# recurrences below are the exact ones truncated to the top m -- the
+# certified-error estimators of `repro_torch.core.approx`. Results land in
+# the (n,) accumulator by one deterministic scatter per batch.
+
+
+def approx_point_methods() -> tuple[str, ...]:
+    """Point methods with a candidate-space (engine="approx") value path."""
+    return ("knn_shapley", "wknn", "loo")
+
+
+def make_approx_values(method: str, k: int, *, opts: Optional[dict] = None
+                       ) -> Callable:
+    """The candidate-space value closure of a point method:
+    `values(d2m, match, valid, mask, sigma2) -> (tb, m)`, the value of each
+    CANDIDATE at its candidate position, with `valid` (real distinct
+    candidates) and `mask` (real test rows) folded in, so every dropped
+    slot and padded row contributes zero. `sigma2` is the (tb, 1) analytic
+    rbf bandwidth (`repro_torch.kernels.ann.full_mean_sq_dist`; ignored by
+    the other weights). knn_shapley/wknn run the reverse-cumsum recurrence
+    on the truncated vector; loo slides the (k+1)-th CANDIDATE in (exact
+    once the matched prefix covers k+1)."""
+    opts = dict(opts or {})
+    k = int(k)
+    if method == "knn_shapley":
+        def values(d2m, match, valid, mask, sigma2):
+            from repro_torch.core.knn_shapley import knn_shapley_from_sorted
+
+            return knn_shapley_from_sorted(match * valid * mask[:, None], k)
+    elif method == "wknn":
+        kind = opts.get("weights", "rbf")
+
+        def values(d2m, match, valid, mask, sigma2):
+            from repro_torch.core.knn_shapley import knn_shapley_from_sorted
+            from repro_torch.core.wknn import distance_weights
+
+            w = distance_weights(d2m, kind, sigma2=sigma2)
+            return knn_shapley_from_sorted(w * match * valid * mask[:, None],
+                                           k)
+    elif method == "loo":
+        def values(d2m, match, valid, mask, sigma2):
+            return _loo_window(match * valid * mask[:, None], k)
+    else:
+        raise ValueError(
+            f"no approx candidate-space kernel for method {method!r}; "
+            f"available: {approx_point_methods()}"
+        )
+    return values
+
+
+def scatter_point_update(vec: torch.Tensor, cand: torch.Tensor,
+                         vals: torch.Tensor, valid: torch.Tensor
+                         ) -> torch.Tensor:
+    """Add (tb, m) candidate-coordinate values into the (n,) accumulator in
+    place, deterministically: the sparse O(tb m) twin of the dense point
+    update. Invalid slots go to the dropped index n, as in the reference's
+    `vec.at[idx].add(..., mode="drop")`.
+
+    `index_add_` on a card adds with atomics in no fixed order, so the
+    batch is reduced without them: the touched ids are compacted
+    (`torch.unique`), each test row's values written into a (tb, ids)
+    table (a row holds an id at most once: the candidates of a row are
+    distinct), and the table summed down its rows by one reduction before
+    it is added to the ids' values. The same inputs give the same bits on
+    every run; the order of additions differs from the reference's
+    sequential one in the last bits."""
+    n = vec.shape[0]
+    tb = cand.shape[0]
+    ext = torch.cat([vec, vec.new_zeros(1)])
+    idx = torch.where(valid > 0, cand, n)
+    ids, inv = torch.unique(idx, sorted=True, return_inverse=True)
+    table = vec.new_zeros((tb, ids.shape[0]))
+    rows = torch.arange(tb, device=vec.device)[:, None].expand_as(inv)
+    # the id-n column collects every row's invalid slots in any order; it
+    # is dropped with ext[n] below
+    table[rows, inv] = vals.to(vec.dtype)
+    ext[ids] = ext[ids] + table.sum(dim=0)
+    return vec.copy_(ext[:n])
 
 
 register_update_kernel("sti", INTERACTION_STATE, _interaction_factory("sti"))

@@ -9,6 +9,8 @@ end-to-end on a CUDA card (or, when asked, the CPU).
       --shards 4 --devices cuda     # four shards on one card
   PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
       --engine sharded --shards 8 --devices cpu --n 64 --t 16
+  PYTHONPATH=src python -m repro_torch.launch.valuate --engine approx \
+      --method knn_shapley --top-m 64 --recall-target 0.9 --autotune
 
 Pipeline: synthetic circles (10% of train labels flipped) -> a method from
 the registry ("sti"/"sii" on the `fused` or `scan` engine, or a per-point
@@ -19,8 +21,13 @@ kernel (for the point methods through a session). `--engine sharded`
 splits the state into `--shards` row blocks over `--devices`, a comma-
 separated list with one device per shard (a single name is repeated
 `--shards` times); without `--devices` the shards go one per local card,
-so a one-card host runs several shards only through `--devices`. `--save`
-writes the result in the format both packages read (npz + JSON).
+so a one-card host runs several shards only through `--devices`.
+`--engine approx` runs the LSH top-m engine (`--top-m`, default n/4
+clamped to [k+1, n]; `--top-m` >= n is bit for bit the exact engine;
+`--recall-target` records whether the measured recall met it) and prints
+its certified error bound. `--autotune` tunes what "auto" finds missing
+from the tuning cache first. `--save` writes the result in the format
+both packages read (npz + JSON).
 """
 
 from __future__ import annotations
@@ -48,6 +55,22 @@ def _shard_options(args) -> dict:
             "devices": devices}
 
 
+def _approx_options(args) -> dict:
+    """--top-m / --recall-target as the approx engine's keyword options."""
+    if args.engine != "approx":
+        return {}
+    opts = {"top_m": args.top_m}
+    if args.recall_target is not None:
+        opts["recall_target"] = args.recall_target
+    return opts
+
+
+def _tune_option(args) -> dict:
+    """--autotune as a keyword option, passed only when set (the eager
+    point engine takes no autotune option)."""
+    return {"autotune": True} if args.autotune else {}
+
+
 def _point_values(args, x, y, xt, yt):
     """A point method's result: through the registry, or -- for
     `--fill megakernel`, which the registry's point engines do not take --
@@ -59,9 +82,11 @@ def _point_values(args, x, y, xt, yt):
         return get_method(args.method)(
             x, y, xt, yt, k=args.k, engine=engine, distance=args.distance,
             test_batch=args.test_batch, device=args.device,
+            **_approx_options(args), **_tune_option(args),
             **{nm: v for nm, v in shard_kw.items() if v is not None})
     kw = dict(k=args.k, mode=args.method, test_batch=args.test_batch,
-              fill="megakernel", distance=args.distance, device=args.device)
+              fill="megakernel", distance=args.distance, device=args.device,
+              autotune=args.autotune)
     sess = (ShardedValuationSession(x, y, **shard_kw, **kw) if shard_kw
             else ValuationSession(x, y, **kw))
     return sess.update(xt, yt).finalize()
@@ -92,6 +117,16 @@ def main():
                     help="--engine sharded: comma-separated devices, one "
                          "per shard (e.g. cuda,cuda,cuda,cuda); a single "
                          "name is repeated --shards times")
+    ap.add_argument("--top-m", type=int, default=None,
+                    help="candidate-set size for --engine approx (default "
+                         "n/4 clamped to [k+1, n]; >= n runs the exact "
+                         "engine bit for bit)")
+    ap.add_argument("--recall-target", type=float, default=None,
+                    help="--engine approx: record whether the measured "
+                         "candidate recall met this target")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune what 'auto' finds missing from the tuning "
+                         "cache first ($REPRO_TORCH_AUTOTUNE_CACHE)")
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="persist the ValuationResult to PATH.npz + PATH.json")
     args = ap.parse_args()
@@ -100,6 +135,11 @@ def main():
     y, flipped = flip_labels(y_clean, args.noise_frac, 2, seed=1)
     xt, yt = make_circles(args.t // 2, noise=0.08, seed=2)
     n, t = int(x.shape[0]), int(xt.shape[0])
+    if args.engine == "approx" and args.top_m is None:
+        args.top_m = max(args.k + 1, n // 4)
+    if args.engine != "approx" and (args.top_m is not None
+                                    or args.recall_target is not None):
+        ap.error("--top-m and --recall-target need --engine approx")
 
     t0 = time.time()
     if (args.shards is not None or args.devices) and \
@@ -111,7 +151,8 @@ def main():
         result = get_method(args.method)(
             x, y, xt, yt, k=args.k, engine=args.engine, fill=args.fill,
             distance=args.distance, test_batch=args.test_batch,
-            device=args.device, **shard_kw,
+            device=args.device, **_approx_options(args),
+            **_tune_option(args), **shard_kw,
         )
     else:
         result = _point_values(args, x, y, xt, yt)
@@ -122,6 +163,13 @@ def main():
     print(f"{args.method} ({meta['engine']}, fill={meta.get('fill')}, "
           f"device={meta['device_kind']}{shards}) n={n} t={t} k={args.k}: "
           f"{dt:.3f}s")
+    if meta["engine"] == "approx":
+        print(f"approx: top_m={meta['top_m']} exact={meta['approx_exact']} "
+              f"recall={meta['recall_estimate']} matched prefix "
+              f"{meta['matched_prefix']} certified error bound "
+              f"{meta['error_bound']:.3e}"
+              + (f" recall target met: {meta['recall_target_met']}"
+                 if "recall_target_met" in meta else ""))
 
     # efficiency axiom (v(N) is the likelihood valuation, paper's v)
     orders = sorted_orders(x.numpy(), xt.numpy())

@@ -232,13 +232,15 @@ def test_get_method_matches_jax(method, engine):
 def test_registry_errors_and_listing():
     assert repro_torch.list_methods() == ["knn_shapley", "loo", "sii", "sti",
                                           "wknn"]
-    assert repro_torch.ENGINES["sti"] == ("fused", "scan", "sharded")
+    assert repro_torch.ENGINES["sti"] == ("fused", "scan", "sharded",
+                                          "approx")
     assert repro_torch.ENGINES["knn_shapley"] == ("streamed", "eager",
-                                                  "sharded", "oracle")
+                                                  "sharded", "approx",
+                                                  "oracle")
     x, y, xt, yt = _problem(8, 2, 2, 1)
     # engines the port has not ported yet are refused, not emulated
-    for method, engine in (("sti", "distributed"), ("sii", "approx"),
-                           ("wknn", "approx"), ("loo", "approx")):
+    for method, engine in (("sti", "distributed"), ("sii", "distributed"),
+                           ("wknn", "fused"), ("loo", "oracle")):
         with pytest.raises(ValueError, match="valid engines"):
             get_method(method)(x, y, xt, yt, k=3, engine=engine,
                                device="cpu")

@@ -203,7 +203,7 @@ def test_point_method_option_errors():
     with pytest.raises(ValueError, match="valid engines"):
         get_method("loo")(x, y, xt, yt, engine="oracle", device="cpu")
     with pytest.raises(ValueError, match="valid engines"):
-        get_method("knn_shapley")(x, y, xt, yt, engine="approx",
+        get_method("knn_shapley")(x, y, xt, yt, engine="scan",
                                   device="cpu")
     with pytest.raises(ValueError, match="only meaningful"):
         get_method("knn_shapley")(x, y, xt, yt, shards=2, device="cpu")
