@@ -51,14 +51,23 @@ fresh temporary file ($REPRO_TORCH_AUTOTUNE_CACHE), so every "auto" of
       checkpointed after batch 1 and restored, bit-identical; each step's
       time by stage (candidates, probe, values / COO emission by CUDA
       events, the host pair merge by the host clock) and peak memory;
+      [9g] one full-width batch of sti's and knn_shapley's approx steps
+      on the card and on the CPU, on [4]'s features rounded to integers
+      under 1/16-grid planes (exact sums on both sides): tables,
+      candidates, COO coordinates and probe results bit-equal, values
+      within 1e-6 of max |CPU|. The bound checks above are loose on blob
+      data (its recall is near zero); this one is tight;
   [9f] knn_shapley at the approx engine's own scale, n = 2^20 (3 GiB of
       features drawn on the card from a seeded torch.Generator), t = 384,
       top_m = 256, within the bound of the exact streamed engine on the
       same data, both timed;
-  [10] the tuners (distance, fill, rect fill, LSH index, whole step for
-      sti and knn_shapley) on the card, every candidate's time, the
-      winners served back, an entry planted under the CPU platform never
-      served, and `fill="auto"` valuations launching what the cache names.
+  [10] the tuners on the card: distance, fill and rect fill have the
+      CUDA kernel as their one candidate, so they time and store nothing
+      and a plain winner planted under the card's keys is not served; the
+      LSH index and whole-step (sti, knn_shapley) tuners with every
+      candidate's time, their winners served back, an entry planted under
+      the CPU platform never served, and `fill="auto"` valuations
+      launching what the cache names.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
@@ -426,6 +435,85 @@ def log_step(label: str, step: dict) -> None:
         f"{u:.2f}" for u in step["session_update_ms"]))
 
 
+def approx_card_vs_cpu(torch, dev, c) -> dict:
+    """[9g]: one full-width batch (t = 384 of n = 65536, d = 768, top_m =
+    64, the default 4 tables x window 32, every row probed) of sti's
+    approx interaction step and knn_shapley's approx point step, on the
+    card and on the CPU from the same planes. The features are [4]'s times
+    4 rounded to integers and the planes lie on the 1/16 grid in [-4, 4],
+    so every code, norm and squared distance is an exact f32 integer on
+    both sides in any order of summation: the tables, candidate ids and
+    distances, COO coordinates, merged pair keys, matched prefixes and
+    recalls must agree bit for bit, and the values within 1e-6 of max
+    |CPU| (what the CPU computes is held against the JAX package by the
+    parity tests)."""
+    from repro_torch.kernels.ann import (
+        build_tables, draw_planes, topm_candidates)
+    from repro_torch.kernels.autotune import default_ann
+    from repro_torch.kernels.sti_pipeline import (
+        ApproxPairAccumulator, make_approx_interaction_step,
+        make_approx_point_step, pad_test_batch)
+
+    k, tb, n, m = c.k, c.tb, c.n, 64
+    n_tables, window = default_ann(n, m)
+    probe_k = min(2 * k + 2, m)
+    proj = torch.clamp(torch.round(draw_planes(0, n_tables, 16, c.d) * 16)
+                       / 16, -4.0, 4.0)
+    x_int = torch.round(c.x_train.float() * 4)
+    q_int = torch.round(c.x_test[:tb].float() * 4)
+    sides = {}
+    for name, side in (("card", dev), ("cpu", torch.device("cpu"))):
+        xtr, ytr = x_int.to(side), c.y_train.to(side)
+        xb, yb, mask = pad_test_batch(q_int.to(side).contiguous(),
+                                      c.y_test[:tb].to(side), tb)
+        tables = build_tables(xtr, proj)
+        got = dict(zip(("cand", "d2m", "valid"),
+                       topm_candidates(xb, xtr, tables, m, window)))
+        got.update(sorted_codes=tables.sorted_codes, sort_idx=tables.sort_idx)
+        sti = make_approx_interaction_step("sti", k, n, m, window, tb,
+                                           probe_k)
+        out = sti(torch.zeros((n,), device=side), xb, yb, mask, xtr, ytr,
+                  tables)
+        got.update(zip(("diag", "rows", "cols", "vals", "sti_prefix",
+                        "sti_recall"), out))
+        pt = make_approx_point_step("knn_shapley", k, n, m, window, tb,
+                                    probe_k)
+        out = pt(torch.zeros((n,), device=side), xb, yb, mask, xtr, ytr,
+                 tables)
+        got.update(zip(("vec", "pt_prefix", "pt_recall"), out))
+        got = {key: val.cpu() for key, val in got.items()}
+        acc = ApproxPairAccumulator(n)
+        acc.add(got["rows"], got["cols"], got["vals"])
+        got["pair_keys"], got["pair_vals"] = (torch.from_numpy(a) for a in
+                                              acc.state())
+        sides[name] = got
+        del xtr, ytr, xb, yb, mask, tables
+    card, ref = sides["card"], sides["cpu"]
+    close = ("diag", "vals", "vec", "pair_vals")
+    errs = {}
+    for key in close:
+        scale = max(float(ref[key].abs().max()), 1e-30)
+        errs[key] = float((card[key] - ref[key]).abs().max()) / scale
+    unequal = [key for key in ref if key not in close
+               and not torch.equal(card[key], ref[key])]
+    out = {"pairs": int((ref["rows"] < n).sum()),
+           "max_rel_err": errs, "unequal": unequal,
+           "matched_prefix_mean": float(ref["pt_prefix"].float().mean()),
+           "recall_mean": float(ref["pt_recall"].mean())}
+    log(f"[9g] one full-width approx batch on the card vs the CPU "
+        f"(integer features, 1/16-grid planes; {out['pairs']} pairs, mean "
+        f"matched prefix {out['matched_prefix_mean']:.3f}, mean recall "
+        f"{out['recall_mean']:.4f}): bit-equal tables, candidates, COO "
+        f"coordinates, pair keys, prefixes, recalls: {not unequal} "
+        f"{unequal or ''}; max |card - CPU| / max |CPU| "
+        + ", ".join(f"{key} {err:.3e}" for key, err in errs.items())
+        + " (tol 1e-6)")
+    if unequal or not all(err <= 1e-6 for err in errs.values()):
+        fail(f"[9g] the approx steps on the card disagree with the CPU: "
+             f"unequal {unequal}, errors {errs}")
+    return out
+
+
 def approx_phase(torch, dev, c) -> dict:
     """[9]: engine="approx" at the paper configuration's full width, on
     [4]-[6]'s data, held to the certified bound against [4]'s phi, an
@@ -502,6 +590,8 @@ def approx_phase(torch, dev, c) -> dict:
         return dict(info, max_abs_err=err, symmetric=sym,
                     diagonal_bit_equal=diag_eq, **meta_of(res))
 
+    out["card_vs_cpu"] = approx_card_vs_cpu(torch, dev, c)
+    torch.cuda.empty_cache()
     xb, yb, mask = c.pad(c.x_test[:tb], c.y_test[:tb])
     xtr, ytr = c.xtr, c.ytr
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -719,10 +809,13 @@ def approx_scale_phase(torch, dev, c) -> dict:
 
 def tuner_phase(torch, dev, c) -> dict:
     """[10]: the persistent autotuner on the card, writing only to this
-    run's temporary cache: every candidate's time, the winners served back
-    by `best_*`, an entry planted under the CPU platform never served to
-    this CUDA process, and `fill="auto"` valuations launching what the
-    cache names."""
+    run's temporary cache: the fill, rect fill and distance tuners, whose
+    one candidate on a card is the CUDA kernel, time and store nothing and
+    serve the kernel whatever plain winner the cache names; every
+    candidate's time of the LSH index and whole-step tuners, their winners
+    served back by `best_*`, an entry planted under the CPU platform never
+    served to this CUDA process, and `fill="auto"` valuations launching
+    what the cache names."""
     from repro_torch import ValuationSession, get_method
     from repro_torch.kernels import autotune as at
 
@@ -730,10 +823,21 @@ def tuner_phase(torch, dev, c) -> dict:
     out = {"platform": at.device_platform("cuda"),
            "cache": at.cache_path()}
     t0 = time.perf_counter()
-    won = {
+    kernel_only = {
         "distance": at.autotune_distance(tb, n, d, backend="cuda"),
         "fill": at.autotune_fill(n, tb, backend="cuda"),
         "rect_fill": at.autotune_rect_fill(rows, n, tb, backend="cuda"),
+    }
+    out["kernel_only_s"] = time.perf_counter() - t0
+    if at._load(None) or any(v != ("cuda", {})
+                             for v in kernel_only.values()):
+        fail(f"[10] the single-candidate tuners returned {kernel_only} or "
+             f"stored {sorted(at._load(None))}")
+    log(f"[10] distance, fill and rect fill tuners: the CUDA kernel, their "
+        f"one candidate on a card, in {out['kernel_only_s']:.3f} s, nothing "
+        f"timed or stored")
+    t0 = time.perf_counter()
+    won = {
         "ann": at.autotune_ann(n, tb, d, m, backend="cuda"),
         "megastep_sti": at.autotune_megastep(n, d, k, tb, method="sti",
                                              backend="cuda"),
@@ -743,9 +847,6 @@ def tuner_phase(torch, dev, c) -> dict:
     out["tune_s"] = time.perf_counter() - t0
     cache = at._load(None)
     keys = {
-        "distance": at._key(f"distance_d{d}", "cuda", n, tb),
-        "fill": at._key("fill", "cuda", n, tb),
-        "rect_fill": at._key("rectfill", "cuda", n, tb, rows=rows),
         "ann": at._ann_key(n, tb, d, m, "cuda"),
         "megastep_sti": at._megastep_key(n, tb, d, "sti", "cuda"),
         "megastep_knn_shapley": at._megastep_key(n, tb, d, "knn_shapley",
@@ -757,18 +858,22 @@ def tuner_phase(torch, dev, c) -> dict:
             fail(f"[10] the {name} tuner wrote no entry under {key}")
         out[name] = {"winner": won[name], "key": key,
                      "candidates": entry["candidates"]}
-        log(f"[10] {name} at {key}: winner {won[name]}; candidates "
-            + ", ".join(f"{lbl}: " + (f"{v:.1f} us" if isinstance(v, float)
-                                      else f"{v['us']:.1f} us, recall@16 "
-                                           f"{v['recall']:.4f}")
-                        for lbl, v in entry["candidates"].items()))
+        if name == "ann":
+            out[name]["floor_met"] = entry["floor_met"]
+            detail = ", ".join(
+                f"{lbl}: {v['us']:.1f} us, recall@16 {v['recall']:.4f}"
+                for lbl, v in entry["candidates"].items()) + \
+                f"; recall floor met {entry['floor_met']}"
+        else:
+            out[name]["rounds"] = entry["rounds"]
+            detail = ", ".join(
+                f"{lbl}: rounds " + ", ".join(f"{u:.1f}" for u in r) + " us"
+                for lbl, r in entry["rounds"].items())
+        log(f"[10] {name} at {key}: winner {won[name]}; candidates {detail}")
     log(f"[10] beside the measured steps: [4] three-stage step "
         f"{c.step_ms:.2f} ms at t={tb}, [5] megakernel step "
         f"{c.mega_step_ms:.2f} ms (the tuner times t={at._SAMPLE_T} rows)")
     served = {
-        "distance": at.best_distance(tb, n, d, backend="cuda"),
-        "fill": at.best_fill(n, tb, backend="cuda"),
-        "rect_fill": at.best_rect_fill(rows, n, tb, backend="cuda"),
         "ann": at.best_ann(n, tb, d, m, backend="cuda"),
         "megastep_sti": at.best_megastep(n, tb, d, k, method="sti",
                                          backend="cuda"),
@@ -780,6 +885,22 @@ def tuner_phase(torch, dev, c) -> dict:
             fail(f"[10] best_{name} served {got}, the tuner cached "
                  f"{won[name]}")
     log("[10] every best_* served the cached winner")
+    # plain winners planted under this card's own keys are not served
+    at._store(None, at._key("fill", "cuda", n, tb),
+              {"fill": "chunked", "params": {"chunk": 8}})
+    at._store(None, at._key("rectfill", "cuda", n, tb, rows=rows),
+              {"fill": "chunked", "params": {"chunk": 8}})
+    at._store(None, at._key(f"distance_d{d}", "cuda", n, tb),
+              {"distance": "plain", "params": {}})
+    plain_served = {
+        "distance": at.best_distance(tb, n, d, backend="cuda"),
+        "fill": at.best_fill(n, tb, backend="cuda"),
+        "rect_fill": at.best_rect_fill(rows, n, tb, backend="cuda")}
+    if any(v != ("cuda", {}) for v in plain_served.values()):
+        fail(f"[10] a plain winner planted under the card's keys was "
+             f"served: {plain_served}")
+    log("[10] plain fill, rect fill and distance winners planted under "
+        "this card's keys: not served, the kernels resolve")
     # a winner planted under the CPU platform -- with the cpu backend and
     # with this process's -- is never served here
     sizes = f"n{at._bucket(n)}:t{at._bucket(tb)}"
@@ -792,7 +913,7 @@ def tuner_phase(torch, dev, c) -> dict:
                   {"fill": "chunked", "params": {"chunk": 8}})
         at._store(None, f"megastep_sti_d{d}:{seg}",
                   {"step": other_step, "params": {}})
-    if at.best_fill(n, tb, backend="cuda") != tuple(won["fill"]) or \
+    if at.best_fill(n, tb, backend="cuda") != ("cuda", {}) or \
             at.best_megastep(n, tb, d, k, method="sti",
                              backend="cuda") != tuple(won["megastep_sti"]):
         fail("[10] an entry planted under the cpu platform was served to "
@@ -804,9 +925,7 @@ def tuner_phase(torch, dev, c) -> dict:
     # fill="auto" runs what the cache names
     want_sti = ({"sti_megakernel": c.n_steps}
                 if won["megastep_sti"][0] == "megakernel" else
-                {"distance": c.n_steps if won["distance"][0] == "cuda" else 0,
-                 "sti_fill_acc": c.n_steps if won["fill"][0] == "cuda"
-                 else 0})
+                {"distance": c.n_steps, "sti_fill_acc": c.n_steps})
     c.zero_counts()
     res = get_method("sti")(c.x_train, c.y_train, c.x_test, c.y_test, k=k,
                             engine="fused", test_batch=tb, device=dev)
@@ -820,8 +939,7 @@ def tuner_phase(torch, dev, c) -> dict:
     torch.cuda.empty_cache()
     want_pt = ({"point_megakernel": c.n_steps}
                if won["megastep_knn_shapley"][0] == "megakernel" else
-               {"distance": c.n_steps if won["distance"][0] == "cuda"
-                else 0})
+               {"distance": c.n_steps})
     c.zero_counts()
     sess = ValuationSession(c.x_train, c.y_train, k=k, mode="knn_shapley",
                             test_batch=tb, device=dev)

@@ -304,9 +304,9 @@ def resolve_fill(
     """Resolve a fill request to (registry_name, hashable static params).
 
     "auto" takes `repro_torch.kernels.autotune.best_fill` for `backend`:
-    the tuning cache's winner on a hit, a fresh tune with
-    `autotune=True`, else the heuristic ("cuda" -> the CUDA kernel,
-    "cpu" -> chunked). Explicit `fill_params` are a hint: ones the winner
+    the CUDA kernel on a card (its one candidate there); on the CPU the
+    tuning cache's winner on a hit, a fresh tune with `autotune=True`,
+    else chunked. Explicit `fill_params` are a hint: ones the winner
     does not accept are dropped under "auto" and rejected for an explicit
     fill name."""
     params = dict(fill_params or {})
@@ -436,10 +436,9 @@ def resolve_rect_fill(
 ) -> tuple[str, tuple]:
     """Resolve a rect fill request to (registry_name, hashable static
     params). "auto" takes `repro_torch.kernels.autotune.best_rect_fill`
-    for the (n_rows, n_cols) block on `backend` (a cache hit, a fresh tune
-    with `autotune=True`, else "cuda" -> the CUDA rect kernel, "cpu" ->
-    chunked). A
-    SQUARE registry name with no rect twin (e.g. "onehot", restored from a
+    for the (n_rows, n_cols) block on `backend` (on a card the CUDA rect
+    kernel, its one candidate there; on the CPU a cache hit, a fresh tune
+    with `autotune=True`, else chunked). A SQUARE registry name with no rect twin (e.g. "onehot", restored from a
     single-device checkpoint) runs the chunked rect scan with a warning:
     the sharded engine keeps running. Explicit `fill_params` the winner
     does not accept are dropped under "auto" and rejected otherwise."""

@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.distance import candidate_sq_dists, distance_cuda
 
 __all__ = [
@@ -136,13 +137,16 @@ def build_tables(x_train: torch.Tensor, proj: torch.Tensor) -> LSHTables:
                      mean_sq_norm=torch.mean(norms))
 
 
-def tables_from_jax(tables, device="cpu") -> LSHTables:
+def tables_from_jax(tables, device="cuda") -> LSHTables:
     """A `repro.kernels.ann.LSHTables` (any object with its six fields,
-    arrays convertible by numpy) -> the port's `LSHTables` on `device`,
-    bit for bit: the way a parity test runs the port on JAX's planes."""
+    arrays convertible by numpy) -> the port's `LSHTables` on `device`
+    (the card unless "cpu" is asked for), bit for bit: the way a parity
+    test runs the port on JAX's planes."""
+    dev = resolve_device(device)
+
     def arr(name, dtype):
         a = np.asarray(getattr(tables, name))
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
 
     return LSHTables(
         proj=arr("proj", np.float32),

@@ -10,6 +10,16 @@ unless the caller opts into tuning (`autotune=True`), so the first tuned
 run pays the measurement once and every later process reuses it. With an
 empty cache every "auto" resolves exactly as the heuristic does.
 
+On a card the fill, rect fill and distance have one candidate each, the
+CUDA kernel: the plain versions are the CPU's only choice and are never
+offered, served or timed there, so "auto" never falls back to them. A
+tuner with one candidate has nothing to measure and writes nothing. Every
+error of a timed candidate propagates: a tune never leaves a candidate
+out and stores what survived. The whole-step tuner offers the megakernel
+in f32 only (bf16 compute is asked for through `fill_params`, never
+chosen by "auto") and keeps "stages" unless the megakernel's slowest
+timing round beats the stages' fastest.
+
 Cache location: $REPRO_TORCH_AUTOTUNE_CACHE, else
 ~/.cache/repro_torch/autotune.json -- the port's own file, beside the JAX
 package's ($REPRO_AUTOTUNE_CACHE, ~/.cache/repro/autotune.json): a JAX
@@ -214,22 +224,19 @@ def _time_call(fn: Callable, backend: str, reps: int = 2) -> float:
 
 def _timed(timings: dict, label: str, fn: Callable, backend: str,
            reps: int) -> None:
-    """Time one candidate into `timings`; a candidate whose buffers do not
-    fit in device memory is left out."""
+    """Time one candidate into `timings`. Its errors propagate (the chunked
+    candidates are already cut to `_temp_budget`); the card's cached
+    blocks are released after it either way."""
     try:
         timings[label] = _time_call(fn, backend, reps)
-    except torch.cuda.OutOfMemoryError:
-        pass
     finally:
         if backend == "cuda":
             torch.cuda.empty_cache()
 
 
 def _temp_budget(backend: str) -> int:
-    """Bytes a chunked candidate's temporaries may take: half of the
-    card's memory, 1 GiB of host memory on the CPU."""
-    if backend == "cuda":
-        return torch.cuda.get_device_properties(0).total_memory // 2
+    """Bytes a chunked candidate's temporaries may take: 1 GiB of host
+    memory (chunked candidates run only off the card)."""
     return 1 << 30
 
 
@@ -244,10 +251,13 @@ def _chunks(rows: int, n: int, t: int, backend: str) -> list[int]:
             if c <= max(1, t) and c * rows * n * _CHUNK_BYTES <= budget]
 
 
-def _winner(timings: dict) -> tuple[str, dict]:
-    label = min(timings, key=timings.get)
+def _parse(label: str) -> tuple[str, dict]:
     name, params = label.split(" ", 1)
     return name, json.loads(params)
+
+
+def _winner(timings: dict) -> tuple[str, dict]:
+    return _parse(min(timings, key=timings.get))
 
 
 def _label(name: str, params: dict) -> str:
@@ -273,11 +283,11 @@ def default_fill(backend: str) -> tuple[str, dict]:
 
 def fill_candidates(n: int, t: int, backend: str) -> list[tuple[str, dict]]:
     """Candidate (registry_name, static_params) of the port's fill
-    registry: the CUDA kernel on a card, and the chunked scan at every
-    chunk whose (chunk, n, n) temporary fits `_temp_budget`."""
-    cands = [("cuda", {})] if backend == "cuda" else []
-    return cands + [("chunked", {"chunk": c})
-                    for c in _chunks(n, n, t, backend)]
+    registry: the CUDA kernel alone on a card; elsewhere the chunked scan
+    at every chunk whose (chunk, n, n) temporary fits `_temp_budget`."""
+    if backend == "cuda":
+        return [("cuda", {})]
+    return [("chunked", {"chunk": c}) for c in _chunks(n, n, t, backend)]
 
 
 def _fill_registry(square: bool = True) -> dict:
@@ -288,9 +298,9 @@ def _fill_registry(square: bool = True) -> dict:
 
 
 def _serves(name: str, backend: str, registry: dict) -> bool:
-    """Whether a cached winner may run on `backend`: a registered name, and
-    "cuda" only on a card."""
-    return name in registry and (name != "cuda" or backend == "cuda")
+    """Whether a cached winner may run on `backend`: a registered name,
+    the CUDA kernel on a card and only off the card anything else."""
+    return name in registry and (name == "cuda") == (backend == "cuda")
 
 
 def autotune_fill(n: int, t: int, *, backend: str = "cuda", reps: int = 2,
@@ -300,17 +310,19 @@ def autotune_fill(n: int, t: int, *, backend: str = "cuda", reps: int = 2,
     persist and return the winner."""
     fills = _fill_registry()
     ts = int(min(max(1, t), _SAMPLE_T))
-    g, ranks = _synthetic_fill_problem(n, ts, _device(backend))
+    dev = _device(backend)
+    cands = fill_candidates(n, ts, backend)
+    if len(cands) == 1:  # nothing to choose between: nothing stored
+        return cands[0]
+    g, ranks = _synthetic_fill_problem(n, ts, dev)
     timings: dict[str, float] = {}
-    for name, params in fill_candidates(n, ts, backend):
+    for name, params in cands:
         _timed(timings, _label(name, params),
                lambda: fills[name](g, ranks, **params), backend, reps)
         if verbose and _label(name, params) in timings:
             print(f"autotune fill n={n} t={t} {name} {params}: "
                   f"{timings[_label(name, params)]:.0f}us")
     del g, ranks
-    if not timings:
-        return default_fill(backend)
     name, params = _winner(timings)
     _store(path, _key("fill", backend, n, t), {
         "fill": name, "params": params, "us": timings[_label(name, params)],
@@ -349,11 +361,12 @@ default_rect_fill = default_fill
 def rect_fill_candidates(rows: int, n: int, t: int, backend: str
                          ) -> list[tuple[str, dict]]:
     """Candidate (rect_registry_name, static_params) for the sharded
-    engine's (rows, n) row-block fill: the CUDA rect kernel on a card and
-    the chunked rect scan at every chunk that fits `_temp_budget`."""
-    cands = [("cuda", {})] if backend == "cuda" else []
-    return cands + [("chunked", {"chunk": c})
-                    for c in _chunks(rows, n, t, backend)]
+    engine's (rows, n) row-block fill: the CUDA rect kernel alone on a
+    card; elsewhere the chunked rect scan at every chunk that fits
+    `_temp_budget`."""
+    if backend == "cuda":
+        return [("cuda", {})]
+    return [("chunked", {"chunk": c}) for c in _chunks(rows, n, t, backend)]
 
 
 def autotune_rect_fill(rows: int, n: int, t: int, *, backend: str = "cuda",
@@ -364,10 +377,14 @@ def autotune_rect_fill(rows: int, n: int, t: int, *, backend: str = "cuda",
     `rows{R}`-segmented key."""
     fills = _fill_registry(square=False)
     ts = int(min(max(1, t), _SAMPLE_T))
-    g, ranks = _synthetic_fill_problem(n, ts, _device(backend))
+    dev = _device(backend)
+    cands = rect_fill_candidates(rows, n, ts, backend)
+    if len(cands) == 1:  # nothing to choose between: nothing stored
+        return cands[0]
+    g, ranks = _synthetic_fill_problem(n, ts, dev)
     r_rows = ranks[:, :max(1, min(rows, n))]
     timings: dict[str, float] = {}
-    for name, params in rect_fill_candidates(rows, n, ts, backend):
+    for name, params in cands:
         _timed(timings, _label(name, params),
                lambda: fills[name](g, r_rows, ranks, **params), backend,
                reps)
@@ -375,8 +392,6 @@ def autotune_rect_fill(rows: int, n: int, t: int, *, backend: str = "cuda",
             print(f"autotune rect fill rows={rows} n={n} t={t} {name} "
                   f"{params}: {timings[_label(name, params)]:.0f}us")
     del g, ranks, r_rows
-    if not timings:
-        return default_rect_fill(backend)
     name, params = _winner(timings)
     _store(path, _key("rectfill", backend, n, t, rows=rows), {
         "fill": name, "params": params, "us": timings[_label(name, params)],
@@ -410,61 +425,31 @@ def best_rect_fill(rows: int, n: int, t: int, *, backend: str = "cuda",
 
 # ------------------------------------------------------------- distance ----
 def distance_candidates(backend: str) -> list[tuple[str, dict]]:
-    """Candidate distance implementations: the CUDA kernel and the plain
-    expansion on a card; off the card only the plain one runs, so there
-    is nothing to measure."""
+    """Candidate distance implementations: the CUDA kernel on a card, the
+    plain expansion elsewhere -- one a backend, so there is nothing to
+    time."""
     if backend == "cuda":
-        return [("cuda", {}), ("plain", {})]
+        return [("cuda", {})]
     return [("plain", {})]
-
-
-def _distance_fns() -> dict:
-    from repro_torch.kernels.distance import distance_cuda, distance_plain
-
-    return {"cuda": distance_cuda, "plain": distance_plain}
 
 
 def autotune_distance(t: int, n: int, d: int, *, backend: str = "cuda",
                       reps: int = 2, path: Optional[str] = None
                       ) -> tuple[str, dict]:
-    """Time the distance candidates at (min(t, 256), n, d); persist the
-    winner per backend."""
-    cands = distance_candidates(backend)
-    if len(cands) == 1:
-        return cands[0]
-    dev = _device(backend)
-    rng = np.random.default_rng(0)
-    xt = torch.from_numpy(rng.normal(size=(min(t, 256), d)).astype(
-        np.float32)).to(dev)
-    xn = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
-    fns = _distance_fns()
-    timings: dict[str, float] = {}
-    for name, params in cands:
-        _timed(timings, _label(name, params), lambda: fns[name](xt, xn),
-               backend, reps)
-    del xt, xn
-    if not timings:
-        return cands[0]
-    name, params = _winner(timings)
-    _store(path, _key(f"distance_d{d}", backend, n, t), {
-        "distance": name, "params": params,
-        "us": timings[_label(name, params)], "candidates": timings})
-    return name, params
+    """The distance of (t, d) x (n, d) on `backend`, after checking that
+    the backend is there. With one candidate nothing is timed or stored;
+    the arguments are the reference tuner's."""
+    _device(backend)
+    return distance_candidates(backend)[0]
 
 
 def best_distance(t: int, n: int, d: int, *, backend: str = "cuda",
                   allow_tune: bool = False, path: Optional[str] = None
                   ) -> tuple[str, dict]:
-    """The distance for (t, d) x (n, d) on `backend`: cache hit >
-    (optional) fresh tune > heuristic (the CUDA kernel on a card, the
-    plain expansion elsewhere)."""
-    entry = _load(path).get(_key(f"distance_d{d}", backend, n, t))
-    if isinstance(entry, dict) and entry.get("distance") in (
-            name for name, _ in distance_candidates(backend)):
-        return str(entry["distance"]), dict(entry.get("params") or {})
-    if allow_tune:
-        return autotune_distance(t, n, d, backend=backend, path=path)
-    return ("cuda", {}) if backend == "cuda" else ("plain", {})
+    """The distance for (t, d) x (n, d) on `backend`: the CUDA kernel on a
+    card, the plain expansion elsewhere. No cache entry is read: one
+    candidate a backend leaves nothing for a tune to decide."""
+    return distance_candidates(backend)[0]
 
 
 # ------------------------------------------------------------------ ann ----
@@ -505,7 +490,10 @@ def autotune_ann(n: int, t: int, d: int, m: int, *, backend: str = "cuda",
     """Time and recall-measure the (n_tables, window) grid on synthetic
     Gaussian data shaped (n, d) / (min(t, 64), d), with planes from
     `draw_planes(0, ...)` and 16 bits; persist the fastest candidate whose
-    recall@16 clears 0.95 (else the highest-recall one)."""
+    recall@16 clears 0.95. Where none does, the heuristic `default_ann`
+    is persisted with `floor_met` false: recalls far below the floor on
+    data without neighbourhood structure rank no shape (the reference
+    persists the highest-recall one)."""
     from repro_torch.kernels.ann import (
         build_tables, draw_planes, matched_prefix_and_recall,
         topm_candidates)
@@ -523,21 +511,18 @@ def autotune_ann(n: int, t: int, d: int, m: int, *, backend: str = "cuda",
         timings: dict[str, float] = {}
         _timed(timings, "us", lambda: topm_candidates(xt, xn, tables, int(m),
                                                       window), backend, reps)
-        if not timings:
-            continue
         cand, _, _ = topm_candidates(xt, xn, tables, int(m), window)
         _, recall = matched_prefix_and_recall(cand, xt, xn, probe_k)
         results[f"{n_tables}x{window}"] = {
             "n_tables": n_tables, "window": window, "us": timings["us"],
             "recall": float(torch.mean(recall))}
     del xn, xt
-    if not results:
-        return default_ann(n, m)
     good = {k_: v for k_, v in results.items()
             if v["recall"] >= _ANN_RECALL_FLOOR}
     winner = (min(good, key=lambda k_: good[k_]["us"]) if good else
-              max(results, key=lambda k_: results[k_]["recall"]))
-    entry = dict(results[winner], candidates=results, sample_t=ts)
+              "{}x{}".format(*default_ann(n, m)))
+    entry = dict(results[winner], candidates=results, sample_t=ts,
+                 floor_met=bool(good))
     _store(path, _ann_key(n, t, d, m, backend), entry)
     return int(entry["n_tables"]), int(entry["window"])
 
@@ -558,18 +543,29 @@ def best_ann(n: int, t: int, d: int, m: int, *, backend: str = "cuda",
 # ------------------------------------------------------------ megakernel ----
 # The fused megakernel replaces a whole step, not one stage, so its tuner
 # times COMPLETE steps: the best three-stage step (the cached or heuristic
-# fill and distance) against each megakernel candidate, per method, and
-# records which STEP wins. `fill="auto"` consults `lookup_megastep`; the
-# untuned default is "stages" everywhere.
+# fill and distance) against the megakernel, per method, and records which
+# STEP wins. `fill="auto"` consults `lookup_megastep`; the untuned default
+# is "stages" everywhere, and a tune keeps it unless the megakernel wins by
+# more than the spread of repeated timings.
+_ROUNDS = 3
 
 
 def megakernel_candidates(n: int, t: int, backend: str) -> list[dict]:
-    """Candidate megakernel params: its compute dtypes on a card (the
-    cross term in f32 or rounded to bf16), f32 alone on the CPU, where the
-    entry records an honest "stages beats megakernel here" verdict."""
-    if backend != "cuda":
-        return [{"compute_dtype": "float32"}]
-    return [{"compute_dtype": "float32"}, {"compute_dtype": "bfloat16"}]
+    """Candidate megakernel params: f32 compute on every backend. The bf16
+    cross term changes the values, so "auto" never picks it; a caller asks
+    for it with `fill="megakernel"` and `fill_params`."""
+    return [{"compute_dtype": "float32"}]
+
+
+def _clear_winner(rounds: dict, default: str) -> tuple[str, dict]:
+    """The lowest-median candidate among those whose slowest round beats
+    the fastest round of `default`; `default` when none does, since a
+    verdict inside the spread of repeated timings is noise."""
+    clear = [lbl for lbl, r in rounds.items()
+             if lbl != default and max(r) < min(rounds[default])]
+    if not clear:
+        return _parse(default)
+    return _parse(min(clear, key=lambda lbl: float(np.median(rounds[lbl]))))
 
 
 def _megastep_key(n: int, t: int, d: int, method: str, backend: str) -> str:
@@ -581,8 +577,9 @@ def autotune_megastep(n: int, d: int, k: int, t: int, *,
                       reps: int = 2, path: Optional[str] = None,
                       verbose: bool = False) -> tuple[str, dict]:
     """Time the three-stage step of `method` against every megakernel
-    candidate on a synthetic (t-sample, n, d) problem; persist which step
-    wins ("stages" or "megakernel") and its params."""
+    candidate on a synthetic (t-sample, n, d) problem, `_ROUNDS` rounds of
+    `reps` calls each; persist which step wins ("stages" or "megakernel",
+    by `_clear_winner`) and its params."""
     from repro_torch.kernels.sti_pipeline import (
         make_fused_step, make_point_step)
     from repro_torch.kernels.stream_kernels import accumulator_spec
@@ -611,23 +608,25 @@ def autotune_megastep(n: int, d: int, k: int, t: int, *,
             return make_fused_step(int(k), method, fill, static, dist)
         return make_point_step(method, int(k), (), dist, fill, static)
 
-    timings: dict[str, float] = {}
+    rounds: dict[str, list[float]] = {}
     steps = [("stages", {}, build(None, ()))] + [
         ("megakernel", p, build("megakernel", tuple(sorted(p.items()))))
         for p in megakernel_candidates(n, ts, backend)]
     for name, params, step in steps:
-        _timed(timings, _label(name, params),
-               lambda: step(*state, xb, yb, mask, xs, ys), backend, reps)
-        if verbose and _label(name, params) in timings:
+        label = _label(name, params)
+        rounds[label] = [
+            _time_call(lambda: step(*state, xb, yb, mask, xs, ys), backend,
+                       reps) for _ in range(_ROUNDS)]
+        if verbose:
             print(f"autotune megastep {method} n={n} t={t} {name} {params}:"
-                  f" {timings[_label(name, params)]:.0f}us")
+                  f" rounds {', '.join(f'{u:.0f}' for u in rounds[label])}"
+                  f" us")
     del state, xs, xb
-    if not timings:
-        return "stages", {}
-    name, params = _winner(timings)
+    timings = {lbl: float(np.median(r)) for lbl, r in rounds.items()}
+    name, params = _clear_winner(rounds, _label("stages", {}))
     _store(path, _megastep_key(n, t, d, method, backend), {
         "step": name, "params": params, "us": timings[_label(name, params)],
-        "sample_t": ts, "candidates": timings})
+        "sample_t": ts, "candidates": timings, "rounds": rounds})
     return name, params
 
 
@@ -640,7 +639,10 @@ def lookup_megastep(n: int, t: int, d: int, *, method: str = "sti",
     if not isinstance(entry, dict) or entry.get("step") not in (
             "stages", "megakernel"):
         return None
-    return str(entry["step"]), dict(entry.get("params") or {})
+    params = dict(entry.get("params") or {})
+    if params.get("compute_dtype", "float32") != "float32":
+        return None  # a precision no tune offers (bf16 compute): a miss
+    return str(entry["step"]), params
 
 
 def best_megastep(n: int, t: int, d: int, k: int, *, method: str = "sti",

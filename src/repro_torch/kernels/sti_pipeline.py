@@ -89,9 +89,9 @@ def resolve_distance(
     autotune: bool = False,
 ) -> str:
     """Resolve "auto" | "plain" | "cuda" to a distance implementation name.
-    "auto" takes `autotune.best_distance` for `backend`: the tuning
-    cache's winner, a fresh tune with `autotune=True`, else the
-    heuristic."""
+    "auto" takes `autotune.best_distance` for `backend`: the CUDA kernel
+    on a card, the plain expansion elsewhere (one candidate a backend,
+    so neither the tuning cache nor `autotune=True` changes it)."""
     if distance == "auto":
         from repro_torch.kernels.autotune import best_distance
 

@@ -176,7 +176,7 @@ def test_lsh_codes_and_tables_bit_equal_on_the_grid(jx):
                                    rtol=1e-6, err_msg=field)
     assert got.sorted_codes.dtype == torch.int32
     # tables carried from JAX are JAX's tables, bit for bit
-    carried = tann.tables_from_jax(want)
+    carried = tann.tables_from_jax(want, device="cpu")
     for field in want._fields:
         np.testing.assert_array_equal(getattr(carried, field).numpy(),
                                       np.asarray(getattr(want, field)))
@@ -612,6 +612,9 @@ def test_approx_entry_points_raise_without_a_card_unless_cpu_is_asked():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         at.autotune_fill(64, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tann.tables_from_jax(tann.build_tables(
+            torch.from_numpy(x), tann.draw_planes(0, 2, 4, x.shape[1])))
 
 
 # ------------------------------------------------ leftovers of the API

@@ -4,11 +4,13 @@ CPU, in a `tmp_path` cache.
 The cache: the schema stamp, a v1 (or corrupt) file discarded, bucketing,
 the platform and device-count segments, and the gate that matters -- a
 winner tuned on the CPU is never served to a CUDA process (the key's
-platform segment differs), nor a "cuda" winner to a CPU one. The tuners
-run here with the plain candidates and persist their winners; "auto"
-then resolves to the cached winner, and with an empty cache to the
-heuristic, exactly as before the cache existed. The heuristics and
-candidate grids that need no device are held against the JAX package's.
+platform segment differs), nor a "cuda" winner to a CPU one, nor a plain
+fill to a card. The tuners run here with the plain candidates and
+persist their winners; "auto" then resolves to the cached winner, and
+with an empty cache to the heuristic, exactly as before the cache
+existed. A candidate that fails fails the tune, which stores nothing.
+The heuristics and candidate grids that need no device are held against
+the JAX package's.
 The `cuda` case tunes on a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_autotune.py -q
@@ -125,13 +127,28 @@ def test_a_cpu_winner_is_never_served_to_a_cuda_process(cache, card_slug):
 
 
 def test_a_card_winner_is_served_on_its_platform(cache, card_slug):
-    _plant(cache, at._key("fill", "cuda", 4096, 256),
+    _plant(cache, at._megastep_key(4096, 256, 768, "sti", "cuda"),
+           {"step": "megakernel", "params": {"compute_dtype": "float32"}})
+    assert at.best_megastep(4096, 256, 768, 5, backend="cuda") == (
+        "megakernel", {"compute_dtype": "float32"})
+    _plant(cache, at._ann_key(4096, 256, 768, 64, "cuda"),
+           {"n_tables": 8, "window": 32})
+    assert at.best_ann(4096, 256, 768, 64, backend="cuda") == (8, 32)
+    # a bf16 step is never an "auto" verdict: a hand-written one misses
+    _plant(cache, at._megastep_key(4096, 256, 768, "sti", "cuda"),
+           {"step": "megakernel", "params": {"compute_dtype": "bfloat16"}})
+    assert at.lookup_megastep(4096, 256, 768, backend="cuda") is None
+    assert at.best_megastep(4096, 256, 768, 5, backend="cuda") == (
+        "stages", {})
+    # a card serves its kernel only: neither a plain fill nor an entry
+    # naming nothing in the port's registry (a JAX winner)
+    for fill in ("chunked", "pallas"):
+        _plant(cache, at._key("fill", "cuda", 4096, 256),
+               {"fill": fill, "params": {"chunk": 2}})
+        assert at.best_fill(4096, 256, backend="cuda") == ("cuda", {})
+    _plant(cache, at._key("rectfill", "cuda", 4096, 256, rows=1024),
            {"fill": "chunked", "params": {"chunk": 2}})
-    assert at.best_fill(4096, 256, backend="cuda") == ("chunked",
-                                                       {"chunk": 2})
-    # an entry naming nothing in the port's registry (a JAX winner) misses
-    _plant(cache, at._key("fill", "cuda", 4096, 256), {"fill": "pallas"})
-    assert at.best_fill(4096, 256, backend="cuda") == ("cuda", {})
+    assert at.best_rect_fill(1024, 4096, 256, backend="cuda") == ("cuda", {})
 
 
 def test_empty_cache_resolves_as_the_heuristic(cache):
@@ -173,13 +190,18 @@ def test_chunk_candidates_fit_the_temporary_budget(monkeypatch):
     assert at.fill_candidates(64, 16, "cpu") == [
         ("chunked", {"chunk": 1}), ("chunked", {"chunk": 2})]
     assert at.fill_candidates(64, 1, "cpu") == [("chunked", {"chunk": 1})]
-    assert at.rect_fill_candidates(16, 64, 16, "cuda")[0] == ("cuda", {})
+    # a card offers its kernel alone, whatever the budget
+    assert at.fill_candidates(64, 16, "cuda") == [("cuda", {})]
+    assert at.rect_fill_candidates(16, 64, 16, "cuda") == [("cuda", {})]
 
 
 def test_distance_tuner_has_nothing_to_measure_on_the_cpu(cache):
     assert at.autotune_distance(16, 64, 4, backend="cpu") == ("plain", {})
     assert not cache.exists()
-    assert at.distance_candidates("cuda") == [("cuda", {}), ("plain", {})]
+    assert at.distance_candidates("cuda") == [("cuda", {})]
+    # nor does the plain one resolve on a card, whatever the cache holds
+    _plant(cache, at._key("distance_d4", "cuda", 64, 16), {"distance": "plain"})
+    assert at.best_distance(16, 64, 4, backend="cuda") == ("cuda", {})
 
 
 def test_ann_tuner_persists_a_grid_entry(cache):
@@ -192,8 +214,11 @@ def test_ann_tuner_persists_a_grid_entry(cache):
     for cand in entry["candidates"].values():
         assert 0.0 <= cand["recall"] <= 1.0 and cand["us"] > 0
     good = [c for c in entry["candidates"].values() if c["recall"] >= 0.95]
+    assert entry["floor_met"] == bool(good)
     if good:
         assert entry["us"] == min(c["us"] for c in good)
+    else:  # no shape cleared the floor: the heuristic is kept
+        assert (n_tables, window) == at.default_ann(256, 32)
     assert at.best_ann(256, 16, 8, 32, backend="cpu") == (n_tables, window)
     # an approx session without index options takes the cached shape
     rng = np.random.default_rng(0)
@@ -213,8 +238,15 @@ def test_megastep_tuner_and_auto_resolution(cache, method):
                                         backend="cpu", reps=1)
     entry = json.loads(cache.read_text())[at._megastep_key(
         64, 16, 4, method, "cpu")]
-    assert set(entry["candidates"]) == {
+    assert set(entry["candidates"]) == set(entry["rounds"]) == {
         "stages {}", 'megakernel {"compute_dtype": "float32"}'}
+    assert at.megakernel_candidates(64, 16, "cuda") == [
+        {"compute_dtype": "float32"}]
+    # the megakernel wins only clear of the spread of the stages' rounds
+    stages = entry["rounds"]["stages {}"]
+    mega = entry["rounds"]['megakernel {"compute_dtype": "float32"}']
+    assert len(stages) == len(mega) == at._ROUNDS
+    assert (name == "megakernel") == (max(mega) < min(stages))
     assert at.lookup_megastep(64, 16, 4, method=method,
                               backend="cpu") == (name, params)
     # "auto" launches what the cache names, for each answer
@@ -228,6 +260,59 @@ def test_megastep_tuner_and_auto_resolution(cache, method):
         _, sharded, _, _ = tpipe.prepare_sharded_stream_step(
             method, 64, 4, 3, devices=["cpu"] * 2, test_batch=16)
         assert sharded["fill"] != "megakernel"
+
+
+def test_clear_winner_keeps_the_default_inside_the_spread():
+    stages = "stages {}"
+    mega = 'megakernel {"compute_dtype": "float32"}'
+    assert at._clear_winner({stages: [10, 12, 11], mega: [9, 10.5, 9]},
+                            stages) == ("stages", {})
+    assert at._clear_winner({stages: [10, 12, 11], mega: [9, 9.5, 9]},
+                            stages) == ("megakernel",
+                                        {"compute_dtype": "float32"})
+
+
+def _raises(*args, **kw):
+    raise torch.cuda.OutOfMemoryError("the kernel candidate failed")
+
+
+@pytest.mark.parametrize("tuner", ["fill", "rect_fill", "megastep", "ann"])
+def test_a_failing_candidate_fails_the_tune(cache, monkeypatch, tuner):
+    """A candidate that raises (here a stand-in kernel running out of
+    memory) is never left out so that another one wins: the tune raises
+    and stores nothing."""
+    from repro_torch.core import sti_knn
+
+    if tuner == "fill":
+        monkeypatch.setitem(sti_knn._FILL_FNS, "cuda", _raises)
+        monkeypatch.setattr(at, "fill_candidates", lambda n, t, backend: [
+            ("chunked", {"chunk": 1}), ("cuda", {})])
+        run = lambda: at.autotune_fill(64, 16, backend="cpu", reps=1)
+    elif tuner == "rect_fill":
+        monkeypatch.setitem(sti_knn._RECT_FILL_FNS, "cuda", _raises)
+        monkeypatch.setattr(at, "rect_fill_candidates",
+                            lambda rows, n, t, backend: [
+                                ("chunked", {"chunk": 1}), ("cuda", {})])
+        run = lambda: at.autotune_rect_fill(16, 64, 16, backend="cpu",
+                                            reps=1)
+    elif tuner == "megastep":
+        real = tpipe.make_point_step
+
+        def make(method, k, opts, dist, fill=None, static=()):
+            return _raises if fill == "megakernel" else real(
+                method, k, opts, dist, fill, static)
+
+        monkeypatch.setattr(tpipe, "make_point_step", make)
+        run = lambda: at.autotune_megastep(64, 4, 3, 16, method="loo",
+                                           backend="cpu", reps=1)
+    else:
+        from repro_torch.kernels import ann
+
+        monkeypatch.setattr(ann, "topm_candidates", _raises)
+        run = lambda: at.autotune_ann(256, 16, 8, 32, backend="cpu", reps=1)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        run()
+    assert not cache.exists()
 
 
 def test_session_autotune_and_data_valuator_autotune(cache):
@@ -266,14 +351,13 @@ def test_heuristics_and_grids_match_jax():
 # --------------------------------------------------------------- the card
 @pytest.mark.cuda
 def test_tuners_on_the_card(cache, cuda):
-    name, _ = at.autotune_fill(4096, 64, backend="cuda", reps=1)
-    entry = json.loads(cache.read_text())[at._key("fill", "cuda", 4096, 64)]
-    assert 'cuda {}' in entry["candidates"]
-    assert at.best_fill(4096, 64, backend="cuda")[0] == name
-    assert at.autotune_distance(64, 4096, 64, backend="cuda")[0] in (
-        "cuda", "plain")
-    assert at.lookup_fill(4096, 64, backend="cpu") is None
+    # the kernel is the card's one fill and distance: nothing to store
+    assert at.autotune_fill(4096, 64, backend="cuda", reps=1) == ("cuda", {})
+    assert at.autotune_distance(64, 4096, 64, backend="cuda") == ("cuda", {})
+    assert not cache.exists()
+    assert at.best_fill(4096, 64, backend="cuda") == ("cuda", {})
     step, _ = at.autotune_megastep(4096, 64, 5, 64, method="knn_shapley",
                                    backend="cuda", reps=1)
     assert at.best_megastep(4096, 64, 64, 5, method="knn_shapley",
                             backend="cuda")[0] == step
+    assert at.lookup_fill(4096, 64, backend="cpu") is None
