@@ -69,6 +69,29 @@ fresh temporary file ($REPRO_TORCH_AUTOTUNE_CACHE), so every "auto" of
       the CPU platform never served, and `fill="auto"` valuations
       launching what the cache names.
 
+and then the resilient runtime and the online service, at the paper
+configuration's full width on [4]'s blob data, with a fresh tuning cache
+again (so "auto" is the CUDA distance and fill):
+
+  [11] a `ResilientValuationSession` (sti, ckpt_every=2, keep=2, async
+      checkpoints of the 16 GiB accumulator) over 4 batches of 256 test
+      points with a NaN fault at seq 3: rolled back to checkpoint 2,
+      replayed, refolded; dropped unfinalized (the kill), restored from
+      checkpoint 2 and the stream replayed (batches 0-1 skipped): phi and
+      its diagonal bit-identical to a bare `ValuationSession`; launches
+      equal to the folds run; each snapshot, write, sha256 pass and
+      restore timed, free disk and host RAM read first;
+  [12a] a `ValuationService` (sti, capacity 65536, 65280 live, test_batch
+      256, eager rank caches): 4 coalesced queries of 96, remove_points of
+      64 ids (bit-identical to the service's full recompute, no rank-step
+      call), add_points of 64 (within 2e-5 of state / t), 2 more queries,
+      get_values within 1e-5 of the offline engine on the final live set;
+      every request's latency split into refold and rebase checkpoint; the
+      sentinel slots finite and last in index order on the distance
+      kernel; [12b] the same for knn_shapley; [12c] the reference's chaos
+      drill on four shards of the card (n = 4096, d = 768, t = 64):
+      every request answered, health degraded, drift <= 1e-5.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -952,6 +975,526 @@ def tuner_phase(torch, dev, c) -> dict:
     c.expect("[10] knn_shapley fill=auto", got_pt, **want_pt)
     out["auto_after_tune"] = {"sti": got_sti, "knn_shapley": got_pt}
     del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def blob_points(np, count, dim, seed):
+    """`count` more points of [4]'s two blobs (the centres
+    `make_gaussian_blobs(..., seed=0)` draws, spread 0.3), alternating
+    classes, from their own seed."""
+    centers = np.random.default_rng(0).normal(size=(2, dim)) * 2.0
+    rng = np.random.default_rng(seed)
+    y = np.arange(count, dtype=np.int32) % 2
+    x = centers[y] + rng.normal(scale=0.3, size=(count, dim))
+    return x.astype(np.float32), y
+
+
+def host_peak_gib() -> float:
+    """Peak resident host memory of this process so far (getrusage)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def device_gib(torch) -> str:
+    """Device memory now and at its peak since the last reset."""
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+class CheckpointClock:
+    """Times the Checkpointer's synchronous snapshot, its write (np.save +
+    sha256, on the writer thread), each sha256 verification and each
+    restore, by wrapping the class's methods for the length of a phase."""
+
+    def __init__(self):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+
+        self.cls = Checkpointer
+        self.events = []
+        self._saved = {}
+        for name in ("_snapshot", "_write", "verify_step", "restore"):
+            self._saved[name] = getattr(Checkpointer, name)
+            setattr(Checkpointer, name, self._timed(name, self._saved[name]))
+
+    def _timed(self, name, fn):
+        def timed(ck, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(ck, *args, **kw)
+            self.events.append((name, time.perf_counter() - t0))
+            return out
+        return timed
+
+    def take(self) -> list:
+        got, self.events = self.events, []
+        return got
+
+    def close(self):
+        for name, fn in self._saved.items():
+            setattr(self.cls, name, fn)
+
+
+def timings(events, name) -> list:
+    """The seconds of each `CheckpointClock` event called `name`."""
+    return [round(dt, 3) for nm, dt in events if nm == name]
+
+
+def resilient_phase(torch, np, dev, c) -> dict:
+    """[11]: a ResilientValuationSession at the paper configuration's full
+    width (n = 65536, d = 768, k = 5, sti) on [4]'s blob data, 4 batches
+    of 256 test points, ckpt_every=2, keep=2, async checkpoints, a NaN
+    fault at seq 3: batch 3 is poisoned, rolled back to checkpoint 2,
+    replayed and refolded; the session is dropped unfinalized (the kill),
+    restored from checkpoint 2 and the stream replayed (batches 0-1
+    skipped, 2-3 folded). Held bit for bit against a bare
+    ValuationSession over the same batches."""
+    from repro_torch.core.resilient import ResilientValuationSession
+    from repro_torch.core.session import ValuationSession
+    from repro_torch.distributed.fault_injection import Fault, FaultInjector
+
+    n, tb, k = c.n, c.tb, c.k
+    extra_x, extra_y = c.extra
+    xt = torch.cat([c.x_test, torch.from_numpy(extra_x[:1024 - c.x_test.shape[0]])])
+    yt = torch.cat([c.y_test, torch.from_numpy(extra_y[:1024 - c.y_test.shape[0]])])
+    batches = [(xt[i:i + tb], yt[i:i + tb]) for i in range(0, 1024, tb)]
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt_gib = (n * n + n) * 4 / 2**30
+    free_gib = shutil.disk_usage(ck_dir).free / 2**30
+    keep = 2
+    # this schedule writes checkpoints 2 and 4 (keep=2, so neither is
+    # pruned): at most two on disk at once, the second while it is written.
+    # The restored session replays with ckpt_every=8, so it writes none: at
+    # ckpt_every=2 it would rewrite step 4 beside steps 2 and 4 (three
+    # checkpoints in flight, 48 GiB, more than half this machine's disk)
+    peak_gib = 2 * ckpt_gib
+    with open("/proc/meminfo") as fh:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) for ln in fh}
+    log(f"[11] checkpoint directory {ck_dir}: free disk {free_gib:.2f} GiB, "
+        f"one checkpoint {ckpt_gib:.3f} GiB, this schedule's peak "
+        f"{peak_gib:.2f} GiB on disk (two checkpoints, the second in "
+        f"flight; three would need {3 * ckpt_gib:.2f}); host RAM "
+        f"{mem['MemTotal'] / 2**20:.1f} GiB, available "
+        f"{mem['MemAvailable'] / 2**20:.1f} GiB")
+    if peak_gib > free_gib / 2:
+        fail(f"[11] the checkpoints need {peak_gib:.2f} GiB of disk, more "
+             f"than half the {free_gib:.2f} GiB free in {ck_dir}")
+    out = {"free_disk_gib": free_gib, "checkpoint_gib": ckpt_gib,
+           "disk_peak_gib": peak_gib,
+           "host_ram_gib": mem["MemTotal"] / 2**20}
+    clock = CheckpointClock()
+    try:
+        c.zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[11] device memory at the start: {device_gib(torch)}")
+        t0 = time.perf_counter()
+        inj = FaultInjector([Fault("nan", at_seq=3, seed=0)])
+        sess = ResilientValuationSession(
+            c.x_train, c.y_train, ckpt_dir=ck_dir, mode="sti", k=k,
+            test_batch=tb, ckpt_every=2, keep=keep, async_checkpoint=True,
+            injector=inj, device=dev)
+        fold_s = []
+        for xb, yb in batches:
+            t1 = time.perf_counter()
+            sess.update(xb, yb)
+            torch.cuda.synchronize()
+            fold_s.append(time.perf_counter() - t1)
+        sess._ckpt.wait()  # the write of checkpoint 4 lands before the kill
+        first = c.read_counts()
+        res = sess.resilience_summary()
+        ev = clock.take()
+        log(f"[11] folded 4 batches with a NaN fault at seq 3 in "
+            f"{time.perf_counter() - t0:.2f} s (per update "
+            f"{[round(s, 3) for s in fold_s]} s): {inj.fired('nan')}, "
+            f"rollbacks {res['rollbacks']}, checkpoints "
+            f"{res['checkpoint_steps']}, launches {first}")
+        verify = timings(ev, "verify_step")
+        log(f"[11] snapshots (device to host, synchronous) "
+            f"{timings(ev, '_snapshot')} s; writes (np.save + sha256 + "
+            f"prune, writer thread) {timings(ev, '_write')} s; sha256 "
+            f"verifications {verify} s ("
+            f"{[round(ckpt_gib * 2**30 / 1e9 / v, 3) for v in verify if v]} "
+            f"GB/s); restores {timings(ev, 'restore')} s (their "
+            f"verification included)")
+        if res["rollbacks"] != 1 or res["nan_detected"] != 1:
+            fail(f"[11] expected one NaN rollback, got {res}")
+        # folds run: 0, 1, 2, 3 (poisoned), then the replay of 2 and 3
+        c.expect("[11] resilient folds", first, distance=6, sti_fill_acc=6)
+        out["first_run"] = dict(
+            update_s=fold_s, launches=first, resilience=res,
+            snapshot_s=timings(ev, "_snapshot"),
+            write_s=timings(ev, "_write"),
+            verify_s=timings(ev, "verify_step"),
+            restore_s=timings(ev, "restore"))
+        del sess  # the kill: no finalize
+        torch.cuda.empty_cache()
+        log(f"[11] device memory after the kill: {device_gib(torch)}")
+
+        c.zero_counts()
+        t0 = time.perf_counter()
+        resumed = ResilientValuationSession.restore(ck_dir, c.x_train,
+                                                    c.y_train, step=2,
+                                                    ckpt_every=8, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for xb, yb in batches:
+            resumed.update(xb, yb)
+        result = resumed.finalize(checkpoint=False)
+        resumed._ckpt.wait()
+        torch.cuda.synchronize()
+        second = c.read_counts()
+        res2 = result.meta["resilience"]
+        ev = clock.take()
+        if res2["checkpoint_steps"]:
+            fail(f"[11] the restored session wrote checkpoints "
+                 f"{res2['checkpoint_steps']}")
+        log(f"[11] restored checkpoint 2 in {restore_s:.2f} s (sha256 "
+            f"verifications {timings(ev, 'verify_step')} s, of "
+            f"{ckpt_gib:.3f} GiB each; Checkpointer.restore "
+            f"{timings(ev, 'restore')} s, its verification included) "
+            f"and replayed: skipped "
+            f"{res2['replayed_skipped']}, launches {second}")
+        if res2["replayed_skipped"] != 2:
+            fail(f"[11] replayed_skipped {res2['replayed_skipped']} != 2")
+        c.expect("[11] restored folds", second, distance=2, sti_fill_acc=2)
+        phi_r = result.phi
+        del resumed, result
+        torch.cuda.empty_cache()
+        log(f"[11] device memory after the resumed finalize: "
+            f"{device_gib(torch)}")
+
+        c.zero_counts()
+        bare = ValuationSession(c.x_train, c.y_train, k=k, mode="sti",
+                                test_batch=tb, device=dev)
+        for xb, yb in batches:
+            bare.update(xb, yb)
+        phi_b = bare.finalize().phi
+        del bare
+        torch.cuda.synchronize()
+        log(f"[11] device memory after the bare finalize: {device_gib(torch)}")
+        c.expect("[11] bare session", c.read_counts(), distance=4,
+                 sti_fill_acc=4)
+        same = all(bool(torch.equal(phi_r[r0:r0 + 4096], phi_b[r0:r0 + 4096]))
+                   for r0 in range(0, n, 4096))
+        same_diag = bool(torch.equal(phi_r.diagonal(), phi_b.diagonal()))
+        finite = all(bool(torch.isfinite(phi_r[r0:r0 + 4096]).all())
+                     for r0 in range(0, n, 4096))
+        peak_dev = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[11] restored + replayed phi vs a bare ValuationSession over "
+            f"the same 4 batches: bit-identical {same}, diagonal "
+            f"bit-identical {same_diag}, finite {finite}; peak device "
+            f"memory {peak_dev:.2f} GiB")
+        if not (same and same_diag and finite):
+            fail("[11] the resumed resilient phi is not bit-identical to the "
+                 "bare session's")
+        used = sum(f.stat().st_size for f in Path(ck_dir).rglob("*")
+                   if f.is_file()) / 2**30
+        out.update(restore_s=restore_s, launches_restored=second,
+                   resilience_restored=res2, bit_identical=same,
+                   diag_bit_identical=same_diag, peak_device_gib=peak_dev,
+                   disk_used_gib=used,
+                   restore_verify_s=timings(ev, "verify_step"),
+                   restore_load_s=timings(ev, "restore"))
+        out["launches"] = {name: first[name] + second[name]
+                           for name in first}
+        del phi_r, phi_b
+        torch.cuda.empty_cache()
+    finally:
+        clock.close()
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    out["host_peak_gib"] = host_peak_gib()
+    log(f"[11] disk used at the end {out['disk_used_gib']:.2f} GiB; host "
+        f"peak resident memory of this process so far "
+        f"{out['host_peak_gib']:.2f} GiB")
+    return out
+
+
+def service_requests(torch, np, dev, c, method, svc, clock, extra, label):
+    """[12a]/[12b]'s request mix on `svc`: 4 value_query requests of 96
+    points submitted together (coalesced into a 256 and a 128 chunk),
+    remove_points of 64 ids, add_points of 64 points, 2 more queries of
+    96, get_values. Holds the remove bit for bit and the add within 2e-5
+    (of state / t) against the service's own full recompute, and logs each
+    request's latency split into refold and rebase (the checkpoint)."""
+    timing = {"refold": [], "rebase": []}
+    refold_all, rebase = svc._refold_all, svc._session.rebase
+
+    def timed_refold(*a, **kw):
+        t0 = time.perf_counter()
+        got = refold_all(*a, **kw)
+        torch.cuda.synchronize()
+        timing["refold"].append(time.perf_counter() - t0)
+        return got
+
+    def timed_rebase(*a, **kw):
+        t0 = time.perf_counter()
+        got = rebase(*a, **kw)
+        torch.cuda.synchronize()
+        timing["rebase"].append(time.perf_counter() - t0)
+        return got
+
+    ranks = {"n": 0}
+    rank = svc._rank
+
+    def counted_rank(*a):
+        ranks["n"] += 1
+        return rank(*a)
+
+    svc._refold_all, svc._session.rebase = timed_refold, timed_rebase
+    svc._rank = counted_rank
+    requests, statuses = [], []
+    total = {name: 0 for name in c.read_counts()}
+
+    def add(launches):
+        for name, count in launches.items():
+            total[name] += count
+
+    def note(kind, resp, launches, refold_s=None, rebase_s=None, extra=None):
+        statuses.append(resp.status)
+        row = dict(kind=kind, status=resp.status, latency_s=resp.latency_s,
+                   launches=launches, refold_s=refold_s, rebase_s=rebase_s,
+                   rank_calls=ranks["n"], **(extra or {}))
+        requests.append(row)
+        log(f"[{label}] {method} {kind}: {resp.status} in "
+            f"{resp.latency_s:.3f} s" +
+            (f" = refold {refold_s:.3f} s + rebase (state copy, checkpoint "
+             f"write, sha256) {rebase_s:.3f} s" if refold_s is not None
+             else "") + f"; rank-step calls {ranks['n']}, launches "
+            f"{launches}")
+
+    def mutate(kind, fn):
+        timing["refold"].clear()
+        timing["rebase"].clear()
+        ranks["n"] = 0
+        c.zero_counts()
+        clock.take()
+        resp = fn()
+        torch.cuda.synchronize()
+        ev = clock.take()
+        add(c.read_counts())
+        note(kind, resp, c.read_counts(), sum(timing["refold"]),
+             sum(timing["rebase"]),
+             dict(snapshot_s=timings(ev, "_snapshot"),
+                  write_s=timings(ev, "_write"),
+                  verify_s=timings(ev, "verify_step")))
+        return resp
+
+    def recompute_matches(what, exact):
+        """The live state against `_refold_all(use_caches=False)`."""
+        state, t = refold_all(use_caches=False)
+        torch.cuda.synchronize()
+        errs, equal = [], True
+        for got, want in zip(svc._session.inner._state, state):
+            rows = 4096 if got.ndim == 2 else got.shape[0]
+            for r0 in range(0, got.shape[0], rows):
+                a, b = got[r0:r0 + rows], want[r0:r0 + rows]
+                equal = equal and bool(torch.equal(a, b))
+                errs.append(float((a - b).abs().max()) / t)
+        del state
+        torch.cuda.empty_cache()
+        err = max(errs)
+        log(f"[{label}] {method} state after the {what} vs the service's "
+            f"full recompute (ranked anew, no caches): bit-identical "
+            f"{equal}, max |diff| / t {err:.3e}")
+        if exact and not equal:
+            fail(f"[{label}] {method} {what}: the incremental state is not "
+                 f"bit-identical to the full recompute")
+        if not err <= 2e-5:
+            fail(f"[{label}] {method} {what}: max |diff| / t {err} > 2e-5")
+        return equal, err
+
+    # the sentinel rows on the card's distance kernel: finite, past 1e20,
+    # ranked last in index order by the stable sort
+    xb = torch.from_numpy(np.ascontiguousarray(c.x_test[:c.tb].numpy())).to(dev)
+    d2, order = rank(xb, torch.from_numpy(svc._x).to(dev))
+    free = torch.from_numpy(np.flatnonzero(svc._keep == 0)).to(dev)
+    tail = order[:, -free.shape[0]:].long()
+    sentinel_ok = (bool(torch.isfinite(d2).all())
+                   and bool((d2[:, free] >= 1e20).all())
+                   and bool((d2[:, svc._keep > 0] < 1e20).all())
+                   and bool((tail == free[None, :]).all()))
+    log(f"[{label}] sentinel slots on the distance kernel ({c.tb} x "
+        f"{svc.capacity}, {free.shape[0]} free): finite, >= 1e20 (min "
+        f"{float(d2[:, free].min()):.4e}), ranked last in index order: "
+        f"{sentinel_ok}")
+    if not sentinel_ok:
+        fail(f"[{label}] sentinel slots are not finite and last in index "
+             f"order on the card")
+    del d2, order, tail
+
+    ranks["n"] = 0
+    c.zero_counts()
+    rids = [svc.submit("value_query", x=c.x_test[i:i + 96],
+                       y=c.y_test[i:i + 96]) for i in range(0, 384, 96)]
+    svc.drain()
+    torch.cuda.synchronize()
+    launches = c.read_counts()
+    add(launches)
+    for rid in rids:
+        r = svc.poll(rid)
+        note("value_query", r, launches,
+             extra={"coalesced_with": r.payload["coalesced_with"]})
+    if [rec.b for rec in svc._log] != [c.tb, 384 - c.tb]:
+        fail(f"[{label}] the 4 queries did not coalesce into a {c.tb} and a "
+             f"{384 - c.tb} chunk: {[rec.b for rec in svc._log]}")
+    gone = [int(i) for i in np.random.default_rng(4).choice(
+        svc.n_live, 64, replace=False)]
+    mutate("remove_points", lambda: svc.remove_points(gone))
+    if requests[-1]["rank_calls"] != 0:
+        fail(f"[{label}] the remove called the rank step "
+             f"{requests[-1]['rank_calls']} times with warm caches")
+    exact_remove = recompute_matches("remove", exact=True)
+    add_x, add_y = extra[0][832:896], extra[1][832:896]
+    r = mutate("add_points", lambda: svc.add_points(add_x, add_y))
+    new_ids = r.payload.get("ids")
+    add_err = recompute_matches("add", exact=False)
+    for lo in (640, 736):
+        ranks["n"] = 0
+        c.zero_counts()
+        resp = svc.value_query(extra[0][lo:lo + 96], extra[1][lo:lo + 96])
+        torch.cuda.synchronize()
+        add(c.read_counts())
+        note("value_query", resp, c.read_counts())
+    ranks["n"] = 0
+    c.zero_counts()
+    clock.take()
+    gv = svc.get_values()
+    torch.cuda.synchronize()
+    add(c.read_counts())
+    note("get_values", gv, c.read_counts())
+    svc._refold_all, svc._session.rebase, svc._rank = refold_all, rebase, rank
+    if any(st != "ok" for st in statuses):
+        fail(f"[{label}] {method}: statuses {statuses}")
+    log(f"[{label}] {method} launches over the requests {total}")
+    return dict(requests=requests, remove_bit_identical=exact_remove[0],
+                add_max_err=add_err[1], new_ids=new_ids,
+                sentinel_ok=sentinel_ok, launches=total), gv
+
+
+def service_phase(torch, np, dev, c) -> dict:
+    """[12]: the online service at the paper configuration's width
+    (capacity 65536, 65280 live, 256 free slots, test_batch 256) for sti
+    ([12a]) and knn_shapley ([12b]), then the reference's chaos drill on
+    four shards of the card ([12c], n = 4096)."""
+    from repro_torch.core.methods import get_method
+    from repro_torch.distributed.fault_injection import Fault, FaultInjector
+    from repro_torch.serving.valuation_service import ValuationService
+
+    n, tb, k = c.n, c.tb, c.k
+    live0 = n - 256
+    out = {}
+    clock = CheckpointClock()
+    try:
+        for label, method in (("12a", "sti"), ("12b", "knn_shapley")):
+            t_phase = time.perf_counter()
+            ck_dir = tempfile.mkdtemp(prefix="chip_smoke_svc_")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            svc = ValuationService(
+                c.x_train[:live0], c.y_train[:live0], method=method, k=k,
+                capacity=n, test_batch=tb, ckpt_dir=ck_dir, ckpt_every=8,
+                ckpt_keep=2, cache_policy="eager", seed=0, device=dev)
+            got, gv = service_requests(torch, np, dev, c, method, svc, clock,
+                                       c.extra, label)
+            live = np.flatnonzero(svc._keep > 0)
+            xs = np.concatenate([c.x_test.numpy(), c.extra[0][640:832]])
+            ys = np.concatenate([c.y_test.numpy(), c.extra[1][640:832]])
+            # the offline engine takes the service's distance kernel, so a
+            # near tie ranks alike on both sides
+            offline = get_method(method)(svc._x[live], svc._y[live], xs, ys,
+                                         k=k, test_batch=tb, distance="cuda",
+                                         device=dev)
+            want = offline.values().cpu().numpy()
+            del offline
+            torch.cuda.empty_cache()
+            drift = float(np.abs(want - gv.payload["values"]).max())
+            log(f"[{label}] {method} final live values ({live.shape[0]} of "
+                f"{n}, t={svc.t_seen}) vs the offline engine on the final "
+                f"live set: max |diff| {drift:.3e} (tol 1e-5)")
+            if not drift <= 1e-5 or gv.payload["n_live"] != live0:
+                fail(f"[{label}] {method}: drift {drift}, n_live "
+                     f"{gv.payload['n_live']}")
+            svc.close()  # joins any checkpoint write in flight
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            used = sum(f.stat().st_size for f in Path(ck_dir).rglob("*")
+                       if f.is_file()) / 2**30
+            del svc, gv
+            torch.cuda.empty_cache()
+            shutil.rmtree(ck_dir, ignore_errors=True)
+            got.update(drift=drift, peak_device_gib=peak,
+                       disk_used_gib=used,
+                       phase_s=time.perf_counter() - t_phase)
+            log(f"[{label}] phase {got['phase_s']:.1f} s, peak device memory "
+                f"{peak:.2f} GiB, checkpoint disk at the end {used:.2f} GiB")
+            out[method] = got
+    finally:
+        clock.close()
+
+    # [12c] the reference's chaos drill on four shards of the card
+    t_phase = time.perf_counter()
+    n_c, t_c, tb_c, cap_c = c.chaos
+    x_c, y_c = c.x_train[:n_c].numpy(), c.y_train[:n_c].numpy()
+    xt_c, yt_c = c.x_test[:t_c].numpy(), c.y_test[:t_c].numpy()
+    inj = FaultInjector([
+        Fault(kind="device", at_seq=1, times=99),  # beyond any budget
+        Fault(kind="nan", at_seq=2, seed=0),
+        Fault(kind="ckpt_corrupt", at_seq=2, seed=0),
+    ])
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    c.zero_counts()
+    svc = ValuationService(
+        x_c, y_c, method="sti", k=k, capacity=cap_c, test_batch=tb_c,
+        devices=[dev] * 4, ckpt_dir=ck_dir, ckpt_every=2, max_retries=1,
+        min_shards=2, seed=0, injector=inj)
+    statuses = []
+    for s in range(0, t_c, tb_c):
+        if s == t_c // 2:
+            statuses.append(svc.remove_points([0, 1]).status)
+        half = tb_c // 2
+        rids = [svc.submit("value_query", x=xt_c[s:s + half],
+                           y=yt_c[s:s + half]),
+                svc.submit("value_query", x=xt_c[s + half:s + tb_c],
+                           y=yt_c[s + half:s + tb_c])]
+        svc.drain()
+        statuses += [svc.poll(r).status for r in rids]
+    gv = svc.get_values()
+    statuses.append(gv.status)
+    svc._session._ckpt.wait()
+    torch.cuda.synchronize()
+    launches = c.read_counts()
+    h = svc.health()
+    keep = np.array([i for i in range(n_c) if i not in (0, 1)])
+    off = get_method("sti")(x_c[keep], y_c[keep], xt_c, yt_c, k=k,
+                            device=dev)
+    drift = float(np.abs(off.values().cpu().numpy()
+                         - gv.payload["values"]).max())
+    svc.close()
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    log(f"[12c] chaos drill (sti, n={n_c}, capacity {cap_c}, d={c.d}, "
+        f"t={t_c}, 4 shards of the card, min_shards 2): statuses "
+        f"{statuses}; health {h['status']}, degradations "
+        f"{h['resilience']['degradations']}, full recoveries "
+        f"{h['requests']['full_recoveries']}, faults fired "
+        f"{[(e['kind'], e['seq']) for e in inj.events]}; drift from the "
+        f"offline engine {drift:.3e} (tol 1e-5); launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(st == "ok" for st in statuses):
+        fail(f"[12c] statuses {statuses}")
+    if h["status"] != "degraded" or not (
+            h["resilience"]["degradations"]
+            or h["requests"]["full_recoveries"]):
+        fail(f"[12c] health {h['status']}, degradations "
+             f"{h['resilience']['degradations']}, recoveries "
+             f"{h['requests']['full_recoveries']}")
+    if not drift <= 1e-5:
+        fail(f"[12c] drift {drift} > 1e-5")
+    out["chaos"] = dict(statuses=statuses, health=h["status"],
+                        degradations=h["resilience"]["degradations"],
+                        full_recoveries=h["requests"]["full_recoveries"],
+                        drift=drift, launches=launches,
+                        phase_s=time.perf_counter() - t_phase)
+    del svc, gv, off
     torch.cuda.empty_cache()
     return out
 
@@ -2261,6 +2804,38 @@ def main() -> None:
     autotune["phase_s"] = time.perf_counter() - t10
     log(f"[10] phase {autotune['phase_s']:.1f} s")
     shutil.rmtree(tune_dir, ignore_errors=True)
+
+    # ------------- 11. the resilient session; 12. the online service
+    # a fresh, empty tuning cache again: "auto" resolves from the heuristic
+    # (the CUDA distance and fill), whatever [10] cached
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(tune_dir) / "autotune.json")
+    ctx.extra = blob_points(np, 1024, d_full, seed=5)
+    # [12c]'s correctness drill: n, t, test batch, capacity (n + 512)
+    ctx.chaos = (4096, 64, 16, 4608)
+    t11 = time.perf_counter()
+    resilient = resilient_phase(torch, np, dev, ctx)
+    resilient["phase_s"] = time.perf_counter() - t11
+    log(f"[11] phase {resilient['phase_s']:.1f} s")
+    t12 = time.perf_counter()
+    service = service_phase(torch, np, dev, ctx)
+    service["phase_s"] = time.perf_counter() - t12
+    log(f"[12] phase {service['phase_s']:.1f} s")
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    for name in ("distance", "sti_fill_acc", "sti_fill_acc_rect"):
+        entries[name]["resilient_service_launches"] = {
+            "[11]": resilient["launches"][name],
+            "[12a]": service["sti"]["launches"][name],
+            "[12b]": service["knn_shapley"]["launches"][name],
+            "[12c]": service["chaos"]["launches"][name]}
+    log("[11]-[12] launches by path: " + ", ".join(
+        f"{name} {entries[name]['resilient_service_launches']}"
+        for name in ("distance", "sti_fill_acc", "sti_fill_acc_rect")))
+    for name, want in (("distance", "[12a]"), ("sti_fill_acc", "[12a]"),
+                       ("sti_fill_acc_rect", "[12c]")):
+        if not entries[name]["resilient_service_launches"][want]:
+            fail(f"{name} was not launched on {want}'s path")
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -2271,7 +2846,11 @@ def main() -> None:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{key: e[key] for key in keys}
+    print(json.dumps({"kernels": [{**{key: e[key] for key in keys},
+                                   **({"resilient_service_launches":
+                                       e["resilient_service_launches"]}
+                                      if "resilient_service_launches" in e
+                                      else {})}
                                   for e in entries.values()],
                       "step_ms": step_ms, "total_s": total_s,
                       "megakernel_total_s": mega_s,
@@ -2291,6 +2870,8 @@ def main() -> None:
                       "approx": approx,
                       "approx_1m": approx_1m,
                       "autotune": autotune,
+                      "resilient": resilient,
+                      "service": service,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,11 @@ mirror it (`repro_torch.kernels.sti_fill` is the counterpart of
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version.
 
+`ResilientValuationSession` wraps a session in guarded retries, atomic
+checksummed checkpoints and NaN rollback; `repro_torch.serving.
+valuation_service.ValuationService` serves valuation requests over a
+mutable train set on top of it.
+
 The LM substrate (dense decoders) lives in `repro_torch.models` and
 `repro_torch.serving`; prefill attention runs the flash-attention kernel.
 """
@@ -23,6 +28,7 @@ The LM substrate (dense decoders) lives in `repro_torch.models` and
 from repro_torch.core import (
     ENGINES,
     ApproxValuationSession,
+    ResilientValuationSession,
     ShardedValuationSession,
     ValuationMethod,
     ValuationResult,
@@ -57,6 +63,7 @@ __all__ = [
     "ValuationSession",
     "ShardedValuationSession",
     "ApproxValuationSession",
+    "ResilientValuationSession",
     "ValuationMethod",
     "register_method",
     "get_method",

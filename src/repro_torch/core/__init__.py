@@ -29,6 +29,7 @@ from repro_torch.core.session import (
     ShardedValuationSession,
     ValuationSession,
 )
+from repro_torch.core.resilient import ResilientValuationSession
 from repro_torch.core.wknn import (
     WEIGHT_KINDS,
     distance_weights,
@@ -69,6 +70,7 @@ __all__ = [
     "ValuationSession",
     "ShardedValuationSession",
     "ApproxValuationSession",
+    "ResilientValuationSession",
     "ValuationMethod",
     "ENGINES",
     "register_method",

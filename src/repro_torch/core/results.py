@@ -94,12 +94,17 @@ class ValuationResult:
         """Sub-result over the given train-point rows (stable order): `phi`
         keeps the `indices x indices` block and `point_values` the
         `indices` entries, on the result's device; `meta` gains
-        ``restricted_from`` (the original n) and the new ``n``."""
+        ``restricted_from`` (the original n) and the new ``n``. The block
+        is gathered 4096 rows at a time, so no (m, n) intermediate is
+        held beside it (16 GiB at n = 65536)."""
         idx = torch.as_tensor(np.asarray(indices, np.int64))
         phi = pv = None
         if self.phi is not None:
             i = idx.to(self.phi.device)
-            phi = self.phi[i][:, i]
+            m = int(i.shape[0])
+            phi = self.phi.new_empty((m, m))
+            for r0 in range(0, m, 4096):
+                phi[r0:r0 + 4096] = self.phi[i[r0:r0 + 4096]][:, i]
         if self.point_values is not None:
             pv = self.point_values[idx.to(self.point_values.device)]
         return self.replace(

@@ -68,7 +68,11 @@ _JAX_DISTANCE = {"plain": "xla", "cuda": "pallas"}
 
 
 def _f32(a) -> torch.Tensor:
-    """A checkpoint's numpy array as an f32 CPU tensor."""
+    """A checkpoint's numpy array as an f32 CPU tensor; a tensor is cast
+    where it lies. Shares memory with `a` where no cast or move is needed:
+    the caller hands over an array it owns."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32)
     return torch.from_numpy(np.asarray(a, np.float32))
 
 
@@ -336,7 +340,8 @@ class ValuationSession:
 
     def _place_state(self, arrays) -> None:
         """Hook: install restored whole state arrays, given as numpy arrays
-        (sharded sessions split them into their row blocks)."""
+        or tensors that the session may keep (sharded sessions split them
+        into their row blocks)."""
         self._state = tuple(_f32(a).to(self.device).contiguous()
                             for a in arrays)
 

@@ -21,7 +21,10 @@ plain version on the CPU.
 
 `prepare_stream_step` is the method-generic front door (tuple-state
 contract) that `ValuationSession` drives; `stream_point_values` the
-one-shot entry point of the point methods.
+one-shot entry point of the point methods. `make_rank_step` /
+`make_refold_step` / `prepare_refold_step` split the step for the online
+service's mutations: the distance and stable sort once per logged batch
+(cached), then a refold of the cache under the current liveness mask.
 
 `make_sharded_step` / `make_sharded_point_step` / `prepare_sharded_step`
 / `prepare_sharded_stream_step` / `sharded_sti_knn_interactions` are the
@@ -58,6 +61,7 @@ from repro_torch.kernels.stream_kernels import (
     AccumulatorSpec,
     UpdateKernel,
     accumulator_spec,
+    make_refold_kernel,
     make_update_kernel,
 )
 
@@ -79,6 +83,9 @@ __all__ = [
     "make_approx_point_step",
     "make_approx_interaction_step",
     "ApproxPairAccumulator",
+    "make_rank_step",
+    "make_refold_step",
+    "prepare_refold_step",
 ]
 
 _DISTANCES = ("plain", "cuda")
@@ -272,6 +279,108 @@ def make_point_step(
         return body((vec,), xb, yb, mask, x_train, y_train)[0]
 
     return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_rank_step(distance: str = "plain") -> Callable:
+    """Stage A of the incremental-mutation path: the distance + stable sort
+    prefix of the streaming step, split out so its outputs can be CACHED:
+
+        rank(xb, x_train) -> (d2, order)
+
+    d2 (tb, n) f32 squared distances, order (tb, n) int32 stable argsort
+    (closest first; int32 as the JAX package's, whose orders the caches
+    and parity tests compare). The online valuation service runs it once
+    per cached test batch and replays mutations through
+    `make_refold_step`, which skips both the distance and the sort. On a
+    card `distance="cuda"` runs the CUDA distance kernel. `rank.distance`
+    is its distance function alone: an element of d2 depends only on its
+    test and train rows, so columns it computes for new train points are
+    the bits a ranking of the whole set gives them."""
+    dist_fn = _distance_fn(distance)
+
+    def rank(xb, x_train):
+        d2 = dist_fn(xb, x_train)
+        order = torch.sort(d2, dim=-1, stable=True).indices
+        return d2, order.to(torch.int32)
+
+    rank.distance = dist_fn
+    return rank
+
+
+@functools.lru_cache(maxsize=None)
+def make_refold_step(
+    method: str,
+    k: int,
+    method_static: tuple = (),
+    fill: str = "chunked",
+    fill_static: tuple = (),
+) -> Callable:
+    """Stage B of the incremental-mutation path: the refold of one CACHED
+    test batch under a train-slot liveness mask (tuple-state, in place):
+
+        step(state, d2, order, yb, mask, y_train, keep) -> state
+
+    `d2`/`order` come from `make_rank_step` (possibly captured against an
+    older train-set snapshot); `keep` (n,) marks live slots. The body
+    compacts the cached order against `keep` and runs the method's
+    registered contrib/[g]/update closures
+    (`stream_kernels.make_refold_kernel`), so a remove_points refold is
+    EXACTLY the state a full recompute against the mutated train set
+    gives, without the distance or sort stages. On a card an interaction
+    refold with `fill="cuda"` runs the CUDA fill."""
+    if accumulator_spec(method).kind == "interaction":
+        body = make_refold_kernel(
+            method, int(k), fill=fill, fill_static=fill_static
+        )
+    else:
+        body = make_refold_kernel(method, int(k), opts=dict(method_static))
+
+    def step(state, d2, order, yb, mask, y_train, keep):
+        return tuple(body(state, d2, order, yb, mask, y_train, keep))
+
+    return step
+
+
+def prepare_refold_step(
+    method: str,
+    n: int,
+    d: int,
+    k: int,
+    *,
+    test_batch: int = 256,
+    fill: str = "auto",
+    fill_params: Optional[dict] = None,
+    distance: str = "auto",
+    autotune: bool = False,
+    method_opts: Optional[dict] = None,
+    device="cuda",
+) -> tuple[Callable, Callable, dict, AccumulatorSpec]:
+    """Resolve the incremental-mutation pair for `method` on `device` and
+    return `(refold_step, rank_step, resolved, spec)` (see
+    `make_rank_step` / `make_refold_step`). Resolution mirrors
+    `prepare_stream_step` -- the same square fill registry for interaction
+    methods, the same distance registry -- so the refold replays bit for
+    bit what the live three-stage step folds. Single device: a sharded
+    session's state is gathered dense, refolded, and re-placed."""
+    spec = accumulator_spec(method)
+    backend = resolve_device(device).type
+    tb = max(1, int(test_batch))
+    dist_name = resolve_distance(distance, tb, n, d, backend=backend,
+                                 autotune=autotune)
+    if spec.kind == "interaction":
+        fill_name, fill_static = resolve_fill(
+            fill, n, tb, fill_params=fill_params, backend=backend,
+            autotune=autotune,
+        )
+        refold = make_refold_step(method, int(k), (), fill_name,
+                                  fill_static)
+        resolved = {"fill": fill_name, "distance": dist_name}
+    else:
+        refold = make_refold_step(method, int(k),
+                                  _method_static(method_opts))
+        resolved = {"fill": None, "distance": dist_name}
+    return refold, make_rank_step(dist_name), resolved, spec
 
 
 def _method_static(method_opts: Optional[dict]) -> tuple:

@@ -16,6 +16,12 @@ small objects:
     state`, which updates the state tensors IN PLACE (the JAX step donates
     them instead).
 
+The online service's train-set mutations refold CACHED (d2, order) pairs
+under a liveness mask through the same closures (`compact_order`,
+`make_refold_kernel`); removed and free train slots hold the
+`SENTINEL_COORD` / `SENTINEL_LABEL` sentinels, rank last and contribute
+zero.
+
 Kernels are built by registered factories keyed by method name.
 `axis=None` builds the single-device update; a
 `repro_torch.distributed.sharding.ShardGroup` builds the sharded update,
@@ -38,6 +44,7 @@ import torch
 from repro_torch.core.sti_knn import (
     accumulate_fill,
     accumulate_rect_fill,
+    ranks_from_order,
     superdiagonal_g,
 )
 
@@ -46,6 +53,9 @@ __all__ = [
     "UpdateKernel",
     "INTERACTION_STATE",
     "POINT_STATE",
+    "SENTINEL_COORD",
+    "SENTINEL_LABEL",
+    "SENTINEL_D2",
     "register_update_kernel",
     "make_update_kernel",
     "accumulator_spec",
@@ -53,10 +63,31 @@ __all__ = [
     "has_stream_kernel",
     "register_megakernel_tables",
     "make_megakernel_tables",
+    "compact_order",
+    "register_refold_builder",
+    "make_refold_kernel",
     "approx_point_methods",
     "make_approx_values",
     "scatter_point_update",
 ]
+
+
+# Soft-delete sentinels for fixed-capacity training sets (the online
+# valuation service mutates the train set without changing any shape): a
+# removed / never-filled slot keeps its position but gets coordinates
+# SENTINEL_COORD and label SENTINEL_LABEL. The squared distance to a
+# sentinel slot is ~d * 1e30 -- finite in f32 (1e30 << 3.4e38) yet far
+# larger than any real distance, so sentinel slots sort to the tail of
+# every neighbour ranking; the label never matches a real test label, so
+# their contribution is exactly zero through every registered method.
+# 1e15, not 1e30: the expansion-form distance squares the coordinate, and
+# (1e30)^2 overflows f32 to inf, which the -2ab cross term then turns into
+# inf - inf = NaN.
+SENTINEL_COORD = 1e15
+SENTINEL_LABEL = -1
+# Any squared distance at or above this is treated as a sentinel column
+# (real squared distances would need coordinates ~1e10 to reach it).
+SENTINEL_D2 = 1e20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,6 +431,115 @@ def _loo_megatables(k, opts):
         return _loo_window(match_s * mask[:, None], k)
 
     return tables
+
+
+# -------------------------------------------------------------- refold path
+# Incremental train-set mutation (the online valuation service's
+# add_points / remove_points) refolds CACHED per-batch intermediates -- the
+# (tb, n) squared distances and stable argsort order of the distance stage
+# -- against the current liveness mask, skipping the distance and the sort.
+# The refold reuses each method's registered contrib/update closures (on a
+# card an interaction refold runs the CUDA fill), so it is exact by
+# construction: for a removal, compacting the cached order (live slots to
+# the front, dead slots to the tail, each group in its relative order)
+# reproduces bit for bit the live prefix a fresh stable argsort of the
+# mutated train set would give, and every dead slot contributes zero
+# through the sentinel label.
+
+
+def compact_order(order: torch.Tensor, keep: torch.Tensor):
+    """Compact a cached argsort order against a liveness mask.
+
+    Args:
+      order: (tb, n) stable argsort of cached squared distances (train
+        indices, closest first; any integer dtype).
+      keep: (n,) liveness per train slot (0 = removed/free, nonzero =
+        live), indexed by train coordinate.
+
+    Returns:
+      (new_order, ranks): `new_order` (tb, n), order's dtype, with the
+      live entries moved to the front and the dead entries to the tail,
+      each group in its relative order -- what a stable argsort of the
+      mutated distance row gives on the live prefix, because dead slots
+      hold sentinel distances larger than any real one; `ranks` (int64)
+      its inverse permutation. The move is a scatter of a permutation
+      (every target position written once), so it is deterministic.
+    """
+    keep_s = keep[order.long()] > 0              # liveness, sorted coords
+    live = torch.cumsum(keep_s.to(torch.int64), dim=-1)
+    dead = torch.cumsum((~keep_s).to(torch.int64), dim=-1)
+    n_live = live[..., -1:]
+    pos = torch.where(keep_s, live - 1, n_live + dead - 1)
+    new_order = torch.zeros_like(order).scatter_(1, pos, order)
+    return new_order, ranks_from_order(new_order)
+
+
+_REFOLD_BUILDERS: dict[str, Callable] = {}
+
+
+def register_refold_builder(kind: str, builder: Callable) -> None:
+    """Register the refold-step builder for one `AccumulatorSpec.kind`.
+
+    `builder(kernel, k) -> refold` receives the method's bound
+    `UpdateKernel` and returns
+    `refold(state, d2, order, yb, mask, y_train, keep) -> state`, which
+    folds one cached test batch into `state` (in place) under the
+    liveness mask `keep`. Registered per spec kind: the per-method math
+    rides in through the kernel's contrib/update closures.
+    """
+    _REFOLD_BUILDERS[kind] = builder
+
+
+def make_refold_kernel(
+    method: str,
+    k: int,
+    *,
+    opts: Optional[dict] = None,
+    fill: Optional[str] = None,
+    fill_static: tuple = (),
+) -> Callable:
+    """Build `refold(state, d2, order, yb, mask, y_train, keep) -> state`
+    for `method`: the incremental-mutation twin of the streaming step,
+    driven from cached distance/order intermediates instead of raw test
+    features. Single device (square fill registry); the service gathers a
+    sharded session's state dense, refolds, and re-places it."""
+    spec = accumulator_spec(method)
+    builder = _REFOLD_BUILDERS.get(spec.kind)
+    if builder is None:
+        raise ValueError(
+            f"no refold builder for accumulator kind {spec.kind!r}; "
+            f"registered: {sorted(_REFOLD_BUILDERS)}"
+        )
+    kernel = make_update_kernel(
+        method, int(k), opts=opts, fill=fill, fill_static=fill_static
+    )
+    return builder(kernel, int(k))
+
+
+def _masked_refold_builder(kernel: UpdateKernel, k: int) -> Callable:
+    """The generic refold body shared by both state contracts: compact the
+    cached order, sentinel-mask dead distance columns (so row statistics
+    like the wknn rbf bandwidth see exactly the reduced train set), then
+    run the method's own contrib -> [g] -> update closures."""
+    dead_d2 = SENTINEL_D2 * 1e10
+
+    def refold(state, d2, order, yb, mask, y_train, keep):
+        d2 = torch.where(keep[None, :] > 0, d2,
+                         torch.tensor(dead_d2, dtype=d2.dtype,
+                                      device=d2.device))
+        new_order, ranks = compact_order(order, keep)
+        order_l = new_order.long()
+        match = (y_train[order_l] == yb[:, None]).to(torch.float32)
+        u = kernel.contrib(d2, order_l, match, mask)
+        g = (superdiagonal_g(u, k, mode=kernel.g_mode)
+             if kernel.needs_g else None)
+        return kernel.update(state, u, g, ranks, mask)
+
+    return refold
+
+
+register_refold_builder("interaction", _masked_refold_builder)
+register_refold_builder("point", _masked_refold_builder)
 
 
 # ------------------------------------------------------ approx (candidate)

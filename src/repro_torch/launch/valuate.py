@@ -11,6 +11,9 @@ end-to-end on a CUDA card (or, when asked, the CPU).
       --engine sharded --shards 8 --devices cpu --n 64 --t 16
   PYTHONPATH=src python -m repro_torch.launch.valuate --engine approx \
       --method knn_shapley --top-m 64 --recall-target 0.9 --autotune
+  PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
+      --resilient --ckpt-dir /tmp/ck --ckpt-every 2 --n 64 --t 32 \
+      --test-batch 8
 
 Pipeline: synthetic circles (10% of train labels flipped) -> a method from
 the registry ("sti"/"sii" on the `fused` or `scan` engine, or a per-point
@@ -26,8 +29,13 @@ so a one-card host runs several shards only through `--devices`.
 clamped to [k+1, n]; `--top-m` >= n is bit for bit the exact engine;
 `--recall-target` records whether the measured recall met it) and prints
 its certified error bound. `--autotune` tunes what "auto" finds missing
-from the tuning cache first. `--save` writes the result in the format
-both packages read (npz + JSON).
+from the tuning cache first. `--resilient` drives a
+`ResilientValuationSession` (any method; sharded with --engine sharded):
+guarded retries, a checkpoint every `--ckpt-every` batches into
+`--ckpt-dir` (a fresh temporary directory by default), NaN rollback; a
+directory that already holds a checkpoint of either package RESUMES it,
+the replayed batches skipped exactly once. `--save` writes the result in
+the format both packages read (npz + JSON).
 """
 
 from __future__ import annotations
@@ -92,6 +100,45 @@ def _point_values(args, x, y, xt, yt):
     return sess.update(xt, yt).finalize()
 
 
+def _resilient_values(args, x, y, xt, yt):
+    """The result of a `ResilientValuationSession` over the test stream in
+    batches of --test-batch (one sequence number each), resumed from
+    --ckpt-dir when it holds a checkpoint; prints the resilience
+    summary."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.resilient import ResilientValuationSession
+
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(
+        prefix="repro-torch-valuate-ckpt-")
+    shard_kw = {nm: v for nm, v in _shard_options(args).items()
+                if v is not None}
+    if Checkpointer(ckpt_dir).latest_step() is not None:
+        sess = ResilientValuationSession.restore(
+            ckpt_dir, x, y, device=args.device, **shard_kw)
+        print(f"resuming from {ckpt_dir} at batch {sess.batches_folded}")
+    else:
+        kw = dict(k=args.k, mode=args.method, test_batch=args.test_batch,
+                  fill=args.fill, distance=args.distance,
+                  autotune=args.autotune, device=args.device)
+        if args.method == "wknn":
+            kw["method_opts"] = {"weights": "rbf"}
+        sess = ResilientValuationSession(
+            x, y, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
+            sharded=args.engine == "sharded", **shard_kw, **kw)
+    for start in range(0, int(xt.shape[0]), args.test_batch):
+        sess.update(xt[start:start + args.test_batch],
+                    yt[start:start + args.test_batch])
+    result = sess.finalize()
+    res = result.meta["resilience"]
+    print(f"resilience: checkpoints={res['checkpoint_steps']} "
+          f"retries={res['retries']} rollbacks={res['rollbacks']} "
+          f"replayed_skipped={res['replayed_skipped']} "
+          f"stragglers={res['health']['stragglers']} (ckpt_dir={ckpt_dir})")
+    return result
+
+
 def main():
     """Parse CLI args, run the requested method/engine, print analytics."""
     ap = argparse.ArgumentParser()
@@ -127,6 +174,17 @@ def main():
     ap.add_argument("--autotune", action="store_true",
                     help="tune what 'auto' finds missing from the tuning "
                          "cache first ($REPRO_TORCH_AUTOTUNE_CACHE)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="run through the fault-tolerant session (guarded "
+                         "retries, periodic atomic checkpoints, NaN "
+                         "rollback)")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="checkpoint directory for --resilient (default: a "
+                         "fresh temporary directory); a directory holding "
+                         "a previous run's checkpoint RESUMES it")
+    ap.add_argument("--ckpt-every", type=int, default=4,
+                    help="checkpoint cadence in batches for --resilient "
+                         "(0 disables checkpointing and rollback)")
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="persist the ValuationResult to PATH.npz + PATH.json")
     args = ap.parse_args()
@@ -145,7 +203,13 @@ def main():
     if (args.shards is not None or args.devices) and \
             args.engine != "sharded":
         ap.error("--shards and --devices need --engine sharded")
-    if args.method in ("sti", "sii"):
+    if args.resilient and args.engine not in ("fused", "sharded",
+                                              "streamed"):
+        ap.error("--resilient runs the streaming session: --engine fused, "
+                 "streamed or sharded")
+    if args.resilient:
+        result = _resilient_values(args, x, y, xt, yt)
+    elif args.method in ("sti", "sii"):
         shard_kw = {nm: v for nm, v in _shard_options(args).items()
                     if v is not None}
         result = get_method(args.method)(
