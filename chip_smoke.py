@@ -92,6 +92,29 @@ again (so "auto" is the CUDA distance and fill):
       drill on four shards of the card (n = 4096, d = 768, t = 64):
       every request answered, health degraded, drift <= 1e-5.
 
+and then the "distributed" engine and the LM training path:
+
+  [13] `get_method("sti")(engine="distributed")` at the paper
+      configuration's full width on [4]'s data, on a (data 2, model 2)
+      `DeviceGrid` of the one card: phi and its diagonal within 1e-6 of
+      max |ref| of [4]'s phi (the same call recomputed), phi exactly
+      symmetric, exactly 4 distance and 4 rect fill launches and no
+      other; its time (CUDA events, then again with the allocator warm),
+      one cell's rect fill alone and peak memory; sii on a (2, 2) grid at
+      n = 8192 against the fused engine; `make_sti_step_fn` at full width
+      (one distance, one square fill launch) against [4]'s sums;
+  [14] training qwen3-1.7b: the loss and every gradient leaf on the card
+      against the CPU at full width with 2 layers (f32, TF32 off, 1 x 256
+      tokens), within 1e-4; 4 `Trainer` steps at full width and depth
+      (2.03 B parameters, bf16 activations, f32 parameters and AdamW,
+      remat "block", one fixed batch of 2 x 2048 tokens, warmup 1):
+      finite, the last loss below the first; step time, tokens/s, peak
+      memory, and one more step under torch.profiler (busy share, top
+      kernels); the restart drill at the reduced config (6 steps,
+      ckpt_every 3, a fresh Trainer resumes at step 6 bit for bit),
+      checkpoint write and restore timed. No flash launch: training
+      differentiates the blockwise attention, as the reference does.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -104,6 +127,7 @@ from __future__ import annotations
 
 import ctypes
 import faulthandler
+import gc
 import json
 import os
 import re
@@ -360,10 +384,10 @@ def sass_loop(sass: str, marker: str, at_least: int) -> dict:
     return best
 
 
-def device_busy(torch, fn) -> dict | None:
+def device_busy(torch, fn, top: int = 5) -> dict | None:
     """Device time of `fn` from a torch.profiler trace: the sum of the
     durations of its kernels, copies and sets (one stream, so they do not
-    overlap), the flash-attention kernels' share of it, and the five
+    overlap), the flash-attention kernels' share of it, and the `top`
     kernels that take the most. None when the trace holds no device
     event."""
     import tempfile
@@ -385,11 +409,11 @@ def device_busy(torch, fn) -> dict | None:
             by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
     if not by_name:
         return None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"busy_ms": sum(by_name.values()) / 1e3,
             "flash_ms": sum(us for nm, us in by_name.items()
                             if "flash_attention" in nm) / 1e3,
-            "top": [(nm, us / 1e3) for nm, us in top]}
+            "top": [(nm, us / 1e3) for nm, us in ranked]}
 
 
 def approx_breakdown(torch, sess, xb, yb, mask, xtr, ytr) -> dict:
@@ -1363,7 +1387,11 @@ def service_requests(torch, np, dev, c, method, svc, clock, extra, label):
     torch.cuda.synchronize()
     add(c.read_counts())
     note("get_values", gv, c.read_counts())
-    svc._refold_all, svc._session.rebase, svc._rank = refold_all, rebase, rank
+    # the methods come back by removing the instance attributes: a bound
+    # method stored on its own instance would hold the service (and its
+    # 16 GiB state) in a reference cycle after the caller drops it
+    del svc._refold_all, svc._session.rebase
+    svc._rank = rank
     if any(st != "ok" for st in statuses):
         fail(f"[{label}] {method}: statuses {statuses}")
     log(f"[{label}] {method} launches over the requests {total}")
@@ -1771,6 +1799,414 @@ def lm_phase(torch, np, dev, entries) -> dict:
             "measured")
     out["device_busy"] = busy
     del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def blocks_err(torch, got, want, rows: int = 4096, got_diag=None,
+               want_diag=None) -> tuple[float, float]:
+    """(max |got - want|, max |want|) over (n, n) matrices taken 4096 rows
+    at a time; with `got_diag`, `got`'s diagonal reads from it instead."""
+    err = scale = 0.0
+    for r0 in range(0, want.shape[0], rows):
+        g = got[r0:r0 + rows].clone()
+        w = want[r0:r0 + rows]
+        idx = torch.arange(g.shape[0], device=g.device)
+        if got_diag is not None:
+            g[idx, r0 + idx] = got_diag[r0:r0 + rows]
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    return err, scale
+
+
+def distributed_phase(torch, np, dev, c) -> dict:
+    """[13]: the "distributed" engine at the paper configuration's full
+    width on [4]'s data, on a (data 2, model 2) grid of the one card, held
+    against [4]'s phi; sii on a (2, 2) grid at n = 8192 against the fused
+    engine; `make_sti_step_fn` at full width against [4]'s sums."""
+    from repro_torch import get_method
+    from repro_torch.core.valuation import make_sti_step_fn
+    from repro_torch.distributed.sharding import DeviceGrid
+
+    out = {}
+    n, t, k = c.n, int(c.x_test.shape[0]), c.k
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    # [4]'s phi again: [4]'s call on [4]'s inputs through the same kernels
+    ref = get_method("sti")(c.x_train, c.y_train, c.x_test, c.y_test, k=k,
+                            engine="fused", test_batch=c.tb,
+                            device=dev).phi
+    grid = DeviceGrid((dev,) * 4, (2, 2))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    c.zero_counts()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    ev0.record()
+    res = get_method("sti")(c.x_train, c.y_train, c.x_test, c.y_test, k=k,
+                            engine="distributed", mesh=grid)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = c.read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    c.expect("[13] sti distributed (2, 2)", got, distance=4,
+             sti_fill_acc_rect=4)
+    phi = res.phi
+    if tuple(phi.shape) != (n, n) or res.meta["mesh"] != {"data": 2,
+                                                          "model": 2}:
+        fail(f"[13] phi {tuple(phi.shape)}, mesh {res.meta['mesh']}")
+    err, scale = blocks_err(torch, phi, ref)
+    derr = float((phi.diagonal() - ref.diagonal()).abs().max())
+    dscale = float(ref.diagonal().abs().max())
+    symmetric = all(bool(torch.equal(phi[r0:r0 + 4096],
+                                     phi[:, r0:r0 + 4096].T))
+                    for r0 in range(0, n, 4096))
+    out["sti"] = dict(grid=[2, 2], ms=ev0.elapsed_time(ev1), wall_s=wall_s,
+                      peak_gib=peak, held_before_gib=base,
+                      max_abs_err=err, max_abs_ref=scale,
+                      diag_max_abs_err=derr, symmetric=symmetric,
+                      launches=got)
+    log(f"[13] sti distributed on a (data 2, model 2) grid of one card, "
+        f"n={n} d={c.d} k={k} t={t}: {out['sti']['ms']:.2f} ms (CUDA "
+        f"events; {wall_s:.3f} s wall), peak device memory {peak:.2f} GiB "
+        f"({base:.2f} GiB held before, [4]'s phi among it; {held:.2f} before "
+        f"that), launches {got}; phi vs [4]'s: max_abs_err {err:.3e} (max "
+        f"|ref| {scale:.3e}, tol 1e-6 of it); diagonal max_abs_err "
+        f"{derr:.3e} (max |ref| {dscale:.3e}); exactly symmetric "
+        f"{symmetric}")
+    if not err <= 1e-6 * scale:
+        fail(f"[13] distributed phi disagrees with [4]'s: {err} > 1e-6 * "
+             f"{scale}")
+    if not derr <= 1e-6 * dscale:
+        fail(f"[13] distributed diagonal disagrees: {derr}")
+    if not symmetric:
+        fail("[13] the distributed phi is not exactly symmetric")
+    del res, phi
+    # the call again, the allocator warm (the first call's CUDA events
+    # also hold the host's allocation of the 16 GiB phi), and one cell's
+    # rect fill alone at the cell's shape: (n/2, n) at t/2 test points
+    out["sti"]["warm_ms"] = cuda_ms(torch, lambda: get_method("sti")(
+        c.x_train, c.y_train, c.x_test, c.y_test, k=k,
+        engine="distributed", mesh=grid), reps=1)
+    from repro_torch.core.sti_knn import ranks_from_order, superdiagonal_g
+    from repro_torch.kernels.distance import distance_cuda
+    from repro_torch.kernels.sti_fill import (
+        rect_row_view, sti_fill_acc_rect_cuda)
+
+    xtr, ytr = c.x_train.to(dev), c.y_train.to(dev)
+    xt, yt = c.x_test[:t // 2].to(dev), c.y_test[:t // 2].to(dev)
+    order = torch.sort(distance_cuda(xt, xtr), dim=-1, stable=True).indices
+    ranks = ranks_from_order(order)
+    g = superdiagonal_g((ytr[order] == yt[:, None]).float() / k, k)
+    block = torch.zeros((n // 2, n), device=dev)
+    rows = rect_row_view(ranks, n // 2, n // 2)
+    out["sti"]["cell_fill_ms"] = cuda_ms(
+        torch, lambda: sti_fill_acc_rect_cuda(block, g, rows, ranks), reps=2)
+    log(f"[13] the call again, allocator warm: "
+        f"{out['sti']['warm_ms']:.2f} ms; one cell's rect fill "
+        f"({n // 2}, {n}) at {t // 2} test points: "
+        f"{out['sti']['cell_fill_ms']:.2f} ms (x4 cells)")
+    del block, order, ranks, g, xtr
+    torch.cuda.empty_cache()
+
+    # sii on a (2, 2) grid at n = 8192, against the fused engine's sii
+    ns = 8192
+    c.zero_counts()
+    sii = get_method("sii")(c.x_train[:ns], c.y_train[:ns], c.x_test,
+                            c.y_test, k=k, engine="distributed", mesh=grid)
+    torch.cuda.synchronize()
+    got = c.read_counts()
+    c.expect("[13] sii distributed (2, 2)", got, distance=4,
+             sti_fill_acc_rect=4)
+    want = get_method("sii")(c.x_train[:ns], c.y_train[:ns], c.x_test,
+                             c.y_test, k=k, engine="fused", test_batch=c.tb,
+                             device=dev).phi
+    serr = float((sii.phi - want).abs().max())
+    sscale = float(want.abs().max())
+    out["sii"] = dict(n=ns, max_abs_err=serr, max_abs_ref=sscale,
+                      launches=got)
+    log(f"[13] sii distributed (2, 2) n={ns}: vs the fused engine "
+        f"max_abs_err {serr:.3e} (max |ref| {sscale:.3e}, tol 1e-6 of it), "
+        f"launches {got}")
+    if not serr <= 1e-6 * sscale:
+        fail(f"[13] distributed sii disagrees with fused: {serr}")
+    del sii, want
+
+    # make_sti_step_fn at full width: one distance and one square fill
+    # launch over all t test points, against [4]'s phi x t
+    c.zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev0.record()
+    phi_sum, diag_sum = make_sti_step_fn(k, "sti", device=dev)(
+        c.x_train, c.y_train, c.x_test, c.y_test)
+    ev1.record()
+    torch.cuda.synchronize()
+    got = c.read_counts()
+    c.expect("[13] make_sti_step_fn", got, distance=1, sti_fill_acc=1)
+    phi_sum.div_(t)
+    err, scale = blocks_err(torch, phi_sum, ref, got_diag=diag_sum / t)
+    del phi_sum
+    warm_ms = cuda_ms(torch, lambda: make_sti_step_fn(k, "sti", device=dev)(
+        c.x_train, c.y_train, c.x_test, c.y_test), reps=1)
+    out["step_fn"] = dict(ms=ev0.elapsed_time(ev1), warm_ms=warm_ms,
+                          max_abs_err=err,
+                          max_abs_ref=scale, launches=got,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[13] make_sti_step_fn n={n} t={t}: {out['step_fn']['ms']:.2f} ms "
+        f"({warm_ms:.2f} ms again, allocator warm), launches {got}; (phi_sum, diag_sum) / t vs [4]'s phi: max_abs_err "
+        f"{err:.3e} (max |ref| {scale:.3e}, tol 1e-6 of it)")
+    if not err <= 1e-6 * scale:
+        fail(f"[13] make_sti_step_fn disagrees with [4]: {err}")
+    del diag_sum, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _loss_and_grads(torch, model, params, batch):
+    """(loss, gradient leaves) of `model.loss_fn` by autograd."""
+    from repro_torch.configs.base import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def card_vs_cpu_inputs(torch, np, rng):
+    """[14a]'s model, CPU parameters (seed 14) and batch (1 x 256 tokens
+    drawn from `rng`): qwen3-1.7b's width with 2 layers, f32."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-1.7b").replace(num_layers=2, dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(14), device="cpu")
+    toks = rng.integers(0, cfg.vocab_size, (1, 257)).astype(np.int32)
+    return model, params, {"tokens": torch.from_numpy(toks[:, :-1]),
+                           "labels": torch.from_numpy(toks[:, 1:])}
+
+
+def cpu_grads_main(path: str) -> None:
+    """`chip_smoke.py --cpu-grads PATH`: [14a]'s CPU side, in a process of
+    its own so that nothing an earlier phase left in the parent (threads,
+    allocator, floating-point state) touches the reference. Saves the
+    loss, the gradient leaves, the seconds and the CPU settings to PATH."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    model, params, batch = card_vs_cpu_inputs(
+        torch, np, np.random.default_rng(14))
+    t0 = time.perf_counter()
+    loss, grads = _loss_and_grads(torch, model, params, batch)
+    torch.save({"loss": float(loss), "grads": list(grads),
+                "seconds": time.perf_counter() - t0,
+                "settings": {"cpu_threads": torch.get_num_threads(),
+                             "float32_matmul_precision":
+                                 torch.get_float32_matmul_precision(),
+                             "cpu_capability":
+                                 torch.backends.cpu.get_cpu_capability()}},
+               path)
+
+
+def training_phase(torch, np, dev, c) -> dict:
+    """[14]: the LM training path of qwen3-1.7b: card against CPU at full
+    width with 2 layers; 4 Trainer steps at full width and depth; the
+    restart drill at the reduced config."""
+    from repro_torch.checkpoint.checkpointer import _flatten, _keystr
+    from repro_torch.configs.base import tree_leaves, tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    out = {}
+    full = get_config("qwen3-1.7b")
+    rng = np.random.default_rng(14)
+
+    def zero_counts():
+        c.zero_counts()
+        flash_attention_cuda.launches = 0
+
+    def read_counts():
+        return dict(c.read_counts(),
+                    flash_attention=flash_attention_cuda.launches)
+
+    def tokens(b, s, vocab):
+        toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+        return {"tokens": torch.from_numpy(toks[:, :-1]),
+                "labels": torch.from_numpy(toks[:, 1:])}
+
+    # [14a] the card against the CPU: full width, 2 layers, f32, TF32 off;
+    # the CPU side in a fresh process (`cpu_grads_main`)
+    model, params, batch = card_vs_cpu_inputs(torch, np, rng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grads_") as tmp:
+        path = Path(tmp) / "cpu_grads.pt"
+        subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--cpu-grads", str(path)], check=True, timeout=900)
+        ref = torch.load(path)
+    closs, cgrads, cpu_s = ref["loss"], ref["grads"], ref["seconds"]
+    gparams = tree_map(lambda p: p.to(dev), params)
+    zero_counts()
+    gloss, ggrads = _loss_and_grads(
+        torch, model, gparams, {k_: v.to(dev) for k_, v in batch.items()})
+    torch.cuda.synchronize()
+    rel = abs(float(gloss) - float(closs)) / abs(float(closs))
+    errs = []
+    for (path, _), g, w in zip(_flatten(params), ggrads, cgrads):
+        scale = float(w.abs().max())
+        errs.append((float((g.cpu() - w).abs().max()) / max(scale, 1e-30),
+                     _keystr(path)))
+    worst, worst_leaf = max(errs)
+    got = read_counts()
+    settings = ref["settings"]
+    out["card_vs_cpu"] = dict(layers=2, tokens=256, loss_cpu=float(closs),
+                              loss_card=float(gloss), loss_rel_err=rel,
+                              worst_leaf_rel_err=worst,
+                              worst_leaf=worst_leaf, cpu_s=cpu_s,
+                              leaf_rel_errs={nm: e for e, nm in errs},
+                              settings=settings, launches=got)
+    log(f"[14a] qwen3-1.7b width, 2 layers, f32, 1 x 256 tokens: loss card "
+        f"{float(gloss):.6f} vs CPU {float(closs):.6f} (rel {rel:.2e}, tol "
+        f"1e-4); worst gradient leaf max_abs_err / max |value| {worst:.2e} "
+        f"({worst_leaf}; tol 1e-4) over {len(cgrads)} leaves; CPU side "
+        f"{cpu_s:.1f} s in a process of its own ({settings}); launches "
+        f"{got}")
+    if not rel <= 1e-4 or not worst <= 1e-4:
+        fail(f"[14a] card and CPU disagree: loss rel {rel}, worst leaf "
+             f"{worst}")
+    c.expect("[14a]", got, flash_attention=0)
+    del params, gparams, cgrads, ggrads, model, ref
+    torch.cuda.empty_cache()
+
+    # [14b] full width and depth: bf16 activations, f32 params and AdamW,
+    # remat "block"; 4 steps on one fixed batch of 2 x 2048 tokens
+    fixed = tokens(2, 2048, full.vocab_size)
+    tcfg = TrainerConfig(steps=4, log_every=1, opt=AdamWConfig(
+        warmup_steps=1, total_steps=4))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(full, tcfg, device=dev)
+    t0 = time.perf_counter()
+    params, opt_state = tr.init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    zero_counts()
+    params, opt_state, hist = tr.fit(params, opt_state, lambda s: fixed)
+    got = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    step_s = [h["time_s"] for h in hist]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    n_tok = 2 * 2048
+    out["full"] = dict(arch=full.name, layers=full.num_layers,
+                       params=tr.model.num_params(), tokens_per_step=n_tok,
+                       losses=losses, grad_norms=norms, step_s=step_s,
+                       steady_step_ms=1e3 * steady,
+                       tokens_per_s=n_tok / steady, peak_gib=peak,
+                       held_before_gib=held, init_s=init_s, launches=got)
+    log(f"[14b] {full.name} full width and depth "
+        f"({tr.model.num_params() / 1e9:.3f} B params), bf16 activations, "
+        f"f32 params and AdamW, remat {full.remat}: losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; grad norms "
+        f"{', '.join(f'{v:.3f}' for v in norms)}; step s "
+        f"{', '.join(f'{v:.3f}' for v in step_s)} (steps 1-3 "
+        f"{1e3 * steady:.1f} ms = {n_tok / steady:.0f} tokens/s); peak "
+        f"device memory {peak:.2f} GiB ({held:.2f} held before); init "
+        f"{init_s:.2f} s; launches {got}")
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        fail(f"[14b] losses {losses}, grad norms {norms}: not finite and "
+             f"decreasing")
+    c.expect("[14b]", got, flash_attention=0)
+    # where a step's time goes: one more step under torch.profiler
+    batch = {k_: v.to(dev) for k_, v in fixed.items()}
+    busy = device_busy(torch, lambda: tr.step(params, opt_state, batch),
+                       top=10)
+    if busy is None:
+        log("[14b] torch.profiler traced no device time: busy share not "
+            "measured")
+    else:
+        busy["busy_share"] = busy["busy_ms"] / (1e3 * steady)
+        log(f"[14b] one step: device busy {busy['busy_ms']:.1f} ms of "
+            f"{1e3 * steady:.1f} ms wall ({100 * busy['busy_share']:.1f} %); "
+            f"top kernels (ms): " + ", ".join(
+                f"{nm[:48]} {ms:.1f}" for nm, ms in busy["top"]))
+    out["full"]["device_busy"] = busy
+    del params, opt_state, tr, batch
+    torch.cuda.empty_cache()
+
+    # [14c] the restart drill at reduced_config(qwen3-1.7b): 6 steps with
+    # ckpt_every=3, a fresh Trainer restores step 6 bit for bit
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data import make_token_batch
+
+    small = reduced_config(full)
+    ck_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        tcfg = TrainerConfig(steps=6, log_every=1, ckpt_every=3,
+                             ckpt_dir=str(ck_root / "run"),
+                             opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                             total_steps=6))
+
+        def batch_fn(step):
+            toks, labels = make_token_batch(
+                torch.Generator().manual_seed(step), 4, 256,
+                small.vocab_size)
+            return {"tokens": toks, "labels": labels}
+
+        tr = Trainer(small, tcfg, device=dev)
+        params, opt_state = tr.init_state(0)
+        zero_counts()
+        t0 = time.perf_counter()
+        params, opt_state, hist = tr.fit(params, opt_state, batch_fn)
+        fit_s = time.perf_counter() - t0
+        got = read_counts()
+        c.expect("[14c]", got, flash_attention=0)
+        t0 = time.perf_counter()
+        Checkpointer(ck_root / "timed").save(6, (params, opt_state))
+        write_s = time.perf_counter() - t0
+        tr2 = Trainer(small, tcfg, device=dev)
+        p2, o2 = tr2.init_state(1)
+        t0 = time.perf_counter()
+        p2, o2, start = tr2.maybe_restore(p2, o2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(a.device == b.device and torch.equal(a, b)
+                   for a, b in zip(tree_leaves((p2, o2)),
+                                   tree_leaves((params, opt_state))))
+        size_gib = sum(a.numel() * a.element_size()
+                       for a in tree_leaves((params, opt_state))) / 2**30
+        out["restart"] = dict(arch=small.name, params=tr.model.num_params(),
+                              losses=[h["loss"] for h in hist],
+                              fit_s=fit_s, start=start, bit_identical=same,
+                              checkpoint_gib=size_gib, write_s=write_s,
+                              restore_s=restore_s, launches=got)
+        shown = ", ".join(f"{v:.4f}" for v in out["restart"]["losses"])
+        log(f"[14c] restart drill, reduced qwen3-1.7b "
+            f"({tr.model.num_params() / 1e6:.1f} M params): 6 steps in "
+            f"{fit_s:.2f} s (checkpoints at 3 and 6), losses {shown}; a "
+            f"fresh "
+            f"Trainer resumed at step {start}, leaves bit-identical {same}; "
+            f"one {size_gib:.2f} GiB checkpoint written (snapshot, np.save, "
+            f"sha256) in {write_s:.2f} s, restored (sha256, load, copy to "
+            f"the card) in {restore_s:.2f} s")
+        if start != 6 or not same:
+            fail(f"[14c] restart at {start}, bit-identical {same}")
+        if not all(np.isfinite(out["restart"]["losses"])):
+            fail("[14c] a loss is not finite")
+        del params, opt_state, p2, o2, tr, tr2
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
 
@@ -2836,6 +3272,33 @@ def main() -> None:
                        ("sti_fill_acc_rect", "[12c]")):
         if not entries[name]["resilient_service_launches"][want]:
             fail(f"{name} was not launched on {want}'s path")
+
+    # ------------- 13. the distributed engine; 14. the LM training path
+    # earlier phases' objects caught in reference cycles would otherwise
+    # be freed at some later collection, in the middle of a phase's peak
+    gc.collect()
+    log(f"[13] device memory held before: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t13 = time.perf_counter()
+    distributed = distributed_phase(torch, np, dev, ctx)
+    distributed["phase_s"] = time.perf_counter() - t13
+    log(f"[13] phase {distributed['phase_s']:.1f} s")
+    t14 = time.perf_counter()
+    training = training_phase(torch, np, dev, ctx)
+    training["phase_s"] = time.perf_counter() - t14
+    log(f"[14] phase {training['phase_s']:.1f} s")
+    for name, entry in entries.items():
+        entry["distributed_training_launches"] = {
+            "[13]": sum(distributed[key]["launches"].get(name, 0)
+                        for key in ("sti", "sii", "step_fn")),
+            "[14]": sum(training[key]["launches"].get(name, 0)
+                        for key in ("card_vs_cpu", "full", "restart"))}
+    log("[13]-[14] launches by path: " + ", ".join(
+        f"{name} {entry['distributed_training_launches']}"
+        for name, entry in entries.items()))
+    for name in ("distance", "sti_fill_acc_rect"):
+        if not entries[name]["distributed_training_launches"]["[13]"]:
+            fail(f"{name} was not launched on [13]'s path")
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -2850,7 +3313,9 @@ def main() -> None:
                                    **({"resilient_service_launches":
                                        e["resilient_service_launches"]}
                                       if "resilient_service_launches" in e
-                                      else {})}
+                                      else {}),
+                                   "distributed_training_launches":
+                                       e["distributed_training_launches"]}
                                   for e in entries.values()],
                       "step_ms": step_ms, "total_s": total_s,
                       "megakernel_total_s": mega_s,
@@ -2872,6 +3337,8 @@ def main() -> None:
                       "autotune": autotune,
                       "resilient": resilient,
                       "service": service,
+                      "distributed": distributed,
+                      "training": training,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2879,4 +3346,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-grads":
+        cpu_grads_main(sys.argv[2])
+    else:
+        main()

@@ -9,11 +9,12 @@ the other:
                                 sha256}], done}
         <leaf-hash>.npy        one file per leaf (np.save)
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or numpy scalars. It is flattened as `jax.tree_util` flattens it:
-dict keys in sorted order, None an empty node. Each leaf's key is JAX's
-`keystr` of its path (``['state']['acc']``, ``[0]``) and its file name the
-first 12 hex digits of the key's md5.
+A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
+tensors, numpy arrays or numpy scalars. It is flattened as
+`jax.tree_util` flattens it: dict keys in sorted order, None an empty
+node. Each leaf's key is JAX's `keystr` of its path (``['state']['acc']``,
+``[0]``, ``[1].mu['embed']`` for a NamedTuple field) and its file name
+the first 12 hex digits of the key's md5.
 
 Atomicity: a step is written to step_<N>.tmp, fsync'd, then renamed -- a
 crashed write can never be mistaken for a valid checkpoint.
@@ -51,6 +52,11 @@ class CheckpointCorruptionError(RuntimeError):
     """An explicitly requested checkpoint step failed sha256 verification."""
 
 
+class _Field(str):
+    """A NamedTuple field in a path: JAX's `GetAttrKey`, ``.name`` in a
+    key."""
+
+
 def _flatten(tree: Any, path: tuple = (), keep_none: bool = False
              ) -> list[tuple[tuple, Any]]:
     """(path, leaf) pairs of `tree` in `jax.tree_util` order: dict keys
@@ -60,6 +66,11 @@ def _flatten(tree: Any, path: tuple = (), keep_none: bool = False
         out = []
         for key in sorted(tree):
             out += _flatten(tree[key], path + (key,), keep_none)
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = []
+        for name, item in zip(tree._fields, tree):
+            out += _flatten(item, path + (_Field(name),), keep_none)
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -79,6 +90,8 @@ def _unflatten(tree_like: Any, leaves) -> Any:
                 for key in sorted(tree_like)}
     if isinstance(tree_like, (list, tuple)):
         items = [_unflatten(item, leaves) for item in tree_like]
+        if hasattr(tree_like, "_fields"):
+            return type(tree_like)(*items)
         return type(tree_like)(items) if isinstance(tree_like, tuple) \
             else items
     if tree_like is None:
@@ -88,8 +101,9 @@ def _unflatten(tree_like: Any, leaves) -> Any:
 
 def _keystr(path: tuple) -> str:
     """JAX's `keystr` of a path: ``['name']`` for a dict key, ``[i]`` for
-    a sequence index."""
-    return "".join(f"[{key!r}]" if isinstance(key, str) else f"[{key}]"
+    a sequence index, ``.name`` for a NamedTuple field."""
+    return "".join(f".{key}" if isinstance(key, _Field)
+                   else f"[{key!r}]" if isinstance(key, str) else f"[{key}]"
                    for key in path)
 
 

@@ -17,7 +17,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["ModelConfig", "PD", "init_params", "pad_to", "tree_leaves",
-           "tree_map"]
+           "tree_map", "tree_unflatten"]
 
 
 def pad_to(x: int, m: int) -> int:
@@ -28,8 +28,8 @@ def pad_to(x: int, m: int) -> int:
 class ModelConfig:
     """The fields of `repro.configs.base.ModelConfig` that the dense family
     reads, with `dtype` a torch dtype. The fields of the other families
-    (MoE, SSM, hybrid, audio, VLM) and of sharding and training come with
-    their slices (ROADMAP.md queue A 11)."""
+    (MoE, SSM, hybrid, audio, VLM) and of sharding come with their slices
+    (ROADMAP.md queue A 3)."""
     name: str
     family: str                    # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
@@ -54,6 +54,10 @@ class ModelConfig:
     vocab_pad: int = 256
     kv_block: int = 1024           # KV block of the plain blockwise path
     logits_f32: bool = True        # False: bf16 vocab matmul, f32 accum
+    # recompute in the backward pass, per layer group, in train mode with
+    # grad on: none | block | full (save nothing) | dots (save the
+    # projections' matmul outputs)
+    remat: str = "block"
 
     @property
     def hd(self) -> int:
@@ -122,6 +126,13 @@ def tree_map(fn, tree, *rest, is_leaf=None):
             return type(tree)(*out)
         return type(tree)(out)
     return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """`like`'s structure over `leaves`, taken in `tree_leaves` order (the
+    inverse of `tree_leaves`)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def _is_pd(x) -> bool:

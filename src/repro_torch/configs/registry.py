@@ -3,7 +3,7 @@ of `repro.configs.registry`).
 
 The port runs the dense decoder family. The other architectures of the
 JAX package (MoE, SSM, hybrid, audio, VLM) are known by name and raise
-`NotImplementedError` until their slice is ported (ROADMAP.md queue A 11).
+`NotImplementedError` until their slice is ported (ROADMAP.md queue A 3).
 """
 
 from repro_torch.configs import (
@@ -38,7 +38,7 @@ def get_config(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is a {NOT_PORTED[name]} model; the port runs the "
-            f"dense family only (ROADMAP.md queue A 11)")
+            f"dense family only (ROADMAP.md queue A 3)")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]

@@ -41,6 +41,7 @@ from repro_torch.core.methods import (
     get_method,
     list_methods,
     register_method,
+    valid_engines,
 )
 
 __all__ = [
@@ -73,6 +74,7 @@ __all__ = [
     "ResilientValuationSession",
     "ValuationMethod",
     "ENGINES",
+    "valid_engines",
     "register_method",
     "get_method",
     "list_methods",

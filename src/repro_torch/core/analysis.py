@@ -19,6 +19,7 @@ __all__ = [
     "class_block_summary",
     "mislabel_scores",
     "summarize_keep_order",
+    "k_invariance_correlation",
 ]
 
 # rows of phi summed per pass by `efficiency_gap`: bounds its temporary to
@@ -89,3 +90,15 @@ def summarize_keep_order(values: torch.Tensor) -> torch.Tensor:
     """Indices ordered most-valuable first (stable)."""
     return torch.sort(-values, stable=True).indices
 
+
+
+def k_invariance_correlation(phi_a: torch.Tensor, phi_b: torch.Tensor
+                             ) -> torch.Tensor:
+    """Pearson correlation between two flattened interaction matrices
+    (paper Sec. 3.2: > 0.99 across k in [3, 20]); an f32 scalar, summed
+    as the JAX package sums it."""
+    a = phi_a.reshape(-1).to(torch.float32)
+    b = phi_b.reshape(-1).to(torch.float32)
+    a = a - torch.mean(a)
+    b = b - torch.mean(b)
+    return torch.sum(a * b) / torch.sqrt(torch.sum(a * a) * torch.sum(b * b))

@@ -17,6 +17,12 @@ The `ENGINES` table maps every method to its ported engines (first entry
               kernels on a card; `fill="megakernel"` runs each step as
               one launch of the fused kernel)
     scan      the simple batch loop of `sti_knn_interactions`
+    distributed
+              the production cell (`launch.specs.sti_cell`) over a
+              ("data", "model") device grid: test points split over the
+              data shards, phi column blocks over the model shards, one
+              distance and one rect fill launch per cell, one sum over
+              the data shards (`mesh=`, default `make_local_mesh(device)`)
     sharded   the fused pipeline over D shards, (n/D, n) row blocks of
               the accumulator filled by the CUDA rect kernel on a card
               (`fill="megakernel"`: one fused launch per shard a step)
@@ -36,7 +42,8 @@ The sharded engine takes `shards=` (default: every local card, clamped to
 a divisor of n) or `devices=`, one device per shard, repeats allowed (so
 `devices=["cuda"] * 4` runs four shards on one card); one usable shard
 falls back to the single-device step. Either option without
-`engine="sharded"` raises, as do the approx options (`top_m`, `seed`,
+`engine="sharded"` raises, as does `mesh=` without
+`engine="distributed"` and as do the approx options (`top_m`, `seed`,
 `recall_target`, `approx_params`) without `engine="approx"`.
 `autotune=True` tunes what "auto" finds missing from the tuning cache
 (`repro_torch.kernels.autotune`). Every entry point takes `device=`
@@ -48,6 +55,7 @@ from __future__ import annotations
 
 import inspect
 import time
+import warnings
 from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
@@ -62,11 +70,13 @@ __all__ = [
     "get_method",
     "list_methods",
     "ENGINES",
+    "valid_engines",
+    "INTERACTION_ENGINES",  # deprecated alias for ENGINES["sti"]
 ]
 
 ENGINES: dict[str, tuple[str, ...]] = {
-    "sti": ("fused", "scan", "sharded", "approx"),
-    "sii": ("fused", "scan", "sharded", "approx"),
+    "sti": ("fused", "scan", "distributed", "sharded", "approx"),
+    "sii": ("fused", "scan", "distributed", "sharded", "approx"),
     "knn_shapley": ("streamed", "eager", "sharded", "approx", "oracle"),
     "wknn": ("streamed", "eager", "sharded", "approx", "oracle"),
     "loo": ("streamed", "eager", "sharded", "approx"),
@@ -84,6 +94,27 @@ _APPROX_OPTIONS = ("top_m", "seed", "recall_target", "approx_params")
 
 # the O(2^n) oracles enumerate every subset: parity tests only
 _ORACLE_MAX_N = 16
+
+
+def valid_engines(name: str) -> Optional[tuple[str, ...]]:
+    """Supported engines for method `name` (first = default), or None when
+    the method is not in the ENGINES table (custom registrations)."""
+    return ENGINES.get(name)
+
+
+def __getattr__(name: str):
+    """Module-level deprecation shim: `INTERACTION_ENGINES` predates the
+    method-aware ENGINES table and now aliases ENGINES["sti"]."""
+    if name == "INTERACTION_ENGINES":
+        warnings.warn(
+            "INTERACTION_ENGINES is deprecated; use "
+            "repro_torch.core.methods.ENGINES[method] (or "
+            "valid_engines(method))",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return ENGINES["sti"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @runtime_checkable
@@ -185,7 +216,7 @@ class _InteractionMethod:
 
     accepted_options = frozenset({
         "engine", "test_batch", "fill", "fill_params", "distance", "device",
-        "shards", "devices", "autotune", *_APPROX_OPTIONS,
+        "shards", "devices", "mesh", "autotune", *_APPROX_OPTIONS,
     })
 
     def __init__(self, name: str, mode: str):
@@ -196,7 +227,7 @@ class _InteractionMethod:
                  engine: str = "fused", test_batch: int = 256,
                  fill: str = "auto", fill_params: Optional[dict] = None,
                  distance: str = "auto", device="cuda",
-                 shards: Optional[int] = None, devices=None,
+                 shards: Optional[int] = None, devices=None, mesh=None,
                  autotune: bool = False, top_m: Optional[int] = None,
                  seed: Optional[int] = None,
                  recall_target: Optional[float] = None,
@@ -204,12 +235,18 @@ class _InteractionMethod:
         if engine not in ENGINES[self.name]:
             raise _engine_error(self.name, engine)
         _check_shard_options(engine, shards, devices)
+        if mesh is not None and engine != "distributed":
+            raise ValueError(
+                f"mesh= is only meaningful with engine='distributed' (got "
+                f"engine={engine!r})")
         approx = {nm: v for nm, v in dict(
             top_m=top_m, seed=seed, recall_target=recall_target,
             approx_params=approx_params).items() if v is not None}
         _check_approx_options(engine, approx)
         if devices is not None:
             device = devices[0]
+        if mesh is not None:
+            device = mesh.devices[0]
         dev = resolve_device(device)
         meta = _base_meta(x_train, x_test, k, dev)
         meta.update(method=self.name, mode=self.mode, engine=engine,
@@ -253,6 +290,10 @@ class _InteractionMethod:
                         distance=sess._resolved.get("distance"))
             meta.update({nm: res.meta[nm] for nm in _APPROX_META_KEYS
                          if nm in res.meta})
+        elif engine == "distributed":
+            phi, mesh_shape = _distributed_interactions(
+                x_train, y_train, x_test, y_test, k, self.mode, mesh, dev)
+            meta.update(mesh=mesh_shape)
         else:  # scan
             from repro_torch.core.sti_knn import (
                 resolve_fill, sti_knn_interactions)
@@ -273,6 +314,27 @@ class _InteractionMethod:
         meta["elapsed_s"] = round(time.perf_counter() - t0, 4)
         meta["resolved_fill"] = meta.get("fill")
         return ValuationResult(method=self.name, phi=phi, meta=meta)
+
+
+def _distributed_interactions(x_train, y_train, x_test, y_test, k, mode,
+                              mesh, device):
+    """Run the production cell (`launch.specs.sti_cell`) on `mesh`, a
+    `DeviceGrid` (default: every local card, or the CPU, as
+    `make_local_mesh(device)` lays them). Test points split over "data",
+    phi over "model" column blocks; one sum over the data shards combines
+    the partials. Finalize: acc / t, with diag / t on the diagonal, in
+    place on the gathered phi. Returns (phi, {"data": D, "model": M})."""
+    from repro_torch.core.valuation import distributed_sti_step
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if mesh is None:
+        mesh = make_local_mesh(device)
+    t = int(x_test.shape[0])
+    phi, diag = distributed_sti_step(mesh, k, mode)(x_train, y_train,
+                                                    x_test, y_test)
+    phi.div_(t)
+    phi.diagonal().copy_(diag / t)
+    return phi, mesh.axis_sizes
 
 
 class _PointValueMethod:

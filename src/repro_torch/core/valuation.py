@@ -9,6 +9,11 @@ the valuator's engine is "sharded", an `ApproxValuationSession` when it
 is "approx" -- and `autotune()` pre-tunes the fill and distance into the
 tuning cache. New code should use
 `get_method(name)(...)` and the sessions directly.
+
+`make_sti_step_fn` and `distributed_sti_step` are the unit of work of a
+production step: the whole test set in one call, partial sums not yet
+divided by t, on one device or spread over a ("data", "model") device
+grid.
 """
 
 from __future__ import annotations
@@ -16,11 +21,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import torch
+
 from repro_torch.core.methods import ENGINES, get_method
 from repro_torch.core.results import ValuationResult
 from repro_torch.core.session import ValuationSession
+from repro_torch.device import resolve_device, to_device
 
-__all__ = ["DataValuator"]
+__all__ = ["DataValuator", "make_sti_step_fn", "distributed_sti_step"]
 
 
 @dataclass
@@ -152,3 +160,88 @@ class DataValuator:
         """Leave-one-out values of the train points."""
         return self.run(x_train, y_train, x_test, y_test,
                         method="loo").values()
+
+
+def _sti_step_local(x_train, y_train, x_test, y_test, k: int, mode: str):
+    """One fully batched STI-KNN accumulation step, no streaming: the
+    distance kernel, a stable sort, ranks, u and g, then the square fill
+    kernel on a zeroed (n, n) accumulator (the reference takes a vmap over
+    a (t, n, n) gather). Tensors on one device.
+
+    Returns (phi_sum (n, n) f32, diag_sum (n,) f32), NOT yet divided by t,
+    so partial results from test shards combine by addition."""
+    from repro_torch.core.sti_knn import ranks_from_order, superdiagonal_g
+    from repro_torch.kernels.distance import distance_cuda
+    from repro_torch.kernels.sti_fill import sti_fill_acc_cuda
+
+    d2 = distance_cuda(x_test, x_train)
+    order = torch.sort(d2, dim=-1, stable=True).indices
+    ranks = ranks_from_order(order)
+    u = (y_train[order] == y_test[:, None]).to(torch.float32) / k
+    g = superdiagonal_g(u, k, mode=mode)
+    n = x_train.shape[0]
+    phi_sum = sti_fill_acc_cuda(
+        torch.zeros((n, n), dtype=torch.float32, device=x_train.device),
+        g, ranks)
+    diag_sum = torch.sum(
+        (y_train[None, :] == y_test[:, None]).to(torch.float32) / k, 0)
+    return phi_sum, diag_sum
+
+
+def _features(dev, *arrays):
+    """(x_train, y_train, x_test, y_test) on `dev`, features f32 and
+    contiguous."""
+    x_train, y_train, x_test, y_test = arrays
+    return (to_device(x_train, dev, torch.float32).contiguous(),
+            to_device(y_train, dev),
+            to_device(x_test, dev, torch.float32).contiguous(),
+            to_device(y_test, dev))
+
+
+def make_sti_step_fn(k: int, mode: str = "sti", device="cuda") -> Callable:
+    """The valuation step as one call on `device`:
+    step(x_train, y_train, x_test, y_test) -> (phi_sum, diag_sum), the
+    sums of `_sti_step_local` over the whole test set (a production caller
+    runs it per test shard and adds the results)."""
+    dev = resolve_device(device)
+
+    def step(x_train, y_train, x_test, y_test):
+        return _sti_step_local(*_features(dev, x_train, y_train, x_test,
+                                          y_test), int(k), mode)
+
+    return step
+
+
+def distributed_sti_step(grid, k: int, mode: str = "sti") -> Callable:
+    """The step of `make_sti_step_fn` spread over a ("data", "model")
+    `DeviceGrid` (`repro_torch.distributed.sharding`): the test points
+    split over the data shards, phi in column blocks over the model shards
+    (`launch.specs.sti_cell`, one distance and one rect fill launch per
+    cell). step(x_train, y_train, x_test, y_test) -> (phi_sum, diag_sum),
+    gathered on the grid's first device, not yet divided by t. Where every
+    model shard of data row 0 lives on that device the cells sum straight
+    into the row blocks of the gathered phi, so it is never held twice.
+    Raises unless t splits over the data shards and n over the model
+    shards."""
+    from repro_torch.configs.sti_knn_paper import STIConfig
+    from repro_torch.launch.specs import sti_cell
+
+    def step(x_train, y_train, x_test, y_test):
+        dev0 = grid.devices[0]
+        x_train, y_train, x_test, y_test = _features(
+            dev0, x_train, y_train, x_test, y_test)
+        (n, d), t = x_train.shape, x_test.shape[0]
+        scfg = STIConfig(n_train=n, feat_dim=d, k=int(k), test_chunk=t,
+                         mode=mode)
+        cell = sti_cell(scfg, grid)[0]
+        m = grid.shape[1]
+        if all(grid.device(0, j) == dev0 for j in range(m)):
+            phi = torch.zeros((n, n), dtype=torch.float32, device=dev0)
+            _, diag = cell(x_train, y_train, x_test, y_test,
+                           out=list(torch.split(phi, n // m)))
+            return phi, diag
+        acc, diag = cell(x_train, y_train, x_test, y_test)
+        # phi is symmetric: the gathered column blocks are the row blocks
+        return torch.cat([a.T.to(dev0) for a in acc]), diag
+
+    return step

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["make_circles", "make_moons", "make_gaussian_blobs", "flip_labels"]
+__all__ = ["make_circles", "make_moons", "make_gaussian_blobs", "flip_labels",
+           "make_token_batch"]
 
 
 def _tensors(x: np.ndarray, y: np.ndarray):
@@ -70,3 +71,16 @@ def flip_labels(y, frac: float, num_classes: int, seed: int = 0):
     mask = np.zeros(n, dtype=bool)
     mask[idx] = True
     return torch.from_numpy(y_new), torch.from_numpy(mask)
+
+
+def make_token_batch(generator: torch.Generator, batch: int, seq_len: int,
+                     vocab: int):
+    """Synthetic LM batch: (tokens, labels), (batch, seq_len) int32 each,
+    labels the stream shifted by one (labels[:, i] = tokens[:, i + 1]).
+    The stream is drawn from `generator` (on its own device), where the
+    JAX package draws from a `jax.random` key: the two packages give
+    different tokens for one seed."""
+    toks = torch.randint(0, vocab, (batch, seq_len + 1), generator=generator,
+                         dtype=torch.int64, device=generator.device)
+    toks = toks.to(torch.int32)
+    return toks[:, :-1], toks[:, 1:]

@@ -16,6 +16,14 @@ partials, then hand block i to shard i). It plays the part of the mesh
 axis in the JAX `shard_map` body. `torch.distributed` is not used: NCCL
 refuses two ranks on one card, so it could not run D > 1 on a one-card
 host.
+
+`DeviceGrid` is the counterpart of the JAX package's 2-D ("data",
+"model") mesh, for the "distributed" engine (`launch/specs.py::sti_cell`):
+a D x M grid over an explicit device list, repeats allowed, with the one
+collective that engine needs, `psum_data`, a sum over the data axis that
+leaves every model shard holding its block. No `torch.distributed`
+either, for the same reason: the grid runs (2, 2) on one card and (4, 2)
+on the CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "VALUATION_AXIS",
     "ShardGroup",
@@ -33,6 +43,7 @@ __all__ = [
     "shard_rows",
     "replicate",
     "gather_rows",
+    "DeviceGrid",
 ]
 
 # the name of the one sharded axis, as in the JAX package
@@ -133,3 +144,77 @@ def gather_rows(parts: Sequence[torch.Tensor],
     """The per-shard row blocks as one tensor on the first shard's device
     (the sharded state at finalize and checkpoint). Always a new tensor."""
     return torch.cat([p.to(group.devices[0]) for p in parts])
+
+
+def _indexed(device) -> torch.device:
+    """`device` resolved (raising when a card is asked for and absent),
+    a CUDA device given its index, so that equal devices compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGrid:
+    """A D x M grid of devices, axes ("data", "model"): the port's
+    counterpart of a 2-D `jax.sharding.Mesh`. `devices` lists the grid
+    row-major (device (i, j) is `devices[i * M + j]`); entries may repeat,
+    so four cells of a (2, 2) grid can share one card. Cell (i, j) takes
+    data shard i of what is sharded over "data" and owns block j of what
+    is sharded over "model"."""
+
+    devices: tuple[torch.device, ...]
+    shape: tuple[int, int]
+
+    axis_names = ("data", "model")
+
+    def __post_init__(self):
+        devs = tuple(_indexed(d) for d in self.devices)
+        shape = tuple(int(s) for s in self.shape)
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError(f"a device grid is 2-D with positive sizes, "
+                             f"got shape {self.shape}")
+        if len(devs) != shape[0] * shape[1]:
+            raise ValueError(f"{len(devs)} devices do not fill a "
+                             f"{shape[0]} x {shape[1]} grid")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "shape", shape)
+
+    @property
+    def axis_sizes(self) -> dict:
+        """{"data": D, "model": M}, as `dict(mesh.shape)` reads."""
+        return dict(zip(self.axis_names, self.shape))
+
+    def device(self, i: int, j: int) -> torch.device:
+        """The device of cell (i, j): data shard i, model shard j."""
+        return self.devices[i * self.shape[1] + j]
+
+    def psum_data(self, parts: Sequence[Sequence[torch.Tensor]]
+                  ) -> list[list[torch.Tensor]]:
+        """parts[i][j], cell (i, j)'s partial on its device -> the sum over
+        i for every j, on each cell's device: the psum over the data axis.
+        Per model shard j the distinct tensors are summed in data order,
+        in place into the first (the cell's own partials, never a
+        caller's). Cells that share a device may share one accumulator:
+        a tensor that appears again in a later data row already holds that
+        row's partial and is not added twice. Cells on one device get one
+        tensor, others a copy."""
+        d, m = self.shape
+        out = [[None] * m for _ in range(d)]
+        for j in range(m):
+            distinct, seen = [], set()
+            for i in range(d):
+                if id(parts[i][j]) not in seen:
+                    seen.add(id(parts[i][j]))
+                    distinct.append(parts[i][j])
+            total = distinct[0]
+            for p in distinct[1:]:
+                total.add_(p.to(total.device))
+            copies = {total.device: total}
+            for i in range(d):
+                dev = self.device(i, j)
+                if dev not in copies:
+                    copies[dev] = total.to(dev)
+                out[i][j] = copies[dev]
+        return out

@@ -9,8 +9,10 @@ tensors it launches a kernel of `csrc/flash_attention.cu`, chosen by dtype
 alone: bf16 runs on the tensor cores (`wgmma`, K/V by TMA, P split into
 bf16 hi + lo for P.V), f32 on the CUDA cores. On CPU tensors it takes
 `flash_attention_plain`, the function of `ref.flash_attention_ref`. The
-kernels are forward only: inputs that require grad raise on the card until
-the training slice brings their backward.
+kernels are forward only, as the reference's Pallas kernel is: inputs that
+require grad raise on the card, and the model's training path
+differentiates the plain blockwise attention (`models.attention`), as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "flash_attention_cuda is forward only: its backward comes with "
-            "the training slice (ROADMAP.md queue A 11)")
+            "flash_attention_cuda is forward only, as the reference's "
+            "kernel is: training differentiates the blockwise attention "
+            "of models.attention (ROADMAP.md queue A 3)")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
 

@@ -1,15 +1,26 @@
-"""Training launcher of the port. Training itself (the loss, the optimizer
-and the flash-attention backward) comes with a later slice (ROADMAP.md
-queue A 11); this module holds `reduced_config`, which the serve launcher
-and the tests use, as `repro.launch.train` does."""
+"""Training launcher of the port: counterpart of `repro.launch.train`.
+
+On the card, at full width (the dense family):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --steps 10 --batch 2 --seq 2048 --ckpt-dir CKPT
+On the CPU, reduced dims:
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --reduced --steps 4 --batch 2 --seq 64
+
+One device (`training.trainer.Trainer`); the reference's production mesh
+waits for the LM half of the sharding slice (ROADMAP.md queue A 3.8).
+`reduced_config` is also what the serve launcher and the tests use.
+"""
 
 from __future__ import annotations
+
+import argparse
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["reduced_config"]
+__all__ = ["reduced_config", "main"]
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
@@ -23,3 +34,55 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.sliding_window:
         kw["sliding_window"] = 512
     return cfg.replace(**kw)
+
+
+def main(argv=None):
+    """Parse the CLI, restore from --ckpt-dir if it holds a checkpoint,
+    and train on synthetic token batches (one seeded generator a step)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import make_token_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--reduced", action="store_true",
+                    help="shrink to ~100M params for a local run")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    tcfg = TrainerConfig(
+        steps=args.steps, grad_accum=args.grad_accum,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        opt=AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
+                        total_steps=args.steps),
+    )
+    tr = Trainer(cfg, tcfg, device=args.device)
+    params, opt_state = tr.init_state(seed=0)
+    params, opt_state, start = tr.maybe_restore(params, opt_state)
+    n_params = tr.model.num_params()
+    name = (torch.cuda.get_device_name(tr.device)
+            if tr.device.type == "cuda" else "cpu")
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={name}")
+
+    def batch_fn(step):
+        gen = torch.Generator().manual_seed(step)
+        toks, labels = make_token_batch(gen, args.batch, args.seq,
+                                        cfg.vocab_size)
+        return {"tokens": toks, "labels": labels}
+
+    return tr.fit(params, opt_state, batch_fn, start_step=start)
+
+
+if __name__ == "__main__":
+    main()

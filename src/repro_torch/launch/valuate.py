@@ -9,6 +9,8 @@ end-to-end on a CUDA card (or, when asked, the CPU).
       --shards 4 --devices cuda     # four shards on one card
   PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
       --engine sharded --shards 8 --devices cpu --n 64 --t 16
+  PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
+      --engine distributed --mesh-shape 4,2 --devices cpu --n 64 --t 16
   PYTHONPATH=src python -m repro_torch.launch.valuate --engine approx \
       --method knn_shapley --top-m 64 --recall-target 0.9 --autotune
   PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
@@ -25,6 +27,12 @@ splits the state into `--shards` row blocks over `--devices`, a comma-
 separated list with one device per shard (a single name is repeated
 `--shards` times); without `--devices` the shards go one per local card,
 so a one-card host runs several shards only through `--devices`.
+`--engine distributed` (alias `--distributed`, sti/sii) runs the
+production cell over a `--mesh-shape D,M` ("data", "model") device grid:
+`--devices` names one device per cell, row-major (a single name is
+repeated D x M times); without `--devices` the cells go one per local
+card, and without `--mesh-shape` the grid is every local card as (n, 1)
+(`launch.mesh.make_local_mesh`).
 `--engine approx` runs the LSH top-m engine (`--top-m`, default n/4
 clamped to [k+1, n]; `--top-m` >= n is bit for bit the exact engine;
 `--recall-target` records whether the measured recall met it) and prints
@@ -61,6 +69,33 @@ def _shard_options(args) -> dict:
         devices = devices * args.shards
     return {"shards": args.shards if devices is None else None,
             "devices": devices}
+
+
+def _grid_options(args) -> dict:
+    """--mesh-shape / --devices as the distributed engine's `mesh=`."""
+    if args.engine != "distributed" or (args.mesh_shape is None
+                                        and not args.devices):
+        return {}
+    from repro_torch.distributed.sharding import DeviceGrid
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if args.mesh_shape is None:
+        shape = make_local_mesh(args.device).shape
+    else:
+        shape = tuple(int(v) for v in args.mesh_shape.split(","))
+        if len(shape) != 2:
+            raise SystemExit(f"--mesh-shape takes D,M, got "
+                             f"{args.mesh_shape!r}")
+    cells = shape[0] * shape[1]
+    if args.devices:
+        devices = args.devices.split(",")
+        if len(devices) == 1:
+            devices = devices * cells
+    else:
+        import torch
+
+        devices = [torch.device("cuda", i) for i in range(cells)]
+    return {"mesh": DeviceGrid(tuple(devices), shape)}
 
 
 def _approx_options(args) -> dict:
@@ -163,7 +198,14 @@ def main():
     ap.add_argument("--devices", default=None,
                     help="--engine sharded: comma-separated devices, one "
                          "per shard (e.g. cuda,cuda,cuda,cuda); a single "
-                         "name is repeated --shards times")
+                         "name is repeated --shards times. --engine "
+                         "distributed: one per grid cell, row-major; a "
+                         "single name fills the grid")
+    ap.add_argument("--mesh-shape", default=None, metavar="D,M",
+                    help="--engine distributed: the (data, model) grid "
+                         "shape (default: every local card as (n, 1))")
+    ap.add_argument("--distributed", action="store_true",
+                    help="alias for --engine distributed")
     ap.add_argument("--top-m", type=int, default=None,
                     help="candidate-set size for --engine approx (default "
                          "n/4 clamped to [k+1, n]; >= n runs the exact "
@@ -188,6 +230,8 @@ def main():
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="persist the ValuationResult to PATH.npz + PATH.json")
     args = ap.parse_args()
+    if args.distributed:
+        args.engine = "distributed"
 
     x, y_clean = make_circles(args.n // 2, noise=0.08, seed=0)
     y, flipped = flip_labels(y_clean, args.noise_frac, 2, seed=1)
@@ -200,9 +244,12 @@ def main():
         ap.error("--top-m and --recall-target need --engine approx")
 
     t0 = time.time()
-    if (args.shards is not None or args.devices) and \
-            args.engine != "sharded":
-        ap.error("--shards and --devices need --engine sharded")
+    if args.shards is not None and args.engine != "sharded":
+        ap.error("--shards needs --engine sharded")
+    if args.devices and args.engine not in ("sharded", "distributed"):
+        ap.error("--devices needs --engine sharded or distributed")
+    if args.mesh_shape is not None and args.engine != "distributed":
+        ap.error("--mesh-shape needs --engine distributed")
     if args.resilient and args.engine not in ("fused", "sharded",
                                               "streamed"):
         ap.error("--resilient runs the streaming session: --engine fused, "
@@ -216,7 +263,7 @@ def main():
             x, y, xt, yt, k=args.k, engine=args.engine, fill=args.fill,
             distance=args.distance, test_batch=args.test_batch,
             device=args.device, **_approx_options(args),
-            **_tune_option(args), **shard_kw,
+            **_tune_option(args), **shard_kw, **_grid_options(args),
         )
     else:
         result = _point_values(args, x, y, xt, yt)
@@ -224,6 +271,8 @@ def main():
     meta = result.meta
     shards = (f", shards={meta.get('shards', 1)}"
               if meta["engine"] == "sharded" else "")
+    if meta["engine"] == "distributed":
+        shards = f", mesh={meta['mesh']}"
     print(f"{args.method} ({meta['engine']}, fill={meta.get('fill')}, "
           f"device={meta['device_kind']}{shards}) n={n} t={t} k={args.k}: "
           f"{dt:.3f}s")

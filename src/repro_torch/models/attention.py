@@ -139,10 +139,12 @@ def attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     """Full (train/prefill) attention. x: (b, s, d_model).
 
     Self-attention at the default positions (`positions=None`: arange)
-    runs `ops.flash_attention` -- the CUDA kernel on the card. Explicit
-    positions and cross-attention (`xattn_kv`: (b, s_enc, d_model); then
-    causal/window are ignored and kv positions are the encoder arange)
-    take the plain blockwise path.
+    runs `ops.flash_attention` -- the CUDA kernel on the card, forward
+    only. A call that needs a gradient (grad on, an input requiring it),
+    explicit positions and cross-attention (`xattn_kv`: (b, s_enc,
+    d_model); then causal/window are ignored and kv positions are the
+    encoder arange) take the plain blockwise path, the one the reference
+    differentiates.
     """
     b, s, _ = x.shape
     default_positions = positions is None and xattn_kv is None
@@ -164,7 +166,9 @@ def attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     kx = k[:, :, hmap, :].transpose(1, 2).contiguous()  # (b, hp, s_kv, hd)
     vx = v[:, :, hmap, :].transpose(1, 2).contiguous()
     qx = q.transpose(1, 2).contiguous()
-    if default_positions:
+    needs_grad = torch.is_grad_enabled() and (
+        qx.requires_grad or kx.requires_grad or vx.requires_grad)
+    if default_positions and not needs_grad:
         out = ops.flash_attention(qx, kx, vx, causal=causal, window=window)
     else:
         out = _blockwise_attn(qx, kx, vx, positions, k_pos, causal=causal,

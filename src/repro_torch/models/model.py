@@ -2,9 +2,9 @@
 config (counterpart of `repro.models.model`), for the dense family.
 
 Batch conventions (labels[i] = next token at position i):
+  {"tokens": (B, S) int, "labels": (B, S) int}    train (loss_fn)
   {"tokens": (B, S) int}                          prefill / embed
   {"tokens": (B, 1), "caches": ..., "index": int} decode
-The loss waits for the training slice.
 """
 
 from __future__ import annotations
@@ -14,9 +14,12 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import PD, ModelConfig, init_params, tree_leaves
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 __all__ = ["Model", "build_model"]
+
+AUX_COEF = 0.01  # MoE load-balance loss weight (0 aux for the dense family)
 
 
 @dataclass(frozen=True)
@@ -36,6 +39,14 @@ class Model:
         return T.forward(params, self.cfg, batch["tokens"], mode=mode,
                          caches=caches, index=index,
                          kv_block=self.cfg.kv_block)
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross entropy of `batch` ("tokens", "labels")
+        plus AUX_COEF times the auxiliary loss -> (loss, {"ce", "aux"}),
+        0-d f32 tensors; differentiate it with torch.autograd."""
+        logits, _, _, aux = self._fwd(params, batch, "train")
+        loss = L.cross_entropy(logits, batch["labels"])
+        return loss + AUX_COEF * aux, {"ce": loss, "aux": aux}
 
     def prefill(self, params, batch):
         """-> (logits at the last position (B, 1, V), stacked caches)."""

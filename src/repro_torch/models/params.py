@@ -5,6 +5,9 @@ arrays (`jax.tree.map(np.asarray, params)`) and returns the port's tree:
 the same dicts and lists, each leaf one tensor of the same shape, type and
 stacked layout (groups on the leading axis). `params_to_numpy` goes back.
 Both copy values exactly, so a round trip is bit for bit.
+`opt_state_from_jax` does the same for the optimizer state
+(`repro.training.optimizer.AdamState`, its leaves numpy arrays) and
+returns the port's `AdamState`.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from repro_torch.configs.base import tree_map
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax"]
 
 
 def params_from_jax(tree, device="cuda"):
@@ -28,3 +31,16 @@ def params_from_jax(tree, device="cuda"):
 def params_to_numpy(tree):
     """The port's params -> the same tree with numpy leaves (on the host)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def opt_state_from_jax(state, device="cuda"):
+    """Numpy-leaved JAX `AdamState(mu, nu, count)` -> the port's
+    `training.optimizer.AdamState` on `device`: the moment trees as
+    `params_from_jax` carries params, the count a 0-d int32 tensor."""
+    from repro_torch.training.optimizer import AdamState
+
+    dev = resolve_device(device)
+    return AdamState(
+        mu=params_from_jax(state.mu, dev), nu=params_from_jax(state.nu, dev),
+        count=torch.as_tensor(np.asarray(state.count, dtype=np.int32),
+                              device=dev))

@@ -7,20 +7,29 @@ leading layers axis, as in the JAX package, so one JAX leaf is one tensor
 here; where the JAX package runs `lax.scan` over the groups, the port runs
 a Python loop over views of the stacked tensors. Caches are stacked the
 same way, and decode writes them in place.
+
+In train mode with grad on, each group is recomputed in the backward pass
+(`cfg.remat`, `torch.utils.checkpoint`, as the reference wraps its group
+function in `jax.checkpoint`), and the stacked weights are split once per
+forward (`torch.unbind`): slicing them group by group would give every
+group a full-size zero gradient of the stacked tensors to add.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import PD, ModelConfig, tree_map
+from repro_torch.configs.base import (
+    PD, ModelConfig, tree_leaves, tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
-__all__ = ["layer_schedule", "model_desc", "forward", "init_caches"]
+__all__ = ["layer_schedule", "model_desc", "forward", "init_caches",
+           "pooled_embeddings"]
 
 
 class Entry(NamedTuple):
@@ -34,7 +43,7 @@ def layer_schedule(cfg: ModelConfig) -> list[Entry]:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported; the port "
-            f"runs the dense family only (ROADMAP.md queue A 11)")
+            f"runs the dense family only (ROADMAP.md queue A 3)")
     mixer = "swa" if cfg.sliding_window else "attn"
     ffn = None if cfg.d_ff == 0 else "mlp"
     return [Entry(mixer, ffn) for _ in range(cfg.group_size)]
@@ -108,6 +117,41 @@ def _apply_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
     return x, new_cache
 
 
+def _unstack(tree, n: int) -> list:
+    """The n per-group trees of a stacked tree: each leaf split once along
+    its leading axis (`torch.unbind`, views), so a backward pass stacks
+    each leaf's group gradients into one tensor."""
+    leaves = [w.unbind(0) for w in tree_leaves(tree)]
+    return [tree_unflatten(tree, [parts[gi] for parts in leaves])
+            for gi in range(n)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat "dots": keep the outputs of 2-D matrix products (the
+    projections; the reference's dots_with_no_batch_dims_saveable) and
+    recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """`fn` recomputed in the backward pass as `cfg.remat` asks."""
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+
+    if cfg.remat in ("block", "full"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"remat {cfg.remat!r}: none | block | full | dots")
+
+
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
             caches=None, index=None, kv_block=1024, positions=None):
     """Decoder LM forward.
@@ -126,10 +170,8 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     sched = layer_schedule(cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     have_cache = caches is not None
-    per_group = []
-    for gi in range(cfg.num_groups):
-        gparams = tree_map(lambda w: w[gi], params["groups"])
-        gcaches = tree_map(lambda c: c[gi], caches) if have_cache else None
+
+    def group_fn(x, gparams, gcaches):
         new_caches = []
         for i, e in enumerate(sched):
             x, nc = _apply_block(
@@ -137,6 +179,15 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
                 gcaches[i] if have_cache else None, index, positions,
                 kv_block)
             new_caches.append(nc)
+        return x, new_caches
+
+    if mode == "train" and cfg.remat != "none" and torch.is_grad_enabled():
+        group_fn = _remat(group_fn, cfg)
+    per_group = []
+    for gi, gparams in enumerate(_unstack(params["groups"],
+                                          cfg.num_groups)):
+        gcaches = tree_map(lambda c: c[gi], caches) if have_cache else None
+        x, new_caches = group_fn(x, gparams, gcaches)
         per_group.append(new_caches)
 
     if mode == "decode":
@@ -149,3 +200,10 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     logits = L.logits_from_hidden(params["embed"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, x, out_caches, aux
+
+
+def pooled_embeddings(params, cfg: ModelConfig, tokens, **kw):
+    """Mean-pooled final hidden state, (B, d_model) f32: the valuation
+    feature extractor (the `embed_fn` of the sessions)."""
+    _, hidden, _, _ = forward(params, cfg, tokens, mode="train", **kw)
+    return torch.mean(hidden.to(torch.float32), dim=1)

@@ -232,15 +232,18 @@ def test_get_method_matches_jax(method, engine):
 def test_registry_errors_and_listing():
     assert repro_torch.list_methods() == ["knn_shapley", "loo", "sii", "sti",
                                           "wknn"]
-    assert repro_torch.ENGINES["sti"] == ("fused", "scan", "sharded",
-                                          "approx")
-    assert repro_torch.ENGINES["knn_shapley"] == ("streamed", "eager",
-                                                  "sharded", "approx",
-                                                  "oracle")
+    # the reference's table (src/repro/core/methods.py), every engine
+    # ported
+    assert repro_torch.ENGINES == {
+        "sti": ("fused", "scan", "distributed", "sharded", "approx"),
+        "sii": ("fused", "scan", "distributed", "sharded", "approx"),
+        "knn_shapley": ("streamed", "eager", "sharded", "approx", "oracle"),
+        "wknn": ("streamed", "eager", "sharded", "approx", "oracle"),
+        "loo": ("streamed", "eager", "sharded", "approx"),
+    }
     x, y, xt, yt = _problem(8, 2, 2, 1)
-    # engines the port has not ported yet are refused, not emulated
-    for method, engine in (("sti", "distributed"), ("sii", "distributed"),
-                           ("wknn", "fused"), ("loo", "oracle")):
+    # engines a method does not have are refused, not emulated
+    for method, engine in (("wknn", "fused"), ("loo", "oracle")):
         with pytest.raises(ValueError, match="valid engines"):
             get_method(method)(x, y, xt, yt, k=3, engine=engine,
                                device="cpu")
@@ -338,7 +341,11 @@ def test_import_leaves_no_jax_or_repro_module():
         "repro_torch.distributed.sharding, repro_torch.core.valuation, "
         "repro_torch.kernels.sti_fill, repro_torch.kernels.autotune, "
         "repro_torch.models, repro_torch.serving.engine, "
-        "repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+        "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
+        "repro_torch.launch.specs, repro_torch.launch.mesh, "
+        "repro_torch.launch.train, repro_torch.training.optimizer, "
+        "repro_torch.training.compression, repro_torch.training.trainer, "
+        "repro_torch.data.pipeline\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
