@@ -105,7 +105,8 @@ and then the "distributed" engine and the LM training path:
       (one distance, one square fill launch) against [4]'s sums;
   [14] training qwen3-1.7b: the loss and every gradient leaf on the card
       against the CPU at full width with 2 layers (f32, TF32 off, 1 x 256
-      tokens), within 1e-4; 4 `Trainer` steps at full width and depth
+      tokens; the CPU side in a process of its own, MKL in its
+      reproducible mode), within 1e-4; 4 `Trainer` steps at full width and depth
       (2.03 B parameters, bf16 activations, f32 parameters and AdamW,
       remat "block", one fixed batch of 2 x 2048 tokens, warmup 1):
       finite, the last loss below the first; step time, tokens/s, peak
@@ -1993,11 +1994,35 @@ def card_vs_cpu_inputs(torch, np, rng):
                            "labels": torch.from_numpy(toks[:, 1:])}
 
 
+def cpu_host() -> dict:
+    """The host CPU as /proc/cpuinfo names it (vendor, model, the vector
+    and matrix extensions that pick the CPU kernels) and its core count."""
+    info = {}
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return {"cores": os.cpu_count()}
+    for line in text.splitlines():
+        key, _, val = line.partition(":")
+        key = key.strip()
+        if key in ("vendor_id", "model name", "flags") and key not in info:
+            info[key] = val.strip()
+    flags = set(info.pop("flags", "").split())
+    return dict(info, cores=os.cpu_count(), extensions=sorted(
+        flags & {"avx2", "avx512f", "avx512_bf16", "avx512_vnni",
+                 "amx_tile", "amx_bf16", "fma"}))
+
+
+CPU_ENV = ("ATEN_CPU_CAPABILITY", "MKL_CBWR", "OMP_NUM_THREADS",
+           "MKL_NUM_THREADS")
+
+
 def cpu_grads_main(path: str) -> None:
     """`chip_smoke.py --cpu-grads PATH`: [14a]'s CPU side, in a process of
     its own so that nothing an earlier phase left in the parent (threads,
     allocator, floating-point state) touches the reference. Saves the
-    loss, the gradient leaves, the seconds and the CPU settings to PATH."""
+    loss, the gradient leaves, the seconds, the CPU settings and the host
+    to PATH."""
     import numpy as np
     import torch
 
@@ -2012,7 +2037,10 @@ def cpu_grads_main(path: str) -> None:
                              "float32_matmul_precision":
                                  torch.get_float32_matmul_precision(),
                              "cpu_capability":
-                                 torch.backends.cpu.get_cpu_capability()}},
+                                 torch.backends.cpu.get_cpu_capability(),
+                             "mkl": torch.backends.mkl.is_available(),
+                             "env": {k: os.environ.get(k) for k in CPU_ENV},
+                             "host": cpu_host()}},
                path)
 
 
@@ -2046,12 +2074,17 @@ def training_phase(torch, np, dev, c) -> dict:
                 "labels": torch.from_numpy(toks[:, 1:])}
 
     # [14a] the card against the CPU: full width, 2 layers, f32, TF32 off;
-    # the CPU side in a fresh process (`cpu_grads_main`)
+    # the CPU side in a fresh process (`cpu_grads_main`), its MKL in the
+    # conditional numerical reproducibility mode: by default MKL's f32
+    # products here come out one of two ways from run to run on one host,
+    # one of them 1.85e-4 of its max off in ffn.w1's gradient
+    # (grad_reference_probe.py)
     model, params, batch = card_vs_cpu_inputs(torch, np, rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grads_") as tmp:
         path = Path(tmp) / "cpu_grads.pt"
         subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        "--cpu-grads", str(path)], check=True, timeout=900)
+                        "--cpu-grads", str(path)], check=True, timeout=900,
+                       env=dict(os.environ, MKL_CBWR="AVX2"))
         ref = torch.load(path)
     closs, cgrads, cpu_s = ref["loss"], ref["grads"], ref["seconds"]
     gparams = tree_map(lambda p: p.to(dev), params)

@@ -44,7 +44,10 @@ a divisor of n) or `devices=`, one device per shard, repeats allowed (so
 falls back to the single-device step. Either option without
 `engine="sharded"` raises, as does `mesh=` without
 `engine="distributed"` and as do the approx options (`top_m`, `seed`,
-`recall_target`, `approx_params`) without `engine="approx"`.
+`recall_target`, `approx_params`) without `engine="approx"`. The
+distributed engine refuses `fill`, `fill_params`, `distance`,
+`test_batch` and `autotune` (its cells always run the distance and rect
+fill kernels), and a `device=` that is not its grid's first device.
 `autotune=True` tunes what "auto" finds missing from the tuning cache
 (`repro_torch.kernels.autotune`). Every entry point takes `device=`
 ("cuda" by default; "cpu" must be asked for) and raises when a CUDA
@@ -180,6 +183,31 @@ def _check_approx_options(engine: str, approx: dict) -> None:
         )
 
 
+def _check_distributed_options(engine: str, mesh, device, **options) -> None:
+    """mesh= only with the distributed engine, and that engine takes none
+    of the single-device pipeline's knobs (its cells always run the
+    distance and rect fill kernels): a knob it would ignore raises.
+    `options` maps each knob to (value, default). A device= beside mesh=
+    must name the grid's first device; the default "cuda" defers to it."""
+    if mesh is not None and engine != "distributed":
+        raise ValueError(
+            f"mesh= is only meaningful with engine='distributed' (got "
+            f"engine={engine!r})")
+    if engine != "distributed":
+        return
+    given = sorted(nm for nm, (v, default) in options.items()
+                   if v != default)
+    if given:
+        raise ValueError(f"options {given} do not apply to "
+                         f"engine='distributed'")
+    if mesh is not None and not (isinstance(device, str)
+                                 and device == "cuda"):
+        dev, first = resolve_device(device), mesh.devices[0]
+        if dev.type != first.type or dev.index not in (None, first.index):
+            raise ValueError(f"device={str(device)!r} is not the grid's "
+                             f"first device {first}")
+
+
 def _run_approx(x_train, y_train, x_test, y_test, approx: dict, **kw):
     """Drive an `ApproxValuationSession` over the whole test set; returns
     (result, session)."""
@@ -235,16 +263,20 @@ class _InteractionMethod:
         if engine not in ENGINES[self.name]:
             raise _engine_error(self.name, engine)
         _check_shard_options(engine, shards, devices)
-        if mesh is not None and engine != "distributed":
-            raise ValueError(
-                f"mesh= is only meaningful with engine='distributed' (got "
-                f"engine={engine!r})")
+        _check_distributed_options(
+            engine, mesh, device, fill=(fill, "auto"),
+            fill_params=(fill_params, None), distance=(distance, "auto"),
+            test_batch=(test_batch, 256), autotune=(autotune, False))
         approx = {nm: v for nm, v in dict(
             top_m=top_m, seed=seed, recall_target=recall_target,
             approx_params=approx_params).items() if v is not None}
         _check_approx_options(engine, approx)
         if devices is not None:
             device = devices[0]
+        if engine == "distributed" and mesh is None:
+            from repro_torch.launch.mesh import make_local_mesh
+
+            mesh = make_local_mesh(device)
         if mesh is not None:
             device = mesh.devices[0]
         dev = resolve_device(device)
@@ -292,7 +324,7 @@ class _InteractionMethod:
                          if nm in res.meta})
         elif engine == "distributed":
             phi, mesh_shape = _distributed_interactions(
-                x_train, y_train, x_test, y_test, k, self.mode, mesh, dev)
+                x_train, y_train, x_test, y_test, k, self.mode, mesh)
             meta.update(mesh=mesh_shape)
         else:  # scan
             from repro_torch.core.sti_knn import (
@@ -317,18 +349,15 @@ class _InteractionMethod:
 
 
 def _distributed_interactions(x_train, y_train, x_test, y_test, k, mode,
-                              mesh, device):
+                              mesh):
     """Run the production cell (`launch.specs.sti_cell`) on `mesh`, a
-    `DeviceGrid` (default: every local card, or the CPU, as
-    `make_local_mesh(device)` lays them). Test points split over "data",
+    `DeviceGrid` (the caller's default: `make_local_mesh(device)`). Test
+    points split over "data",
     phi over "model" column blocks; one sum over the data shards combines
     the partials. Finalize: acc / t, with diag / t on the diagonal, in
     place on the gathered phi. Returns (phi, {"data": D, "model": M})."""
     from repro_torch.core.valuation import distributed_sti_step
-    from repro_torch.launch.mesh import make_local_mesh
 
-    if mesh is None:
-        mesh = make_local_mesh(device)
     t = int(x_test.shape[0])
     phi, diag = distributed_sti_step(mesh, k, mode)(x_train, y_train,
                                                     x_test, y_test)

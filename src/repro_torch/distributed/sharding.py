@@ -20,8 +20,8 @@ host.
 `DeviceGrid` is the counterpart of the JAX package's 2-D ("data",
 "model") mesh, for the "distributed" engine (`launch/specs.py::sti_cell`):
 a D x M grid over an explicit device list, repeats allowed, with the one
-collective that engine needs, `psum_data`, a sum over the data axis that
-leaves every model shard holding its block. No `torch.distributed`
+collective that engine needs, `psum_data`, a sum over the data axis onto
+data row 0, which then holds every model shard's block. No `torch.distributed`
 either, for the same reason: the grid runs (2, 2) on one card and (4, 2)
 on the CPU.
 """
@@ -191,30 +191,20 @@ class DeviceGrid:
         return self.devices[i * self.shape[1] + j]
 
     def psum_data(self, parts: Sequence[Sequence[torch.Tensor]]
-                  ) -> list[list[torch.Tensor]]:
-        """parts[i][j], cell (i, j)'s partial on its device -> the sum over
-        i for every j, on each cell's device: the psum over the data axis.
-        Per model shard j the distinct tensors are summed in data order,
-        in place into the first (the cell's own partials, never a
-        caller's). Cells that share a device may share one accumulator:
+                  ) -> list[torch.Tensor]:
+        """parts[i][j], cell (i, j)'s partial on its device -> for every j
+        the sum over i, on device (0, j): the psum over the data axis, held
+        only where the reference's out spec reads it (data row 0). The
+        distinct tensors are summed in data order, in place into
+        parts[0][j]. Cells that share a device may share one accumulator:
         a tensor that appears again in a later data row already holds that
-        row's partial and is not added twice. Cells on one device get one
-        tensor, others a copy."""
-        d, m = self.shape
-        out = [[None] * m for _ in range(d)]
-        for j in range(m):
-            distinct, seen = [], set()
-            for i in range(d):
-                if id(parts[i][j]) not in seen:
-                    seen.add(id(parts[i][j]))
-                    distinct.append(parts[i][j])
-            total = distinct[0]
-            for p in distinct[1:]:
-                total.add_(p.to(total.device))
-            copies = {total.device: total}
-            for i in range(d):
-                dev = self.device(i, j)
-                if dev not in copies:
-                    copies[dev] = total.to(dev)
-                out[i][j] = copies[dev]
+        row's partial and is not added twice."""
+        out = []
+        for j in range(len(parts[0])):
+            total, seen = parts[0][j], {id(parts[0][j])}
+            for row in parts[1:]:
+                if id(row[j]) not in seen:
+                    seen.add(id(row[j]))
+                    total.add_(row[j].to(total.device))
+            out.append(total)
         return out

@@ -16,11 +16,11 @@ __all__ = ["make_local_mesh"]
 
 
 def make_local_mesh(device="cuda") -> DeviceGrid:
-    """Every local card as an (n_cards, 1) ("data", "model") grid, or the
-    CPU as a (1, 1) grid when `device="cpu"` is asked for. Raises when a
-    card is asked for and absent."""
+    """Every local card as an (n_cards, 1) ("data", "model") grid; a
+    device that names one card (`"cuda:1"`) or the CPU (`"cpu"`) as a
+    (1, 1) grid of it. Raises when a card is asked for and absent."""
     dev = resolve_device(device)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or dev.index is not None:
         return DeviceGrid((dev,), (1, 1))
     count = torch.cuda.device_count()
     return DeviceGrid(tuple(torch.device("cuda", i) for i in range(count)),

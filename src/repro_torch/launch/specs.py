@@ -45,9 +45,10 @@ def sti_cell(scfg, grid: DeviceGrid):
          symmetric, so column block j is the transpose of the (n/M, n) row
          block j, and the cell fills that row block with the rect fill
          kernel, its row table the window at column j n/M of its ranks;
-      4. `grid.psum_data` over the data shards: every model shard holds
-         the block summed over all tc test points.
-    The diagonal sum, sum_p 1[y_a == y_p] / k, is summed the same way.
+      4. `grid.psum_data` over the data shards: data row 0 holds every
+         model shard's block summed over all tc test points.
+    The diagonal sum, sum_p 1[y_a == y_p] / k, is taken once per data
+    shard and summed the same way onto device (0, 0).
 
     Returns `(step, args, in_specs, out_specs)` as the JAX function does:
     `args` the (shape, dtype) of each input, the specs naming how each is
@@ -56,8 +57,8 @@ def sti_cell(scfg, grid: DeviceGrid):
     column block on device (0, j), the reference's P(None, "model") read
     per shard (a transposed view of a contiguous row block); diag the
     (n,) sum on device (0, 0), P(None). Neither is divided by tc.
-    `col_ids` defaults to arange(n), what the reference's callers pass;
-    other ids gather the row table instead of viewing it. `out`, M zeroed
+    `col_ids` is arange(n) (the default), what every caller of the
+    reference passes; other ids raise. `out`, M zeroed
     contiguous (n/M, n) f32 tensors, out[j] on device (0, j), takes the
     sums in place (the row blocks of one gathered (n, n) tensor, say).
     Cells that share a device fill one accumulator, so a (2, 2) grid on
@@ -75,6 +76,10 @@ def sti_cell(scfg, grid: DeviceGrid):
                 f"the cell takes x_train ({n}, {dim}) and x_test ({tc}, "
                 f"{dim}), got {tuple(x_train.shape)} and "
                 f"{tuple(x_test.shape)}")
+        if col_ids is not None and not torch.equal(
+                torch.as_tensor(col_ids).cpu().long(), torch.arange(n)):
+            raise ValueError("col_ids takes only arange(n_train), the ids "
+                             "every caller of the reference's cell passes")
         if out is not None and (len(out) != m_size or any(
                 o.shape != (n_local, n) or o.dtype != torch.float32
                 or not o.is_contiguous() or o.device != grid.device(0, j)
@@ -87,7 +92,7 @@ def sti_cell(scfg, grid: DeviceGrid):
             train[dev] = (x_train.to(dev, torch.float32).contiguous(),
                           y_train.to(dev))
         accs = [[None] * m_size for _ in range(d_size)]
-        diags = [[None] * m_size for _ in range(d_size)]
+        diags = [None] * d_size
         for j in range(m_size):
             shared = {}   # device -> column j's accumulator on it
             for i in range(d_size):
@@ -101,22 +106,20 @@ def sti_cell(scfg, grid: DeviceGrid):
                 ranks = ranks_from_order(order)
                 u = (ytr[order] == yt[:, None]).to(torch.float32) / k
                 g = superdiagonal_g(u, k, mode=mode)
-                if col_ids is None:
-                    rows = rect_row_view(ranks, j * n_local, n_local)
-                else:
-                    cols = col_ids[j * n_local:(j + 1) * n_local].to(dev)
-                    rows = ranks[:, cols.long()]
                 if dev not in shared:
                     shared[dev] = (out[j] if out is not None and i == 0
                                    else torch.zeros((n_local, n),
                                                     dtype=torch.float32,
                                                     device=dev))
-                accs[i][j] = sti_fill_acc_rect_cuda(shared[dev], g, rows,
-                                                    ranks)
-                diags[i][j] = torch.sum(
-                    (ytr[None, :] == yt[:, None]).to(torch.float32) / k, 0)
-        blocks = grid.psum_data(accs)[0]
-        diag = grid.psum_data(diags)[0][0]
+                accs[i][j] = sti_fill_acc_rect_cuda(
+                    shared[dev], g, rect_row_view(ranks, j * n_local,
+                                                  n_local), ranks)
+                if j == 0:   # the diagonal depends on the data shard only
+                    diags[i] = torch.sum(
+                        (ytr[None, :] == yt[:, None]).to(torch.float32) / k,
+                        0)
+        blocks = grid.psum_data(accs)
+        diag = grid.psum_data([[dg] for dg in diags])[0]
         return [b.T for b in blocks], diag
 
     args = ((n, dim), torch.float32), ((n,), torch.int32), \

@@ -31,8 +31,10 @@ so a one-card host runs several shards only through `--devices`.
 production cell over a `--mesh-shape D,M` ("data", "model") device grid:
 `--devices` names one device per cell, row-major (a single name is
 repeated D x M times); without `--devices` the cells go one per local
-card, and without `--mesh-shape` the grid is every local card as (n, 1)
-(`launch.mesh.make_local_mesh`).
+card (all on the CPU with `--device cpu`), and without `--mesh-shape`
+the grid is every local card as (n, 1) (`launch.mesh.make_local_mesh`).
+It takes none of the fused pipeline's knobs (`--fill`, `--distance`,
+`--test-batch`, `--autotune`).
 `--engine approx` runs the LSH top-m engine (`--top-m`, default n/4
 clamped to [k+1, n]; `--top-m` >= n is bit for bit the exact engine;
 `--recall-target` records whether the measured recall met it) and prints
@@ -73,8 +75,7 @@ def _shard_options(args) -> dict:
 
 def _grid_options(args) -> dict:
     """--mesh-shape / --devices as the distributed engine's `mesh=`."""
-    if args.engine != "distributed" or (args.mesh_shape is None
-                                        and not args.devices):
+    if args.mesh_shape is None and not args.devices:
         return {}
     from repro_torch.distributed.sharding import DeviceGrid
     from repro_torch.launch.mesh import make_local_mesh
@@ -91,6 +92,8 @@ def _grid_options(args) -> dict:
         devices = args.devices.split(",")
         if len(devices) == 1:
             devices = devices * cells
+    elif args.device == "cpu":
+        devices = ["cpu"] * cells
     else:
         import torch
 
@@ -250,12 +253,22 @@ def main():
         ap.error("--devices needs --engine sharded or distributed")
     if args.mesh_shape is not None and args.engine != "distributed":
         ap.error("--mesh-shape needs --engine distributed")
+    grid = args.engine == "distributed" and args.method in ("sti", "sii")
+    if grid and (args.fill != "auto" or args.distance != "auto"
+                 or args.test_batch != 256 or args.autotune):
+        ap.error("--engine distributed takes none of --fill, --distance, "
+                 "--test-batch and --autotune: its cells always run the "
+                 "distance and rect fill kernels")
     if args.resilient and args.engine not in ("fused", "sharded",
                                               "streamed"):
         ap.error("--resilient runs the streaming session: --engine fused, "
                  "streamed or sharded")
     if args.resilient:
         result = _resilient_values(args, x, y, xt, yt)
+    elif grid:
+        result = get_method(args.method)(
+            x, y, xt, yt, k=args.k, engine="distributed", device=args.device,
+            **_grid_options(args))
     elif args.method in ("sti", "sii"):
         shard_kw = {nm: v for nm, v in _shard_options(args).items()
                     if v is not None}
@@ -263,7 +276,7 @@ def main():
             x, y, xt, yt, k=args.k, engine=args.engine, fill=args.fill,
             distance=args.distance, test_batch=args.test_batch,
             device=args.device, **_approx_options(args),
-            **_tune_option(args), **shard_kw, **_grid_options(args),
+            **_tune_option(args), **shard_kw,
         )
     else:
         result = _point_values(args, x, y, xt, yt)

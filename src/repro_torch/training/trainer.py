@@ -3,11 +3,20 @@
 `Trainer(cfg, tcfg, device="cuda")` trains one model on one device: the
 loss and its gradients by autograd (each layer group recomputed in the
 backward pass, `cfg.remat`), gradient accumulation over micro-batches,
-AdamW in place (`training.optimizer`), a `StepGuard` around every step
-(deadline, bounded retries), a `HealthLog` of step times (stragglers),
-an asynchronous checkpoint of (params, opt_state) every `ckpt_every`
-steps and `maybe_restore` from the newest verified one, and batches from
-a deterministic `batch_fn(step)` through a `ShardedPrefetchLoader`.
+AdamW in place (`training.optimizer`), a `StepGuard` around the loss
+and gradients of every step (deadline, bounded retries), a `HealthLog`
+of step times (stragglers), an asynchronous checkpoint of (params,
+opt_state) every `ckpt_every` steps and `maybe_restore` from the newest
+verified one, and batches from a deterministic `batch_fn(step)` through
+a `ShardedPrefetchLoader`.
+
+Only the gradient phase is retried: it reads the state and writes none.
+The update writes the parameters and moments in place (a second copy of
+either is 8 GB at qwen3-1.7b's width), so it is never run twice: a fault
+inside it, or a step that overruns its deadline once it has started,
+raises and leaves the run to `maybe_restore`. The reference reaches the
+same end by donating (params, opt_state) to its jitted step, whose
+buffers a second attempt could not read.
 
 Checkpoints hold the reference's leaves under the reference's keys, so a
 run resumes across the two packages in either direction.
@@ -20,6 +29,7 @@ port's `TrainerConfig` has no `strategy` until then.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -29,7 +39,8 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, tree_leaves, tree_unflatten
 from repro_torch.data.pipeline import ShardedPrefetchLoader
 from repro_torch.device import resolve_device
-from repro_torch.distributed.fault_tolerance import HealthLog, StepGuard
+from repro_torch.distributed.fault_tolerance import (
+    HealthLog, StepGuard, block_until_ready)
 from repro_torch.models import build_model
 from repro_torch.training.optimizer import (
     AdamWConfig, adamw_init, adamw_update)
@@ -108,10 +119,9 @@ class Trainer:
             loss_sum = loss_sum + loss.detach()
         return loss_sum / accum, metrics, [g / accum for g in grads]
 
-    def step(self, params, opt_state, batch):
-        """One training step, params and moments updated in place ->
-        (params, opt_state, metrics): loss, ce, aux, grad_norm and lr, 0-d
-        tensors on the device."""
+    def _gradients(self, params, batch):
+        """(loss, metrics, grads) of one batch, the parameters left as they
+        were: the part of a step that is safe to run again."""
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -122,10 +132,44 @@ class Trainer:
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        params, opt_state, om = adamw_update(
-            self.tcfg.opt, tree_unflatten(params, grads), opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, dict(metrics, loss=loss.detach(), **om)
+        return loss.detach(), metrics, grads
+
+    def _apply(self, params, opt_state, grads):
+        """AdamW in place -> (params, opt_state, {"grad_norm", "lr"})."""
+        return adamw_update(self.tcfg.opt, tree_unflatten(params, grads),
+                            opt_state, params)
+
+    def step(self, params, opt_state, batch):
+        """One training step, params and moments updated in place ->
+        (params, opt_state, metrics): loss, ce, aux, grad_norm and lr, 0-d
+        tensors on the device. Unguarded: `fit` guards its steps."""
+        loss, metrics, grads = self._gradients(params, batch)
+        params, opt_state, om = self._apply(params, opt_state, grads)
+        return params, opt_state, dict(metrics, loss=loss, **om)
+
+    def _guarded_step(self, params, opt_state, batch):
+        """`step` under the guard -> (params, opt_state, metrics, dt). The
+        gradient phase is retried; the in-place update runs once, and a
+        fault inside it or an overrun of the whole step raises."""
+        t0 = time.time()
+        (loss, metrics, grads), _ = self.guard.run(self._gradients, params,
+                                                   batch)
+        try:
+            params, opt_state, om = self._apply(params, opt_state, grads)
+            block_until_ready((params, opt_state))
+        except Exception as e:
+            raise RuntimeError(
+                "the in-place optimizer update failed part way: params and "
+                "opt_state no longer belong to one step; resume from the "
+                "last checkpoint (maybe_restore)") from e
+        dt = time.time() - t0
+        if dt > self.tcfg.step_deadline_s:
+            raise RuntimeError(
+                f"step overran its deadline ({dt:.1f}s > "
+                f"{self.tcfg.step_deadline_s}s) after the in-place update; "
+                f"not retried, as a retry would apply the update twice")
+        return params, opt_state, dict(metrics, loss=loss, **om), dt
 
     # -------------------------------------------------------------- run
     def fit(self, params, opt_state, batch_fn: Callable[[int], Any],
@@ -142,8 +186,8 @@ class Trainer:
                 if step_idx != s:
                     raise RuntimeError(f"loader at step {step_idx}, "
                                        f"trainer at {s}")
-                (params, opt_state, metrics), dt = self.guard.run(
-                    self.step, params, opt_state, batch)
+                params, opt_state, metrics, dt = self._guarded_step(
+                    params, opt_state, batch)
                 if self.health.record(dt):
                     print(f"[straggler] step {s} took {dt:.2f}s")
                 if s % self.tcfg.log_every == 0 or s == self.tcfg.steps - 1:

@@ -94,9 +94,9 @@ def test_grid_raises_without_a_card_unless_cpu_is_asked():
 
 
 def test_psum_data_adds_each_distinct_partial_once():
-    """Distinct partials add in data order into the first; a tensor shared
-    by two cells (one accumulator on one device) counts once; every cell
-    of a model column reads the same sum."""
+    """Distinct partials add in data order into data row 0's own; a tensor
+    shared by two cells (one accumulator on one device) counts once; the
+    sums are data row 0's tensors, nothing is copied to other rows."""
     grid = _grid((3, 2))
     rng = np.random.default_rng(0)
     a = [torch.from_numpy(rng.normal(size=4).astype(np.float32))
@@ -106,8 +106,21 @@ def test_psum_data_adds_each_distinct_partial_once():
     parts = [[a[0].clone(), a[3].clone()], [a[1], None], [a[2], a[4]]]
     parts[1][1] = parts[0][1]          # cells (0, 1) and (1, 1) share
     out = grid.psum_data(parts)
-    assert all(out[i][0] is out[0][0] for i in range(3))
-    assert torch.equal(out[0][0], want0) and torch.equal(out[2][1], want1)
+    assert len(out) == 2 and out[0] is parts[0][0] and out[1] is parts[0][1]
+    assert torch.equal(out[0], want0) and torch.equal(out[1], want1)
+
+
+def test_cell_takes_only_the_identity_column_ids(moons):
+    """col_ids is arange(n), what every caller passes; other ids raise."""
+    x, y, xt, yt = (torch.from_numpy(a) for a in moons)
+    cfg = STIConfig(n_train=N, feat_dim=2, k=K, test_chunk=T)
+    step = sti_cell(cfg, _grid((2, 2)))[0]
+    acc, diag = step(x, y, xt, yt)
+    acc_ids, diag_ids = step(x, y, xt, yt, torch.arange(N, dtype=torch.int32))
+    assert all(torch.equal(p, q) for p, q in zip(acc, acc_ids))
+    assert torch.equal(diag, diag_ids)
+    with pytest.raises(ValueError, match="arange"):
+        step(x, y, xt, yt, torch.arange(N).flip(0))
 
 
 # ------------------------------------------------- the cell against JAX
@@ -301,6 +314,18 @@ def test_mesh_option_needs_the_distributed_engine(moons):
                           mesh=_grid((1, 1)))
 
 
+@pytest.mark.parametrize("option", [
+    {"fill": "chunked"}, {"fill_params": {"row_chunk": 8}},
+    {"distance": "plain"}, {"test_batch": 8}, {"autotune": True}])
+def test_distributed_engine_refuses_options_it_would_ignore(moons, option):
+    """The cells always run the distance and rect fill kernels: a knob of
+    the single-device pipeline raises instead of doing nothing."""
+    x, y, xt, yt = moons
+    with pytest.raises(ValueError, match="do not apply"):
+        get_method("sti")(x, y, xt, yt, k=K, engine="distributed",
+                          mesh=_grid((2, 2)), **option)
+
+
 def test_engine_table_helpers_match_the_reference():
     from repro.core import methods as jmethods
 
@@ -330,6 +355,11 @@ def test_launcher_runs_the_distributed_engine_on_the_cpu():
          "cpu", "--mesh-shape", "2,2"], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and "--mesh-shape needs" in p.stderr
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.valuate", "--device",
+         "cpu", "--distributed", "--fill", "chunked"], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0 and "takes none of" in p.stderr
 
 
 # ---------------------------------------------------------- on the card
@@ -370,6 +400,21 @@ def test_cuda_distributed_engine_on_a_grid_of_one_card(cuda, mode):
     tol = 1e-6 * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
     torch.testing.assert_close(got.cpu(), plain, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_default_grid_and_device_agree(cuda, moons):
+    """A device naming one card is a (1, 1) grid of it; device= beside a
+    grid that does not start on it raises."""
+    assert make_local_mesh("cuda:0").devices == (torch.device("cuda", 0),)
+    assert make_local_mesh().shape == (torch.cuda.device_count(), 1)
+    x, y, xt, yt = moons
+    res = get_method("sti")(x, y, xt, yt, k=K, engine="distributed",
+                            device="cuda:0")
+    assert res.meta["mesh"] == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="first device"):
+        get_method("sti")(x, y, xt, yt, k=K, engine="distributed",
+                          device="cpu", mesh=DeviceGrid((cuda,) * 4, (2, 2)))
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ The reference `Trainer` fails under jax 0.9 on its explicit mesh axes
 
 import faulthandler
 import functools
+import time
 import types
 
 import numpy as np
@@ -390,6 +391,79 @@ def test_trainer_end_to_end_with_restart(small, tmp_path):
     assert start == 6 and int(o2.count) == 6
     for a, b in zip(tree_leaves((p2, o2)), tree_leaves((params, opt_state))):
         assert torch.equal(a, b)
+
+
+def _one_clean_step(small, tmp_path):
+    tr = Trainer(SMALL, _tcfg(tmp_path / "clean", steps=1), device="cpu")
+    params, opt_state, _ = tr.fit(small.params(),
+                                  topt.adamw_init(small.params()), _batch_fn)
+    return params, opt_state
+
+
+def test_trainer_retries_only_the_gradient_phase(small, tmp_path):
+    """A fault in the loss on the first attempt is retried, and the step
+    ends exactly where one clean step does: the same parameters and
+    moments, count 1 (the update ran once)."""
+    want_p, want_o = _one_clean_step(small, tmp_path)
+    tr = Trainer(SMALL, _tcfg(tmp_path / "flaky", steps=1), device="cpu")
+    calls = []
+
+    def flaky(params, batch):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected fault in the loss")
+        return small.model.loss_fn(params, batch)
+
+    tr.model = types.SimpleNamespace(loss_fn=flaky)
+    params, opt_state, _ = tr.fit(small.params(),
+                                  topt.adamw_init(small.params()), _batch_fn)
+    assert len(calls) == 2 and int(opt_state.count) == 1
+    for a, b in zip(tree_leaves((params, opt_state)),
+                    tree_leaves((want_p, want_o))):
+        assert torch.equal(a, b)
+
+
+def test_trainer_never_reruns_the_in_place_update(small, tmp_path,
+                                                  monkeypatch):
+    """A fault inside the update, or an overrun of the step once the update
+    has run, raises instead of retrying: a retry would apply the update a
+    second time to parameters and moments it already changed."""
+    import repro_torch.training.trainer as trainer_mod
+
+    real = trainer_mod.adamw_update
+    calls = []
+
+    def faulty(*args):
+        calls.append(1)
+        raise RuntimeError("injected fault in the update")
+
+    monkeypatch.setattr(trainer_mod, "adamw_update", faulty)
+    tr = Trainer(SMALL, _tcfg(tmp_path / "a", steps=1), device="cpu")
+    with pytest.raises(RuntimeError, match="failed part way"):
+        tr.fit(small.params(), topt.adamw_init(small.params()), _batch_fn)
+    assert len(calls) == 1
+
+    clock = {"skew": 0.0}
+
+    def slow(*args):
+        calls.append(1)
+        clock["skew"] += 100.0      # the update "takes" 100 s
+        return real(*args)
+
+    monkeypatch.setattr(trainer_mod, "adamw_update", slow)
+    monkeypatch.setattr(trainer_mod, "time", types.SimpleNamespace(
+        time=lambda: time.time() + clock["skew"]))
+    tr = Trainer(SMALL, _tcfg(tmp_path / "b", steps=1, step_deadline_s=50.0),
+                 device="cpu")
+    params = small.params()
+    state = topt.adamw_init(params)
+    with pytest.raises(RuntimeError, match="overran its deadline"):
+        tr.fit(params, state, _batch_fn)
+    assert len(calls) == 2
+    want_p, want_o = _one_clean_step(small, tmp_path)
+    for a, b in zip(tree_leaves((params, state.mu, state.nu)),
+                    tree_leaves((want_p, want_o.mu, want_o.nu))):
+        assert torch.equal(a, b)     # updated in place once, not twice
 
 
 def test_checkpoints_cross_packages_both_ways(small, tmp_path):
