@@ -116,6 +116,35 @@ and then the "distributed" engine and the LM training path:
       checkpoint write and restore timed. No flash launch: training
       differentiates the blockwise attention, as the reference does.
 
+and then the MoE, xLSTM and hybrid decoder families at full width (the
+CPU sides of [15a], [16a] and [17a] in one child process, MKL in its
+reproducible mode, started first):
+
+  [15] mixtral-8x7b: [15a] 1 layer, f32, 1 x 256 tokens on the card
+      against the CPU (logits 1e-4 of max, aux 1e-5 relative, the MoE
+      layer's routing equal) at the fan-in scale (the init scale's error
+      logged beside it); [15b] the flash kernel at mixtral's attention
+      shape (1, 32, 8192, 128), causal, window 4096, f32 and bf16 against
+      plain, timed beside its bound and SDPA with the mask; [15c] 8 of 32
+      layers (bf16) serving 8 requests of 3968-4090 tokens to max_len 4224
+      (64 flash launches, the 4096-slot ring wraps); [15d] phi3.5-moe, 4
+      of 32 layers, 4 requests of 1985-2039 tokens (16 launches);
+  [16] xlstm-1.3b: [16a] one group, f32, 600 tokens, a prefill and 8
+      decode steps card vs CPU at three scales, held at 1/16 of the
+      fan-in scale, the card's own sensitivity logged at each; [16b] all
+      48 blocks (f32 params, bf16 activations) serving 8 requests of
+      960-1024 tokens (no flash launch), the sLSTM's share of a prefill;
+  [17] jamba-v0.1-52b: [17a] one Mamba mixer, f32, 1100 tokens and 8
+      decode steps card vs CPU; [17b] one group (8 of 32 layers, bf16)
+      serving 4 requests of 1985-2039 tokens (4 launches), the Mamba
+      layers' share of a prefill.
+
+  Each served phase reports prefill ms per request, decode ms per step,
+  tokens/s, peak memory and the device busy share with its top kernels
+  over one prefill and 8 decode steps; its weights are drawn on the card
+  at the fan-in scale (ROADMAP.md queue C 1.6), and every phase frees
+  them before the next.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -303,6 +332,40 @@ def bf16_ulp(torch, x):
     """One bf16 unit in the last place at |x| (8 significant bits)."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def hold_flash(torch, gen, dev, label, b, h, s, d, causal, window, dtype):
+    """The flash-attention kernel against its plain version on random
+    (b, h, s, d) inputs of `dtype`, element by element: f32 within 2e-5
+    abs + 2e-5 rel (the same f32 function, sums in another order), bf16
+    within one bf16 ulp of the larger magnitude + 2e-5 (both round the
+    same f32 function once). Returns (q, k, v, max_abs_err)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+
+    q, k, v = (torch.randn((b, h, s, d), generator=gen,
+                           device=dev).to(dtype) for _ in range(3))
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    del got, want
+    err = float((g - w).abs().max())
+    if dtype == torch.float32:
+        ok = bool(((g - w).abs() <= 2e-5 + 2e-5 * w.abs()).all())
+        tol = "2e-5 abs + 2e-5 rel"
+    else:
+        ok = bool(((g - w).abs() <= bf16_ulp(torch, torch.maximum(
+            g.abs(), w.abs())) + 2e-5).all())
+        tol = "1 bf16 ulp + 2e-5"
+    log(f"{label} flash_attention {str(dtype)[6:]} ({b}, {h}, {s}, {d}) "
+        f"causal={causal} window={window}: max_abs_err {err:.3e} "
+        f"(tol {tol}, element by element)")
+    if not ok:
+        fail(f"flash attention kernel disagrees with plain at "
+             f"({b},{h},{s},{d}) {dtype} causal={causal} "
+             f"window={window}: {err}")
+    return q, k, v, err
 
 
 def with_clocks(fn):
@@ -1536,41 +1599,12 @@ def lm_phase(torch, np, dev, entries) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain)
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.engine import ServeConfig
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
 
     # --- the kernel against its plain version on the card
-    def hold(b, h, s, d, causal, window, dtype):
-        q, k, v = (torch.randn((b, h, s, d), generator=gen,
-                               device=dev).to(dtype) for _ in range(3))
-        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
-        want = flash_attention_plain(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        g, w = got.float(), want.float()
-        err = float((g - w).abs().max())
-        if dtype == torch.float32:
-            # the same f32 function, sums in another order: the JAX
-            # tests' tolerance
-            ok = bool(((g - w).abs() <= 2e-5 + 2e-5 * w.abs()).all())
-            tol = "2e-5 abs + 2e-5 rel"
-        else:
-            # both round the same f32 function once: one bf16 ulp of the
-            # larger magnitude, plus 2e-5 for the f32 values' own
-            # difference before rounding
-            ok = bool(((g - w).abs() <= bf16_ulp(torch, torch.maximum(
-                g.abs(), w.abs())) + 2e-5).all())
-            tol = "1 bf16 ulp + 2e-5"
-        log(f"[8] flash_attention {str(dtype)[6:]} ({b}, {h}, {s}, {d}) "
-            f"causal={causal} window={window}: max_abs_err {err:.3e} "
-            f"(tol {tol}, element by element)")
-        if not ok:
-            fail(f"flash attention kernel disagrees with plain at "
-                 f"({b},{h},{s},{d}) {dtype} causal={causal} "
-                 f"window={window}: {err}")
-        return q, k, v, err
-
     # a barrier hang in a kernel blocks in C, where no Python timeout
     # reaches: past this limit the process ends with a traceback
     faulthandler.dump_traceback_later(300, exit=True)
@@ -1589,7 +1623,7 @@ def lm_phase(torch, np, dev, entries) -> dict:
                      (1, 16, 2048, 64, True, None),
                      (1, 16, 4096, 128, True, None),
                      (1, 16, 2039, 128, True, None), path_case):
-            q, k, v, err = hold(*case, dtype)
+            q, k, v, err = hold_flash(torch, gen, dev, "[8]", *case, dtype)
             b_, h_, s_, d_, causal_, window_ = case
             if dtype == torch.bfloat16 and s_ >= 2048 and case != path_case:
                 ms = cuda_ms(torch, lambda: flash_attention_cuda(
@@ -1696,6 +1730,30 @@ def lm_phase(torch, np, dev, entries) -> dict:
     rng = np.random.default_rng(0)
     lens = rng.integers(1984, 2049, 8)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    out = serve_measure(torch, np, dev, "[8]", cfg, model, params, scfg,
+                        prompts, busy_steps=3)
+    entries["flash_attention"]["launches"] = out["flash_launches"]
+    out.update(init_s=init_s, flash_tflops=tflops)
+    log(f"[8] parameters drawn on the card in {init_s:.2f} s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_measure(torch, np, dev, label, cfg, model, params, scfg,
+                  prompts, busy_steps, want_flash=None):
+    """`Engine(cfg, scfg, params)` serving `prompts` greedily to
+    scfg.max_len - 1: each request must return max_len - its prompt length
+    tokens, all in the vocab, no sampled logit row NaN, and (default: one
+    a layer and a prompt) `want_flash` flash-attention launches. Returns
+    prefill ms per request, decode ms per step, tokens/s, peak memory and
+    the device busy share over one prefill of the longest prompt and
+    `busy_steps` decode steps of the pool (torch.profiler, against the
+    unprofiled times)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.serving.engine import Engine
+
+    lens = np.array([len(p) for p in prompts])
     eng = Engine(cfg, scfg, params)
     rids = [eng.submit(p) for p in prompts]
     # instrumentation of this run only: host time of each admission (the
@@ -1731,46 +1789,45 @@ def lm_phase(torch, np, dev, entries) -> dict:
     launches = flash_attention_cuda.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_tok = sum(len(r) for r in results.values())
-    entries["flash_attention"]["launches"] = launches
     out = dict(
         arch=cfg.name, layers=cfg.num_layers, params=model.num_params(),
         requests=len(prompts), prompt_lens=[int(n) for n in lens],
-        generated_tokens=n_tok, serve_s=serve_s, init_s=init_s,
+        generated_tokens=n_tok, serve_s=serve_s,
         prefill_ms_per_request=1e3 * timing["admit_s"] / len(prompts),
         decode_steps=timing["steps"],
         decode_ms_per_step=1e3 * timing["step_s"] / max(timing["steps"], 1),
         tokens_per_s=n_tok / serve_s, peak_gib=peak_gib,
-        flash_launches=launches,
-        flash_tflops=tflops)
-    log(f"[8] served {len(results)} requests through {cfg.name} "
-        f"({cfg.num_layers} layers, {model.num_params() / 1e9:.3f} B params, "
-        f"init {init_s:.2f} s): {n_tok} tokens in {serve_s:.3f} s = "
+        flash_launches=launches)
+    log(f"{label} served {len(results)} requests through {cfg.name} "
+        f"({cfg.num_layers} layers, {model.num_params() / 1e9:.3f} B "
+        f"params): {n_tok} tokens in {serve_s:.3f} s = "
         f"{out['tokens_per_s']:.1f} tokens/s; prefill "
         f"{out['prefill_ms_per_request']:.1f} ms per request (prompts "
         f"{int(lens.min())}-{int(lens.max())}), decode "
         f"{out['decode_ms_per_step']:.2f} ms per step over "
         f"{timing['steps']} steps of {scfg.max_slots} slots; peak device "
         f"memory {peak_gib:.2f} GiB; flash_attention launches {launches}")
-    want_launches = cfg.num_layers * len(prompts)
-    if launches != want_launches:
-        fail(f"[8] expected {want_launches} flash-attention launches "
-             f"({cfg.num_layers} layers x {len(prompts)} prefills), got "
+    if want_flash is None:
+        want_flash = cfg.num_layers * len(prompts)
+    if launches != want_flash:
+        fail(f"{label} expected {want_flash} flash-attention launches, got "
              f"{launches}")
     if bool(nan_seen):
-        fail("[8] a sampled logit row held NaN")
+        fail(f"{label} a sampled logit row held NaN")
     for rid, n in zip(rids, lens):
         toks_r = results.get(rid)
         if toks_r is None or len(toks_r) != scfg.max_len - int(n):
-            fail(f"[8] request {rid} (prompt {n}) returned "
+            fail(f"{label} request {rid} (prompt {n}) returned "
                  f"{None if toks_r is None else len(toks_r)} tokens, "
                  f"expected {scfg.max_len - int(n)}")
         if not all(0 <= t < cfg.vocab_size for t in toks_r):
-            fail(f"[8] request {rid} returned a token outside the vocab")
+            fail(f"{label} request {rid} returned a token outside the vocab")
     # where a request's time goes on the card: one prefill of the longest
-    # prompt and three decode steps of the pool, under torch.profiler.
-    # Device busy time is the sum of the kernels' and copies' durations in
-    # the trace; the share of wall time is taken against the unprofiled
-    # times above (profiling slows the host, not the kernels).
+    # prompt and `busy_steps` decode steps of the pool, under
+    # torch.profiler. Device busy time is the sum of the kernels' and
+    # copies' durations in the trace; the share of wall time is taken
+    # against the unprofiled times above (profiling slows the host, not
+    # the kernels).
     with torch.no_grad():
         toks = torch.from_numpy(prompts[int(np.argmax(lens))][None]).to(dev)
         dec_toks = torch.zeros((scfg.max_slots, 1), dtype=torch.int64,
@@ -1780,27 +1837,28 @@ def lm_phase(torch, np, dev, entries) -> dict:
                 params, {"tokens": toks})),
             "decode": device_busy(torch, lambda: [model.decode_step(
                 params, {"tokens": dec_toks, "caches": eng.caches,
-                         "index": scfg.max_len - 2}) for _ in range(3)]),
+                         "index": scfg.max_len - 2})
+                for _ in range(busy_steps)]),
         }
     if all(v is not None for v in busy.values()):
-        busy["decode"]["busy_ms"] /= 3
-        busy["decode"]["flash_ms"] /= 3
-        busy["decode"]["top"] = [(nm, ms / 3)
+        busy["decode"]["busy_ms"] /= busy_steps
+        busy["decode"]["flash_ms"] /= busy_steps
+        busy["decode"]["top"] = [(nm, ms / busy_steps)
                                  for nm, ms in busy["decode"]["top"]]
         for key, wall in (("prefill", out["prefill_ms_per_request"]),
                           ("decode", out["decode_ms_per_step"])):
             busy[key]["busy_share"] = busy[key]["busy_ms"] / wall
-            log(f"[8] {key}: device busy {busy[key]['busy_ms']:.2f} ms of "
-                f"{wall:.2f} ms wall ({100 * busy[key]['busy_share']:.1f} %), "
-                f"flash attention {busy[key]['flash_ms']:.3f} ms; "
-                f"top kernels (ms): " + ", ".join(
-                    f"{nm[:48]} {ms:.2f}" for nm, ms in busy[key]["top"]))
+            log(f"{label} {key}: device busy {busy[key]['busy_ms']:.2f} ms "
+                f"of {wall:.2f} ms wall "
+                f"({100 * busy[key]['busy_share']:.1f} %), flash attention "
+                f"{busy[key]['flash_ms']:.3f} ms; top kernels (ms): "
+                + ", ".join(f"{nm[:48]} {ms:.2f}"
+                            for nm, ms in busy[key]["top"]))
     else:
-        log("[8] torch.profiler traced no device time: busy share not "
-            "measured")
+        log(f"{label} torch.profiler traced no device time: busy share not "
+            f"measured")
     out["device_busy"] = busy
-    del eng, params
-    torch.cuda.empty_cache()
+    del eng
     return out
 
 
@@ -2017,31 +2075,97 @@ CPU_ENV = ("ATEN_CPU_CAPABILITY", "MKL_CBWR", "OMP_NUM_THREADS",
            "MKL_NUM_THREADS")
 
 
-def cpu_grads_main(path: str) -> None:
-    """`chip_smoke.py --cpu-grads PATH`: [14a]'s CPU side, in a process of
-    its own so that nothing an earlier phase left in the parent (threads,
-    allocator, floating-point state) touches the reference. Saves the
-    loss, the gradient leaves, the seconds, the CPU settings and the host
-    to PATH."""
+def cpu_settings(torch) -> dict:
+    """The CPU math settings of this process and its host."""
+    return {"cpu_threads": torch.get_num_threads(),
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "mkl": torch.backends.mkl.is_available(),
+            "env": {k: os.environ.get(k) for k in CPU_ENV},
+            "host": cpu_host()}
+
+
+def grads_ref(torch, np) -> dict:
+    """[14a]'s CPU side: the loss and gradient leaves."""
+    model, params, batch = card_vs_cpu_inputs(
+        torch, np, np.random.default_rng(14))
+    loss, grads = _loss_and_grads(torch, model, params, batch)
+    return {"loss": float(loss), "grads": list(grads)}
+
+
+def moe_ref(torch, np) -> dict:
+    model, params, toks = moe_case_inputs(torch, np)
+    return {which: moe_case_run(torch, model, params, toks, which)
+            for which in SCALES}
+
+
+def xlstm_ref(torch, np) -> dict:
+    model, params, toks = xlstm_case_inputs(torch, np)
+    return {which: xlstm_case_run(torch, model, params, toks, which)
+            for which in XLSTM_SCALES}
+
+
+def mamba_ref(torch, np) -> dict:
+    return mamba_case_run(torch, *mamba_case_inputs(torch, np))
+
+
+CPU_REFS = {"grads": grads_ref, "moe": moe_ref, "xlstm": xlstm_ref,
+            "mamba": mamba_ref}
+
+
+def cpu_ref_main(cases: str, out_dir: str) -> None:
+    """`chip_smoke.py --cpu-ref CASE[,CASE...] DIR`: the CPU sides of the
+    card-vs-CPU checks ([14a] "grads", [15a] "moe", [16a] "xlstm", [17a]
+    "mamba"), in a process of its own so that nothing an earlier phase
+    left in the parent (threads, allocator, floating-point state) touches
+    the reference. Saves DIR/CASE.pt for each case in turn (written whole,
+    then renamed), with its seconds, the CPU settings and the host."""
     import numpy as np
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
-    model, params, batch = card_vs_cpu_inputs(
-        torch, np, np.random.default_rng(14))
+    for case in cases.split(","):
+        t0 = time.perf_counter()
+        res = CPU_REFS[case](torch, np)
+        res.update(seconds=time.perf_counter() - t0,
+                   settings=cpu_settings(torch))
+        part = Path(out_dir) / f"{case}.part"
+        torch.save(res, part)
+        part.rename(Path(out_dir) / f"{case}.pt")
+
+
+def start_cpu_refs(cases: str, out_dir) -> subprocess.Popen:
+    """The CPU-side child of `cpu_ref_main`, MKL in its conditional
+    numerical reproducibility mode: by default MKL's f32 products come out
+    one of two ways from process to process on one host, one of them
+    1.85e-4 of its max off in a gradient (grad_reference_probe.py)."""
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-ref", cases,
+         str(out_dir)], env=dict(os.environ, MKL_CBWR="AVX2"))
+
+
+def stop_child(proc: subprocess.Popen) -> None:
+    """Let the child end (it exits after its last result), or end it."""
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def wait_cpu_ref(torch, proc, out_dir, case: str, limit_s: float = 900):
+    """The child's result for `case`, once written; fails if the child
+    ended without it or `limit_s` passed."""
+    path = Path(out_dir) / f"{case}.pt"
     t0 = time.perf_counter()
-    loss, grads = _loss_and_grads(torch, model, params, batch)
-    torch.save({"loss": float(loss), "grads": list(grads),
-                "seconds": time.perf_counter() - t0,
-                "settings": {"cpu_threads": torch.get_num_threads(),
-                             "float32_matmul_precision":
-                                 torch.get_float32_matmul_precision(),
-                             "cpu_capability":
-                                 torch.backends.cpu.get_cpu_capability(),
-                             "mkl": torch.backends.mkl.is_available(),
-                             "env": {k: os.environ.get(k) for k in CPU_ENV},
-                             "host": cpu_host()}},
-               path)
+    while not path.exists():
+        if proc.poll() is not None and not path.exists():
+            fail(f"the CPU-side child ended ({proc.returncode}) without "
+                 f"{case}")
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"the CPU side of {case} took over {limit_s} s")
+        time.sleep(0.2)
+    return torch.load(path)
 
 
 def training_phase(torch, np, dev, c) -> dict:
@@ -2074,18 +2198,18 @@ def training_phase(torch, np, dev, c) -> dict:
                 "labels": torch.from_numpy(toks[:, 1:])}
 
     # [14a] the card against the CPU: full width, 2 layers, f32, TF32 off;
-    # the CPU side in a fresh process (`cpu_grads_main`), its MKL in the
+    # the CPU side in a fresh process (`cpu_ref_main`), its MKL in the
     # conditional numerical reproducibility mode: by default MKL's f32
     # products here come out one of two ways from run to run on one host,
     # one of them 1.85e-4 of its max off in ffn.w1's gradient
     # (grad_reference_probe.py)
     model, params, batch = card_vs_cpu_inputs(torch, np, rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grads_") as tmp:
-        path = Path(tmp) / "cpu_grads.pt"
-        subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        "--cpu-grads", str(path)], check=True, timeout=900,
-                       env=dict(os.environ, MKL_CBWR="AVX2"))
-        ref = torch.load(path)
+        proc = start_cpu_refs("grads", tmp)
+        try:
+            ref = wait_cpu_ref(torch, proc, tmp, "grads")
+        finally:
+            stop_child(proc)
     closs, cgrads, cpu_s = ref["loss"], ref["grads"], ref["seconds"]
     gparams = tree_map(lambda p: p.to(dev), params)
     zero_counts()
@@ -2241,6 +2365,467 @@ def training_phase(torch, np, dev, c) -> dict:
     finally:
         shutil.rmtree(ck_root, ignore_errors=True)
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------- [15]-[17]: the families
+# the parameter scales [15a] and [16a] run at: the port's init, which
+# draws each stacked weight at 1/sqrt(num_groups) as the reference does
+# (ROADMAP.md queue C 1.6), the fan-in scale that init means, and (xlstm)
+# that scale with every normal leaf at 1/16 of it, as the CPU parity
+# tests hold whole models (tests/test_torch_families.py)
+SCALES = ("init", "fan_in")
+XLSTM_SCALES = ("init", "fan_in", "fan_in/16")
+
+
+def fan_in_factor(pd) -> float:
+    """What takes a leaf of description `pd` from the port's init scale
+    to the fan-in scale: a stacked default-scale normal weight matrix is
+    drawn at 1/sqrt(num_groups) (the reference's `_leaf_init` reads the
+    fan-in off the stacked layers axis), meant as 1/sqrt(its input
+    dimension, shape[-2]); every other leaf keeps its scale (1.0)."""
+    if (pd.init == "normal" and not pd.scale and pd.axes[0] == "layers"
+            and len(pd.shape) >= 3):
+        return (pd.shape[0] / pd.shape[-2]) ** 0.5
+    return 1.0
+
+
+def at_scale(torch, model, params, which: str):
+    """`params` as drawn ("init"), at the fan-in scale ("fan_in"), or at
+    it with every normal leaf times 1/16 ("fan_in/16"); new tensors."""
+    from repro_torch.configs.base import PD, tree_map
+
+    if which == "init":
+        return params
+    tame = 1.0 / 16 if which == "fan_in/16" else 1.0
+    return tree_map(
+        lambda p, pd: p * fan_in_factor(pd) * (
+            tame if pd.init == "normal" else 1.0),
+        params, model.desc(), is_leaf=lambda x: isinstance(x, PD))
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want|, on the host in f32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def moe_case_inputs(torch, np):
+    """[15a]'s model, CPU parameters (seed 15) and tokens (1 x 256, numpy
+    seed 15): mixtral-8x7b's full width with 1 layer, f32."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("mixtral-8x7b").replace(num_layers=1,
+                                             dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(15), device="cpu")
+    toks = np.random.default_rng(15).integers(0, cfg.vocab_size, (1, 256))
+    return model, params, torch.from_numpy(toks)
+
+
+def moe_case_run(torch, model, params, toks, which) -> dict:
+    """[15a] on the device of `params` at the scale `which`: the train
+    forward's logits (the real vocab) and aux loss, and its MoE layer's
+    routing (expert indices, queue positions, keep mask), on the host."""
+    from repro_torch.configs.base import tree_leaves
+    from repro_torch.models import moe as MOE
+
+    dev = tree_leaves(params)[0].device
+    params = at_scale(torch, model, params, which)
+    seen, route = [], MOE.route
+
+    def recording(xg, router, cfg):
+        seen.append(route(xg, router, cfg))
+        return seen[-1]
+
+    MOE.route = recording
+    try:
+        with torch.no_grad():
+            logits, _, _, aux = model._fwd(params, {"tokens": toks.to(dev)},
+                                           "train")
+    finally:
+        MOE.route = route
+    (r,) = seen
+    return {"logits": logits[..., :model.cfg.vocab_size].cpu(),
+            "aux": float(aux), "gate_idx": r.gate_idx.cpu(),
+            "pos": r.pos.cpu(), "keep": r.keep.cpu()}
+
+
+def xlstm_case_inputs(torch, np):
+    """[16a]'s model, CPU parameters (seed 16) and tokens (1 x 608, numpy
+    seed 16): xlstm-1.3b's full width with one group (7 mLSTM + 1
+    sLSTM), f32; 600 tokens are three mLSTM chunks, the last ragged."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("xlstm-1.3b").replace(num_layers=8, dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(16), device="cpu")
+    toks = np.random.default_rng(16).integers(0, cfg.vocab_size, (1, 608))
+    return model, params, torch.from_numpy(toks)
+
+
+def xlstm_case_run(torch, model, params, toks, which) -> dict:
+    """[16a] on the device of `params` at the scale `which`: the train
+    forward over 600 tokens, a prefill of 600, then 8 decode steps of the
+    fixed tokens 600-607; the real vocab's logits on the host."""
+    from repro_torch.configs.base import tree_leaves
+
+    dev = tree_leaves(params)[0].device
+    params = at_scale(torch, model, params, which)
+    toks, nv, s = toks.to(dev), model.cfg.vocab_size, 600
+    with torch.no_grad():
+        train = model._fwd(params, {"tokens": toks[:, :s]}, "train")[0]
+        last, caches = model.prefill(params, {"tokens": toks[:, :s]})
+        dec = []
+        for t in range(8):
+            lg, caches = model.decode_step(params, {
+                "tokens": toks[:, s + t:s + t + 1], "caches": caches,
+                "index": s + t})
+            dec.append(lg)
+    return {"train": train[..., :nv].cpu(), "prefill": last[..., :nv].cpu(),
+            "decode": torch.cat(dec, 1)[..., :nv].cpu()}
+
+
+def mamba_case_inputs(torch, np):
+    """[17a]'s Mamba mixer at jamba-v0.1-52b's full width (d_model 4096,
+    d_inner 8192, state 16, dt_rank 256, conv 4), f32, its CPU parameters
+    (seed 17), a 1 x 1100 input (chunks 512, 512, 76) and 8 one-token
+    decode inputs (numpy seed 17)."""
+    from repro_torch.configs.base import init_params
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import ssm as S
+
+    cfg = get_config("jamba-v0.1-52b").replace(dtype=torch.float32)
+    params = init_params(S.mamba_desc(cfg), torch.Generator().manual_seed(17),
+                         device="cpu")
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(1, 1100, cfg.d_model)).astype(np.float32)
+    xs = rng.normal(size=(8, 1, 1, cfg.d_model)).astype(np.float32)
+    return cfg, params, torch.from_numpy(x), torch.from_numpy(xs)
+
+
+def mamba_case_run(torch, cfg, params, x, xs) -> dict:
+    """[17a] on the device of `params`: the forward over x from no state,
+    then 8 decode steps from its state; outputs and the final state on
+    the host."""
+    from repro_torch.models import ssm as S
+
+    dev = params["in_proj"].device
+    with torch.no_grad():
+        y, st = S.mamba_forward(params, x.to(dev), cfg)
+        ys = []
+        for x1 in xs.to(dev):
+            y1, st = S.mamba_decode_step(params, x1, cfg, st)
+            ys.append(y1)
+    return {"y": y.cpu(), "decode": torch.cat(ys, 1).cpu(),
+            "conv": st.conv.cpu(), "ssm": st.ssm.cpu()}
+
+
+def free_phase(torch, label: str) -> None:
+    """Collect what a phase left and log the card's memory after it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label} device memory after: {device_gib(torch)}")
+
+
+def mixer_share(torch, model, params, toks, kind: str) -> dict:
+    """Host seconds of one prefill of `toks` and of its `kind` mixers
+    within it (each call fenced by synchronizes, so their sum is the time
+    the card and host spend in them)."""
+    from repro_torch.models import transformer as T
+
+    mixer = T._MIXERS[kind]
+    spent = [0.0]
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = mixer.forward(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    T._MIXERS[kind] = mixer._replace(forward=timed)
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+    finally:
+        T._MIXERS[kind] = mixer
+    return {"prefill_ms": 1e3 * total, f"{kind}_ms": 1e3 * spent[0],
+            "share": spent[0] / total}
+
+
+def serve_family(torch, np, dev, label, name, layers, max_len, n_req, lo,
+                 hi, seed, param_dtype, want_flash, share_kind=None) -> dict:
+    """Serve `n_req` greedy requests of lo..hi prompt tokens through
+    `name` at full width with `layers` layers (params of `param_dtype`
+    drawn on the card from seed 0, at the fan-in scale), 4 slots,
+    `max_len`; with `share_kind`, the share of that mixer in one prefill
+    of the longest prompt."""
+    from repro_torch.configs.base import PD, tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig
+
+    cfg = get_config(name).replace(num_layers=layers)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        dtype=param_dtype, device=dev)
+    # at the fan-in scale: at the init scale the activations of these
+    # stacks grow by orders of magnitude a layer (ROADMAP.md queue C 1.6)
+    for p, pd in zip(tree_leaves(params), tree_leaves(
+            model.desc(), is_leaf=lambda x: isinstance(x, PD))):
+        p.mul_(fan_in_factor(pd))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"{label} {name}: {layers} of {get_config(name).num_layers} layers, "
+        f"{model.num_params() / 1e9:.3f} B {str(param_dtype)[6:]} params "
+        f"drawn on the card at the fan-in scale in {init_s:.2f} s; "
+        f"{device_gib(torch)}")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    out = serve_measure(torch, np, dev, label, cfg, model, params,
+                        ServeConfig(max_slots=4, max_len=max_len, eos_id=-1),
+                        prompts, busy_steps=8, want_flash=want_flash)
+    out.update(init_s=init_s, param_dtype=str(param_dtype)[6:],
+               full_layers=get_config(name).num_layers)
+    if share_kind:
+        toks = torch.from_numpy(prompts[int(np.argmax(lens))][None]).to(dev)
+        out["mixer_share"] = mixer_share(torch, model, params, toks,
+                                         share_kind)
+        sh = out["mixer_share"]
+        log(f"{label} one prefill of {int(lens.max())} tokens, each "
+            f"{share_kind} call fenced: {sh['prefill_ms']:.1f} ms, "
+            f"{share_kind} layers {sh[share_kind + '_ms']:.1f} ms "
+            f"({100 * sh['share']:.1f} %)")
+    del params, model
+    return out
+
+
+def families_phase(torch, np, dev, c) -> dict:
+    """[15]-[17]: the MoE, xLSTM and hybrid decoder families at full
+    width: each card-vs-CPU check (the CPU sides in one child process,
+    started first and read as each check needs it), the flash kernel at
+    mixtral's attention shape, and each family served."""
+    from repro_torch.configs.base import tree_map
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+
+    out, phase_s = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    proc = start_cpu_refs("moe,xlstm,mamba", tmp)
+    try:
+        # [15a] mixtral's full width, 1 layer, f32, TF32 off, 1 x 256
+        # tokens, at the init scale (logged) and the fan-in scale (held)
+        t = time.perf_counter()
+        log(f"[15a] device memory before: {device_gib(torch)}")
+        model, host, toks = moe_case_inputs(torch, np)
+        params = tree_map(lambda t: t.to(dev), host)
+        del host
+        gc.collect()
+        host_gib = host_peak_gib()
+        c.zero_counts()
+        flash_attention_cuda.launches = 0
+        got = {which: moe_case_run(torch, model, params, toks, which)
+               for which in SCALES}
+        launches = dict(c.read_counts(),
+                        flash_attention=flash_attention_cuda.launches)
+        del params
+        ref = wait_cpu_ref(torch, proc, tmp, "moe")
+        res = {}
+        for which in SCALES:
+            g, r = got[which], ref[which]
+            res[which] = dict(
+                logits_rel_err=rel_err(torch, g["logits"], r["logits"]),
+                aux_card=g["aux"], aux_cpu=r["aux"],
+                aux_rel_err=abs(g["aux"] - r["aux"]) / abs(r["aux"]),
+                routing_equal={k: bool(torch.equal(g[k], r[k]))
+                               for k in ("gate_idx", "pos", "keep")},
+                dropped_choices=int((~g["keep"]).sum()))
+            log(f"[15a] mixtral-8x7b width, 1 layer, f32, 1 x 256 tokens, "
+                f"{which} scale: logits max_abs_err / max |CPU| "
+                f"{res[which]['logits_rel_err']:.3e}; aux card "
+                f"{g['aux']:.7f} vs CPU {r['aux']:.7f} (rel "
+                f"{res[which]['aux_rel_err']:.2e}); routing equal "
+                f"{res[which]['routing_equal']} "
+                f"({res[which]['dropped_choices']} of {g['keep'].numel()} "
+                f"choices dropped)")
+        out["moe_card_vs_cpu"] = dict(
+            res, cpu_s=ref["seconds"], settings=ref["settings"],
+            host_peak_gib=host_gib, launches=launches)
+        log(f"[15a] CPU side {ref['seconds']:.1f} s in the child; host peak "
+            f"{host_gib:.2f} GiB; launches {launches} (both scales)")
+        # held at the fan-in scale (tol: logits 1e-4 of max |CPU|, aux 1e-5
+        # relative, routing equal); at the init scale attention saturates
+        # and the error is the rounding noise it amplifies
+        held = res["fan_in"]
+        if not (held["logits_rel_err"] <= 1e-4
+                and held["aux_rel_err"] <= 1e-5
+                and all(held["routing_equal"].values())):
+            fail(f"[15a] card and CPU disagree at the fan-in scale: {held}")
+        if launches["flash_attention"] != len(SCALES):
+            fail(f"[15a] expected {len(SCALES)} flash launches, got "
+                 f"{launches}")
+        del model, got, ref
+        free_phase(torch, "[15a]")
+        phase_s["[15a]"] = time.perf_counter() - t
+
+        # [15b] flash at mixtral's attention shape: 32 heads of 128,
+        # 8192 tokens, causal, window 4096
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(151)
+        shape = (1, 32, 8192, 128)
+        flash = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, ferr = hold_flash(torch, gen, dev, "[15b]", *shape,
+                                       True, 4096, dtype)
+            elt = 4 if dtype == torch.float32 else 2
+            ms = cuda_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=True, window=4096), reps=10)
+            bound, by = flash_bound_ms(*shape[:3], shape[2], shape[3], True,
+                                       4096, elt)
+            rec = dict(max_abs_err=ferr, ms=ms, bound_ms=bound, bound_by=by)
+            if dtype == torch.bfloat16:
+                rec["plain_ms"] = cuda_ms(torch, lambda: flash_attention_plain(
+                    q, k, v, causal=True, window=4096), reps=2)
+                i = torch.arange(shape[2], device=dev)
+                mask = (i[None, :] <= i[:, None]) & (i[None, :] >
+                                                     i[:, None] - 4096)
+                rec["library_ms"] = cuda_ms(
+                    torch, lambda: torch.nn.functional.
+                    scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                    reps=10)
+                del mask
+            rate = 4.0 * shape[0] * shape[1] * shape[3] * visible_pairs(
+                shape[2], shape[2], True, 4096) / (ms * 1e-3) / 1e12
+            rec["tflops"] = rate
+            flash[str(dtype)[6:]] = rec
+            log(f"[15b] flash_attention {shape} {str(dtype)[6:]} causal "
+                f"window 4096: kernel {ms:.4f} ms = {rate:.1f} TFLOP/s, "
+                f"bound {bound:.4f} ms ({by})"
+                + (f", plain {rec['plain_ms']:.3f} ms, "
+                   f"scaled_dot_product_attention with the mask "
+                   f"{rec['library_ms']:.4f} ms" if "plain_ms" in rec
+                   else ""))
+            del q, k, v
+        out["flash_window"] = flash
+        free_phase(torch, "[15b]")
+        phase_s["[15b]"] = time.perf_counter() - t
+
+        # [15c], [15d] the MoE family served at full width, bf16
+        t = time.perf_counter()
+        out["mixtral"] = serve_family(
+            torch, np, dev, "[15c]", "mixtral-8x7b", 8, 4224, 8, 3968, 4090,
+            15, torch.bfloat16, want_flash=8 * 8)
+        free_phase(torch, "[15c]")
+        phase_s["[15c]"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["phi35_moe"] = serve_family(
+            torch, np, dev, "[15d]", "phi3.5-moe-42b-a6.6b", 4, 2112, 4, 1985,
+            2039, 151, torch.bfloat16, want_flash=4 * 4)
+        free_phase(torch, "[15d]")
+        phase_s["[15d]"] = time.perf_counter() - t
+
+        # [16a] xlstm's full width, one group, f32, at each scale; the
+        # card's own sensitivity at each: the train logits again with
+        # every parameter times (1 + 1e-7 N(0, 1)), f32 rounding's size
+        t = time.perf_counter()
+        model, host, toks = xlstm_case_inputs(torch, np)
+        params = tree_map(lambda t: t.to(dev), host)
+        del host
+        flash_attention_cuda.launches = 0
+        got = {which: xlstm_case_run(torch, model, params, toks, which)
+               for which in XLSTM_SCALES}
+        launches = flash_attention_cuda.launches
+        noise = torch.Generator(device=dev).manual_seed(161)
+        nudged = tree_map(lambda p: p * (1 + 1e-7 * torch.randn(
+            p.shape, generator=noise, device=dev)), params)
+        sens = {which: rel_err(torch, xlstm_case_run(
+            torch, model, nudged, toks, which)["train"], got[which]["train"])
+            for which in XLSTM_SCALES}
+        del params, nudged
+        ref = wait_cpu_ref(torch, proc, tmp, "xlstm")
+        errs = {which: {part: rel_err(torch, got[which][part],
+                                      ref[which][part])
+                        for part in ("train", "prefill", "decode")}
+                for which in XLSTM_SCALES}
+        out["xlstm_card_vs_cpu"] = dict(rel_errs=errs, card_sensitivity=sens,
+                                        cpu_s=ref["seconds"],
+                                        flash_launches=launches)
+        for which in XLSTM_SCALES:
+            log(f"[16a] xlstm-1.3b width, one group, f32, {which} scale: "
+                f"logits max_abs_err / max |CPU|: train (600) "
+                f"{errs[which]['train']:.3e}, prefill "
+                f"{errs[which]['prefill']:.3e}, 8 decode steps "
+                f"{errs[which]['decode']:.3e}; the card's train logits "
+                f"move {sens[which]:.3e} when its parameters move 1e-7")
+        log(f"[16a] CPU side {ref['seconds']:.1f} s in the child; flash "
+            f"launches {launches}")
+        # held where the stack is well conditioned (tol 1e-4 of max |CPU|);
+        # at the other scales the error is rounding noise it amplifies
+        held = errs["fan_in/16"]
+        if not all(e <= 1e-4 for e in held.values()) or launches:
+            fail(f"[16a] card and CPU disagree at 1/16 of the fan-in "
+                 f"scale: {held}, flash launches {launches}")
+        del model, got, ref
+        free_phase(torch, "[16a]")
+        phase_s["[16a]"] = time.perf_counter() - t
+
+        # [16b] xlstm served at full width and depth: f32 params, bf16
+        # activations; no attention, so no flash launch
+        t = time.perf_counter()
+        out["xlstm"] = serve_family(
+            torch, np, dev, "[16b]", "xlstm-1.3b", 48, 1088, 8, 960, 1024, 16,
+            torch.float32, want_flash=0, share_kind="slstm")
+        free_phase(torch, "[16b]")
+        phase_s["[16b]"] = time.perf_counter() - t
+
+        # [17a] one Mamba mixer at jamba's full width, f32
+        t = time.perf_counter()
+        cfg, host, x, xs = mamba_case_inputs(torch, np)
+        params = tree_map(lambda t: t.to(dev), host)
+        del host
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        got = mamba_case_run(torch, cfg, params, x, xs)
+        peak = torch.cuda.max_memory_allocated() / 2**30 - held
+        del params
+        ref = wait_cpu_ref(torch, proc, tmp, "mamba")
+        errs = {k: rel_err(torch, got[k], ref[k])
+                for k in ("y", "decode", "conv", "ssm")}
+        out["mamba_card_vs_cpu"] = dict(rel_errs=errs, cpu_s=ref["seconds"],
+                                        forward_peak_gib=peak)
+        log(f"[17a] Mamba mixer at jamba-v0.1-52b width, f32, 1 x 1100 "
+            f"(chunks 512, 512, 76), then 8 decode steps: max_abs_err / "
+            f"max |CPU| {errs} (tol 1e-4); peak {peak:.2f} GiB above the "
+            f"params; CPU side {ref['seconds']:.1f} s in the child")
+        if not all(e <= 1e-4 for e in errs.values()):
+            fail(f"[17a] card and CPU disagree: {errs}")
+        del got, ref
+        free_phase(torch, "[17a]")
+        phase_s["[17a]"] = time.perf_counter() - t
+    finally:
+        stop_child(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # [17b] jamba served at full width, one group of 8 of 32 layers, bf16
+    t = time.perf_counter()
+    out["jamba"] = serve_family(
+        torch, np, dev, "[17b]", "jamba-v0.1-52b", 8, 2112, 4, 1985, 2039, 17,
+        torch.bfloat16, want_flash=1 * 4, share_kind="mamba")
+    free_phase(torch, "[17b]")
+    phase_s["[17b]"] = time.perf_counter() - t
+    out["phase_s"] = phase_s
     return out
 
 
@@ -3332,6 +3917,24 @@ def main() -> None:
     for name in ("distance", "sti_fill_acc_rect"):
         if not entries[name]["distributed_training_launches"]["[13]"]:
             fail(f"{name} was not launched on [13]'s path")
+
+    # ------------- 15-17. the MoE, xLSTM and hybrid families at full width
+    gc.collect()
+    log(f"[15] device memory held before: {device_gib(torch)}")
+    t15 = time.perf_counter()
+    families = families_phase(torch, np, dev, ctx)
+    families["phase_s"]["[15]-[17]"] = time.perf_counter() - t15
+    log("[15]-[17] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in families["phase_s"].items()))
+    entries["flash_attention"]["families_launches"] = {
+        "[15a]": families["moe_card_vs_cpu"]["launches"]["flash_attention"],
+        "[15c]": families["mixtral"]["flash_launches"],
+        "[15d]": families["phi35_moe"]["flash_launches"],
+        "[16a]": families["xlstm_card_vs_cpu"]["flash_launches"],
+        "[16b]": families["xlstm"]["flash_launches"],
+        "[17b]": families["jamba"]["flash_launches"]}
+    log(f"[15]-[17] flash_attention launches by path: "
+        f"{entries['flash_attention']['families_launches']}")
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -3347,6 +3950,9 @@ def main() -> None:
                                        e["resilient_service_launches"]}
                                       if "resilient_service_launches" in e
                                       else {}),
+                                   **({"families_launches":
+                                       e["families_launches"]}
+                                      if "families_launches" in e else {}),
                                    "distributed_training_launches":
                                        e["distributed_training_launches"]}
                                   for e in entries.values()],
@@ -3372,6 +3978,7 @@ def main() -> None:
                       "service": service,
                       "distributed": distributed,
                       "training": training,
+                      "families": families,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3379,7 +3986,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-grads":
-        cpu_grads_main(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-ref":
+        cpu_ref_main(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -4,7 +4,7 @@
 layers (f32, 1 x 256 tokens) on the card against the same computation on
 the CPU, within 1e-4 of each leaf's max |value|. This probe computes the
 card side twice (is the card deterministic?) and the CPU side in fresh
-processes (`chip_smoke.py --cpu-grads`) under several CPU settings:
+processes (`chip_smoke.py --cpu-ref grads`) under several CPU settings:
 
   default x3          the same settings again (does the CPU
                       reference move within one host?)
@@ -95,12 +95,13 @@ def main() -> None:
         for i, name in enumerate([v for v in args.variants
                                   for _ in range(args.repeat)]):
             env = VARIANTS[name]
-            path = Path(tmp) / f"{i}.pt"
+            run_dir = Path(tmp) / str(i)
+            run_dir.mkdir()
             subprocess.run(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-grads",
-                 str(path)], env=dict(os.environ, **env), check=True,
-                timeout=600)
-            ref = torch.load(path)
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-ref",
+                 "grads", str(run_dir)], env=dict(os.environ, **env),
+                check=True, timeout=600)
+            ref = torch.load(run_dir / "grads.pt")
             grads = ref["grads"]
             first = first or grads
             vs_card = [float((g - w).abs().max() / w.abs().max())

@@ -26,9 +26,9 @@ def pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields of `repro.configs.base.ModelConfig` that the dense family
-    reads, with `dtype` a torch dtype. The fields of the other families
-    (MoE, SSM, hybrid, audio, VLM) and of sharding come with their slices
+    """The fields of `repro.configs.base.ModelConfig` that the dense, MoE,
+    SSM and hybrid families read, with `dtype` a torch dtype. The fields of
+    the audio and VLM families and of sharding come with their slices
     (ROADMAP.md queue A 3)."""
     name: str
     family: str                    # dense | moe | ssm | hybrid | audio | vlm
@@ -39,12 +39,27 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0              # 0 -> d_model // num_heads
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 2
+    moe_d_ff: int = 0              # 0 -> d_ff
+    moe_period: int = 1            # MoE every `period` layers (jamba: 2)
+    capacity_factor: float = 1.25
+    moe_group_size: int = 2048
     # attention variants
     sliding_window: Optional[int] = None
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     group_size: int = 1            # layers per stacked group
+    # layer mixing (hybrid / ssm families)
+    attn_layer_in_group: tuple = ()  # indices within group that are attention
+    ssm_kind: Optional[str] = None  # "mamba" | "mlstm"
+    slstm_layer_in_group: tuple = ()  # xlstm: indices that are sLSTM
+    ssm_state_dim: int = 16
+    ssm_conv_dim: int = 4
+    ssm_expand: int = 2
+    dt_rank: int = 0               # 0 -> d_model // 16
     norm_eps: float = 1e-5
     norm_kind: str = "rmsnorm"     # rmsnorm | layernorm
     act: str = "silu"              # silu (swiglu) | gelu (plain mlp)
@@ -52,6 +67,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     tp_pad_heads: int = 16         # pad head count to a multiple of this
     vocab_pad: int = 256
+    mlstm_chunk: int = 256
+    mamba_chunk: int = 512
     kv_block: int = 1024           # KV block of the plain blockwise path
     logits_f32: bool = True        # False: bf16 vocab matmul, f32 accum
     # recompute in the backward pass, per layer group, in train mode with
@@ -72,6 +89,14 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab_size, self.vocab_pad)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank_(self) -> int:
+        return self.dt_rank or max(1, self.d_model // 16)
 
     @property
     def num_groups(self) -> int:

@@ -1,6 +1,7 @@
 """Training launcher of the port: counterpart of `repro.launch.train`.
 
-On the card, at full width (the dense family):
+On the card, at full width (a dense arch; the MoE, SSM and hybrid archs
+hold more than one card at full depth):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --steps 10 --batch 2 --seq 2048 --ckpt-dir CKPT
 On the CPU, reduced dims:
@@ -24,13 +25,16 @@ __all__ = ["reduced_config", "main"]
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
-    """~100M-param member of the same family for a local run: the dense
-    fields of `repro.launch.train.reduced_config`, f32."""
+    """~100M-param member of the same family for a local run: the dense,
+    MoE and SSM fields of `repro.launch.train.reduced_config`, f32."""
     kw = dict(d_model=512, num_heads=8, num_kv_heads=4, head_dim=64,
               vocab_size=min(cfg.vocab_size, 32000), tp_pad_heads=1,
-              dtype=torch.float32)
+              dtype=torch.float32, mlstm_chunk=32, mamba_chunk=32,
+              moe_group_size=512)
     kw["num_layers"] = cfg.group_size * max(2, 16 // cfg.group_size)
     kw["d_ff"] = 0 if cfg.d_ff == 0 else 1536
+    if cfg.num_experts:
+        kw["num_experts"] = 4
     if cfg.sliding_window:
         kw["sliding_window"] = 512
     return cfg.replace(**kw)

@@ -1,5 +1,6 @@
 """Model factory of the port: one train/prefill/decode/embed API per
-config (counterpart of `repro.models.model`), for the dense family.
+config (counterpart of `repro.models.model`), for the dense, MoE, SSM
+and hybrid decoder families.
 
 Batch conventions (labels[i] = next token at position i):
   {"tokens": (B, S) int, "labels": (B, S) int}    train (loss_fn)
@@ -19,7 +20,7 @@ from repro_torch.models import transformer as T
 
 __all__ = ["Model", "build_model"]
 
-AUX_COEF = 0.01  # MoE load-balance loss weight (0 aux for the dense family)
+AUX_COEF = 0.01  # MoE load-balance loss weight (aux is 0 without experts)
 
 
 @dataclass(frozen=True)
@@ -42,8 +43,9 @@ class Model:
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of `batch` ("tokens", "labels")
-        plus AUX_COEF times the auxiliary loss -> (loss, {"ce", "aux"}),
-        0-d f32 tensors; differentiate it with torch.autograd."""
+        plus AUX_COEF times the MoE load-balancing loss summed over the
+        MoE blocks -> (loss, {"ce", "aux"}), 0-d f32 tensors; differentiate
+        it with torch.autograd."""
         logits, _, _, aux = self._fwd(params, batch, "train")
         loss = L.cross_entropy(logits, batch["labels"])
         return loss + AUX_COEF * aux, {"ce": loss, "aux": aux}
@@ -54,7 +56,8 @@ class Model:
         return logits[:, -1:], caches
 
     def decode_step(self, params, batch):
-        """-> (logits (B, 1, V), caches written in place)."""
+        """-> (logits (B, 1, V), caches written in place; an SSM state
+        whose type changes is rebound in the returned caches)."""
         logits, _, caches, _ = self._fwd(
             params, batch, "decode", caches=batch["caches"],
             index=batch["index"])

@@ -1,12 +1,17 @@
 """Decoder-LM assembly of the port (counterpart of
-`repro.models.transformer`), for the dense family.
+`repro.models.transformer`): heterogeneous per-group layer schedules for
+the dense, MoE, SSM (xLSTM) and hybrid (Jamba) families.
 
-A "group" is the repeating unit (cfg.group_size layers; one layer for a
-dense arch). Params for one group are described once and stacked on a
-leading layers axis, as in the JAX package, so one JAX leaf is one tensor
-here; where the JAX package runs `lax.scan` over the groups, the port runs
-a Python loop over views of the stacked tensors. Caches are stacked the
-same way, and decode writes them in place.
+A "group" is the repeating unit (cfg.group_size layers): dense and MoE
+archs have a 1-layer group; Jamba an 8-layer group (1 attention + 7 Mamba,
+MoE every 2nd layer); xLSTM an 8-layer group (7 mLSTM + 1 sLSTM). Params
+for one group are described once and stacked on a leading layers axis, as
+in the JAX package, so one JAX leaf is one tensor here; where the JAX
+package runs `lax.scan` over the groups, the port runs a Python loop over
+views of the stacked tensors. Caches are stacked the same way. Decode
+writes the KV caches in place; an SSM state is copied back into its pool
+leaf, or the leaf is rebound where the new state has another type (the
+sLSTM h, ROADMAP.md queue C 1.4).
 
 In train mode with grad on, each group is recomputed in the backward pass
 (`cfg.remat`, `torch.utils.checkpoint`, as the reference wraps its group
@@ -27,33 +32,72 @@ from repro_torch.configs.base import (
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
 
 __all__ = ["layer_schedule", "model_desc", "forward", "init_caches",
            "pooled_embeddings"]
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 
 class Entry(NamedTuple):
-    mixer: str            # attn | swa
-    ffn: Optional[str]    # mlp | None
+    mixer: str            # attn | swa | mamba | mlstm | slstm
+    ffn: Optional[str]    # mlp | moe | None
 
 
 def layer_schedule(cfg: ModelConfig) -> list[Entry]:
-    """The per-group layer schedule. The port runs the dense family (attn
-    or swa mixers with an mlp ffn); the other families raise."""
-    if cfg.family != "dense":
+    """The per-group layer schedule. The audio and VLM families are not
+    ported and raise."""
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported; the port "
-            f"runs the dense family only (ROADMAP.md queue A 3)")
-    mixer = "swa" if cfg.sliding_window else "attn"
-    ffn = None if cfg.d_ff == 0 else "mlp"
-    return [Entry(mixer, ffn) for _ in range(cfg.group_size)]
+            f"runs the {', '.join(_FAMILIES)} families (ROADMAP.md queue "
+            f"A 3)")
+    out = []
+    for i in range(cfg.group_size):
+        if cfg.family in ("dense", "moe"):
+            mixer = "swa" if cfg.sliding_window else "attn"
+        elif cfg.family == "hybrid":
+            mixer = "attn" if i in cfg.attn_layer_in_group else cfg.ssm_kind
+        else:
+            mixer = "slstm" if i in cfg.slstm_layer_in_group else "mlstm"
+        if cfg.d_ff == 0 and not cfg.moe_d_ff:
+            ffn = None
+        elif cfg.num_experts and i % cfg.moe_period == cfg.moe_period - 1:
+            ffn = "moe"
+        else:
+            ffn = "mlp"
+        out.append(Entry(mixer, ffn))
+    return out
+
+
+class Mixer(NamedTuple):
+    """An SSM mixer's functions (models/ssm.py)."""
+    desc: Any
+    forward: Any
+    decode_step: Any
+    init_state: Any
+
+
+_MIXERS = {
+    "mamba": Mixer(S.mamba_desc, S.mamba_forward, S.mamba_decode_step,
+                   S.mamba_init_state),
+    "mlstm": Mixer(S.mlstm_desc, S.mlstm_forward, S.mlstm_decode_step,
+                   S.mlstm_init_state),
+    "slstm": Mixer(S.slstm_desc, S.slstm_forward, S.slstm_decode_step,
+                   S.slstm_init_state),
+}
 
 
 def _block_desc(cfg: ModelConfig, e: Entry):
-    d = {"ln1": L.norm_desc(cfg), "mixer": A.attn_desc(cfg)}
-    if e.ffn == "mlp":
+    mixer = (A.attn_desc(cfg) if e.mixer in ("attn", "swa")
+             else _MIXERS[e.mixer].desc(cfg))
+    d = {"ln1": L.norm_desc(cfg), "mixer": mixer}
+    if e.ffn:
         d["ln2"] = L.norm_desc(cfg)
-        d["ffn"] = L.mlp_desc(cfg)
+        d["ffn"] = (MOE.moe_desc(cfg) if e.ffn == "moe"
+                    else L.mlp_desc(cfg))
     return d
 
 
@@ -76,45 +120,73 @@ def model_desc(cfg: ModelConfig):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 device="cuda"):
-    """Stacked per-group caches for decode: one dict per schedule entry
-    holding "kv", a KVCache of (groups, batch, kv, S, hd) k/v and
-    (groups, batch, S) positions, all empty (`EMPTY_POS`). max_len is the
-    KV length (cfg.sliding_window caps it for SWA archs)."""
+    """Stacked per-group caches for decode, one dict per schedule entry:
+    attention layers hold "kv", a KVCache of (groups, batch, kv, S, hd)
+    k/v and (groups, batch, S) positions, all empty (`EMPTY_POS`); SSM
+    layers hold "ssm", their state with a leading groups axis, all zeros
+    (the reference's pool: zeros, the mLSTM stabilizer m too, and the sLSTM
+    h in bf16 whatever the activation type). max_len is the KV length
+    (cfg.sliding_window caps it for SWA archs)."""
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
     g, kvh, hd = cfg.num_groups, cfg.num_kv_heads, cfg.hd
     caches = []
     for e in layer_schedule(cfg):
-        S = min(max_len, cfg.sliding_window) if e.mixer == "swa" else max_len
-        caches.append({"kv": A.KVCache(
-            k=torch.zeros((g, batch, kvh, S, hd), dtype=dtype, device=dev),
-            v=torch.zeros((g, batch, kvh, S, hd), dtype=dtype, device=dev),
-            pos=torch.full((g, batch, S), A.EMPTY_POS, dtype=torch.int32,
-                           device=dev),
-        )})
+        if e.mixer in ("attn", "swa"):
+            S_ = (min(max_len, cfg.sliding_window) if e.mixer == "swa"
+                  else max_len)
+            caches.append({"kv": A.KVCache(
+                k=torch.zeros((g, batch, kvh, S_, hd), dtype=dtype,
+                              device=dev),
+                v=torch.zeros((g, batch, kvh, S_, hd), dtype=dtype,
+                              device=dev),
+                pos=torch.full((g, batch, S_), A.EMPTY_POS,
+                               dtype=torch.int32, device=dev),
+            )})
+        else:
+            st = _MIXERS[e.mixer].init_state(cfg, batch, device=dev)
+            caches.append({"ssm": tree_map(
+                lambda a: torch.zeros((g, *a.shape), dtype=a.dtype,
+                                      device=dev), st)})
     return caches
 
 
 def _apply_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
                  index, positions, kv_block):
-    """One block. Returns (x, new_cache)."""
+    """One block. Returns (x, new_cache, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(bp["ln1"], x, cfg)
     new_cache: dict[str, Any] = {}
-    window = cfg.sliding_window if e.mixer == "swa" else None
-    if mode == "decode":
-        y, new_cache["kv"] = A.decode_attention(
-            bp["mixer"], h, cfg, cache["kv"], index, window=window)
-    elif mode == "prefill":
-        y, new_cache["kv"] = A.attention(
-            bp["mixer"], h, cfg, positions=positions, causal=True,
-            window=window, kv_block=kv_block, return_cache=True)
+    if e.mixer in ("attn", "swa"):
+        window = cfg.sliding_window if e.mixer == "swa" else None
+        if mode == "decode":
+            y, new_cache["kv"] = A.decode_attention(
+                bp["mixer"], h, cfg, cache["kv"], index, window=window)
+        elif mode == "prefill":
+            y, new_cache["kv"] = A.attention(
+                bp["mixer"], h, cfg, positions=positions, causal=True,
+                window=window, kv_block=kv_block, return_cache=True)
+        else:
+            y = A.attention(bp["mixer"], h, cfg, positions=positions,
+                            causal=True, window=window, kv_block=kv_block)
     else:
-        y = A.attention(bp["mixer"], h, cfg, positions=positions,
-                        causal=True, window=window, kv_block=kv_block)
+        m = _MIXERS[e.mixer]
+        if mode == "decode":
+            y, new_cache["ssm"] = m.decode_step(bp["mixer"], h, cfg,
+                                                cache["ssm"])
+        else:
+            y, st = m.forward(bp["mixer"], h, cfg, None)
+            if mode == "prefill":
+                new_cache["ssm"] = st
     x = x + y
     if e.ffn:
-        x = x + L.apply_mlp(bp["ffn"], L.apply_norm(bp["ln2"], x, cfg), cfg)
-    return x, new_cache
+        h2 = L.apply_norm(bp["ln2"], x, cfg)
+        if e.ffn == "moe":
+            y2, aux = MOE.apply_moe(bp["ffn"], h2, cfg)
+        else:
+            y2 = L.apply_mlp(bp["ffn"], h2, cfg)
+        x = x + y2
+    return x, new_cache, aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -158,10 +230,11 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
 
     mode: train (no caches) | prefill (returns caches) | decode (s == 1,
     caches required, index = current position; the caches are written in
-    place and returned). Without `positions`, train and prefill attend at
+    place and returned, an SSM state rebound where its type changes). Without `positions`, train and prefill attend at
     positions arange(s) through the flash-attention path; explicit
     positions take the plain blockwise path.
-    Returns (logits, hidden, caches, aux_loss).
+    Returns (logits, hidden, caches, aux_loss): aux_loss is the MoE
+    load-balancing loss summed over the MoE blocks (0 without experts).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
@@ -172,34 +245,60 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     have_cache = caches is not None
 
     def group_fn(x, gparams, gcaches):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
         for i, e in enumerate(sched):
-            x, nc = _apply_block(
+            x, nc, a = _apply_block(
                 gparams["blocks"][i], x, cfg, e, mode,
                 gcaches[i] if have_cache else None, index, positions,
                 kv_block)
             new_caches.append(nc)
-        return x, new_caches
+            aux = aux + a
+        return x, new_caches, aux
 
     if mode == "train" and cfg.remat != "none" and torch.is_grad_enabled():
         group_fn = _remat(group_fn, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_group = []
     for gi, gparams in enumerate(_unstack(params["groups"],
                                           cfg.num_groups)):
         gcaches = tree_map(lambda c: c[gi], caches) if have_cache else None
-        x, new_caches = group_fn(x, gparams, gcaches)
+        x, new_caches, a = group_fn(x, gparams, gcaches)
+        aux = aux + a
         per_group.append(new_caches)
 
     if mode == "decode":
-        out_caches = caches  # written in place through the views
+        # KV caches were written in place through the views; SSM states
+        # come back new and go into their pool leaves
+        for i, e in enumerate(sched):
+            if "ssm" in caches[i]:
+                caches[i]["ssm"] = _write_states(
+                    caches[i]["ssm"], [pg[i]["ssm"] for pg in per_group])
+        out_caches = caches
     elif mode == "prefill":
         out_caches = tree_map(lambda *cs: torch.stack(cs), *per_group)
     else:
         out_caches = None
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.logits_from_hidden(params["embed"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, x, out_caches, aux
+
+
+def _write_states(pool, states):
+    """The per-group decode states `states` into the stacked `pool` state:
+    each leaf copied in place where its type is the pool's, else the pool
+    leaf rebound to the stacked new states (the JAX decode step returns
+    its new state in the activation type, so its pool takes that type)."""
+    out = []
+    for j, leaf in enumerate(pool):
+        new = [st[j] for st in states]
+        if new[0].dtype == leaf.dtype:
+            for gi, t in enumerate(new):
+                leaf[gi].copy_(t)
+            out.append(leaf)
+        else:
+            out.append(torch.stack(new))
+    return type(pool)(*out)
 
 
 def pooled_embeddings(params, cfg: ModelConfig, tokens, **kw):

@@ -1,6 +1,7 @@
 """Batched serving engine of the port (counterpart of
-`repro.serving.engine`): per-slot prefill into a pooled KV cache, then one
-decode over the whole slot pool per step, greedy or temperature sampling.
+`repro.serving.engine`): per-slot prefill into the pooled caches (KV
+caches, SSM states), then one decode over the whole slot pool per step,
+greedy or temperature sampling.
 
 Finished slots are refilled from the queue between steps. The decode step
 runs every slot at ONE shared index, the largest position in the pool
@@ -8,7 +9,12 @@ runs every slot at ONE shared index, the largest position in the pool
 (`repro/serving/engine.py:62`): a slot whose own position is smaller
 decodes at the wrong rotary position and writes its K/V at the wrong
 cache slot. That is a fault of the reference (ROADMAP.md queue C), and
-the port reproduces it, so that both engines give the same tokens.
+the port reproduces it, so that both engines give the same tokens. So it
+does two more of the reference's: an MoE decode routes the whole pool as
+one group, empty slots included, with capacity int(slots * k * cf / E) + 1
+(queue C 1.5); and a prefilled sLSTM h is rounded into the pool's bf16
+leaf until the first decode step rebinds that leaf in the activation type
+(queue C 1.4).
 """
 
 from __future__ import annotations
@@ -104,13 +110,17 @@ class Engine:
             first = int(self._sample(last_logits[:, 0])[0])
             n = len(prompt)
             for pool, one in zip(self.caches, caches1):
-                pk, ok = pool["kv"], one["kv"]
-                pk.k[:, i].zero_()
-                pk.v[:, i].zero_()
-                pk.pos[:, i] = EMPTY_POS
-                pk.k[:, i, :, :n] = ok.k[:, 0]
-                pk.v[:, i, :, :n] = ok.v[:, 0]
-                pk.pos[:, i, :n] = ok.pos[:, 0]
+                if "kv" in pool:
+                    pk, ok = pool["kv"], one["kv"]
+                    pk.k[:, i].zero_()
+                    pk.v[:, i].zero_()
+                    pk.pos[:, i] = EMPTY_POS
+                    pk.k[:, i, :, :n] = ok.k[:, 0]
+                    pk.v[:, i, :, :n] = ok.v[:, 0]
+                    pk.pos[:, i, :n] = ok.pos[:, 0]
+                else:  # an SSM state: each leaf whole, in the pool's type
+                    for leaf, new in zip(pool["ssm"], one["ssm"]):
+                        leaf[:, i].copy_(new[:, 0])
             self.slots[i] = _Slot(rid, [first], False)
             self.pos[i] = n
             if first == self.scfg.eos_id:

@@ -107,8 +107,29 @@ def test_dense_configs_match_the_jax_package(jx):
         jx.registry.ARCHS)
 
 
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+                                  "xlstm-1.3b", "jamba-v0.1-52b"])
+def test_family_configs_match_the_jax_package(jx, name):
+    """The MoE, SSM and hybrid configs: every field of the port's config
+    equal to JAX's (dtype by name), the derived sizes and num_params."""
+    import dataclasses
+
+    cfg, jcfg = registry.get_config(name), jx.registry.get_config(name)
+    for f in dataclasses.fields(cfg):
+        got, want = getattr(cfg, f.name), getattr(jcfg, f.name)
+        if f.name == "dtype":
+            got, want = str(got).split(".")[-1], want.__name__
+        assert got == want, (name, f.name)
+    for prop in ("hd", "padded_heads", "padded_vocab", "d_inner", "dt_rank_",
+                 "num_groups"):
+        assert getattr(cfg, prop) == getattr(jcfg, prop), (name, prop)
+    assert build_model(cfg).num_params() == jx.build(jcfg).num_params()
+    assert registry.ARCHS[name] is cfg
+    assert set(registry.NOT_PORTED) == {"whisper-small", "internvl2-2b"}
+
+
 def test_layer_schedule_raises_for_other_families():
-    cfg = registry.ARCHS["qwen3-1.7b"].replace(family="moe")
+    cfg = registry.ARCHS["qwen3-1.7b"].replace(family="audio")
     with pytest.raises(NotImplementedError, match="queue A 3"):
         T.layer_schedule(cfg)
 

@@ -345,7 +345,10 @@ def test_import_leaves_no_jax_or_repro_module():
         "repro_torch.launch.specs, repro_torch.launch.mesh, "
         "repro_torch.launch.train, repro_torch.training.optimizer, "
         "repro_torch.training.compression, repro_torch.training.trainer, "
-        "repro_torch.data.pipeline\n"
+        "repro_torch.data.pipeline, repro_torch.models.moe, "
+        "repro_torch.models.ssm, repro_torch.configs.mixtral_8x7b, "
+        "repro_torch.configs.phi35_moe, repro_torch.configs.xlstm_1_3b, "
+        "repro_torch.configs.jamba_v01\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -123,8 +123,10 @@ def test_engine_rejects_prompts_that_do_not_fit(jx):
             eng.submit(bad)
 
 
-def _serve_cli(*args):
+def _serve_cli(*args, threads=None):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    if threads:  # fewer CPU threads: the suite runs test files side by side
+        env["OMP_NUM_THREADS"] = str(threads)
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *args], env=env,
         cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -135,6 +137,17 @@ def test_serve_launcher_runs_on_cpu():
     assert p.returncode == 0, p.stdout + p.stderr
     assert "on cpu" in p.stdout and "served 4 requests" in p.stdout
     assert "host-CPU" not in p.stdout
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+                                  "xlstm-1.3b", "jamba-v0.1-52b"])
+def test_serve_launcher_runs_each_family_on_cpu(arch):
+    """The MoE, SSM and hybrid archs at their reduced config."""
+    p = _serve_cli("--device", "cpu", "--reduced", "--arch", arch,
+                   "--requests", "2", "--max-len", "20", threads=2)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert f"serving {arch}" in p.stdout and " on cpu," in p.stdout
+    assert "served 2 requests" in p.stdout and "tok/s on cpu)" in p.stdout
 
 
 def test_serve_launcher_needs_a_card_by_default():

@@ -20,25 +20,32 @@ The reference `Trainer` fails under jax 0.9 on its explicit mesh axes
 
 import faulthandler
 import functools
+import os
+import subprocess
+import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+    import jax.numpy as jnp
 
-from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
-from repro.configs.base import ModelConfig as JModelConfig
-from repro.configs import registry as jregistry
-from repro.core.analysis import k_invariance_correlation as jkcorr
-from repro.launch.train import reduced_config as jreduced
-from repro.models import build_model as jbuild
-from repro.models.transformer import pooled_embeddings as jpooled
-from repro.training import compression as jcomp
-from repro.training import optimizer as jopt
+    from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro.configs import registry as jregistry
+    from repro.core.analysis import k_invariance_correlation as jkcorr
+    from repro.launch.train import reduced_config as jreduced
+    from repro.models import build_model as jbuild
+    from repro.models.transformer import pooled_embeddings as jpooled
+    from repro.training import compression as jcomp
+    from repro.training import optimizer as jopt
+except ImportError:  # a card's host without JAX: only the cuda tests run
+    jax = None
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import registry
@@ -59,13 +66,14 @@ from repro_torch.training import optimizer as topt
 from repro_torch.training.trainer import Trainer, TrainerConfig
 
 CUDA_TEST_LIMIT_S = 300  # a hung kernel fails its test instead of the run
+REPO = Path(__file__).resolve().parents[1]
 
 # the SMALL config of tests/test_substrate.py, in both packages
 _SMALL = dict(name="tiny", family="dense", num_layers=2, d_model=32,
               num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=128,
               head_dim=8, tp_pad_heads=4, vocab_pad=32)
-JSMALL = JModelConfig(**_SMALL, dtype=jnp.float32, mlstm_chunk=8,
-                      mamba_chunk=8)
+JSMALL = None if jax is None else JModelConfig(
+    **_SMALL, dtype=jnp.float32, mlstm_chunk=8, mamba_chunk=8)
 SMALL = ModelConfig(**_SMALL, dtype=torch.float32)
 
 
@@ -526,6 +534,25 @@ def test_train_launcher_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert [h["step"] for h in more] == [2]
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+                                  "xlstm-1.3b", "jamba-v0.1-52b"])
+def test_train_launcher_runs_each_family_on_the_cpu(arch, capsys):
+    """The MoE, SSM and hybrid archs at their reduced config: two finite
+    steps (the MoE aux loss inside them), the line naming the device. On
+    two CPU threads: the suite runs test files side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _, _, hist = tlaunch.main(["--device", "cpu", "--arch", arch,
+                                   "--reduced", "--steps", "2", "--batch",
+                                   "1", "--seq", "8"])
+    finally:
+        torch.set_num_threads(threads)
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    out = capsys.readouterr().out
+    assert f"arch={arch} " in out and "device=cpu" in out
+
+
 # ------------------------------------------------------- API leftovers
 def test_pooled_embeddings_match_jax():
     """reduced qwen3-1.7b at 2 layers, f32: within 1e-4 of max |value|."""
@@ -566,18 +593,72 @@ def cuda():
     faulthandler.cancel_dump_traceback_later()
 
 
+# the CPU side of test_cuda_loss_and_grads_match_the_cpu, run in a child
+_CPU_GRADS = """
+import os, sys, time
+import numpy as np, torch
+from repro_torch.configs import registry
+from repro_torch.configs.base import tree_leaves
+from repro_torch.launch.train import reduced_config
+from repro_torch.models import build_model
+
+cfg = reduced_config(registry.get_config("qwen3-1.7b")).replace(num_layers=2)
+model = build_model(cfg)
+params = model.init(torch.Generator().manual_seed(0), device="cpu")
+toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (2, 65))
+batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+         "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+leaves = tree_leaves(params)
+for p in leaves:
+    p.requires_grad_(True)
+loss, _ = model.loss_fn(params, batch)
+grads = torch.autograd.grad(loss, leaves)
+host = {}
+try:
+    for line in open("/proc/cpuinfo"):
+        k, _, v = line.partition(":")
+        if k.strip() in ("vendor_id", "model name"):
+            host.setdefault(k.strip(), v.strip())
+except OSError:
+    pass
+torch.save({"loss": float(loss.detach()), "grads": list(grads),
+            "host": dict(host, cores=os.cpu_count(),
+                         threads=torch.get_num_threads(),
+                         capability=torch.backends.cpu.get_cpu_capability(),
+                         MKL_CBWR=os.environ.get("MKL_CBWR"))},
+           sys.argv[1])
+"""
+
+
+def _cpu_loss_and_grads_in_a_child(path):
+    """(loss, gradient leaves, host) of the CPU side, computed in a process
+    of its own with MKL in its reproducible mode (`MKL_CBWR=AVX2`): by
+    default MKL picks one of two f32 paths per process, one ~1.85e-4 of
+    its max off the card in a gradient (chip_smoke.py [14a],
+    grad_reference_probe.py)."""
+    env = dict(os.environ, MKL_CBWR="AVX2", PYTHONPATH=str(REPO / "src"))
+    subprocess.run([sys.executable, "-c", _CPU_GRADS, str(path)], env=env,
+                   cwd=REPO, check=True, timeout=CUDA_TEST_LIMIT_S)
+    ref = torch.load(path)
+    return ref["loss"], ref["grads"], ref["host"]
+
+
 @pytest.mark.cuda
-def test_cuda_loss_and_grads_match_the_cpu(cuda):
+def test_cuda_loss_and_grads_match_the_cpu(cuda, tmp_path):
     """[14]'s card-vs-CPU check at small size: reduced qwen3-1.7b at 2
     layers, f32, TF32 off: the loss within 1e-4 relative and every
-    gradient leaf within 1e-4 of its max |value|; no flash launch."""
+    gradient leaf within 1e-4 of its max |value|; no flash launch. The CPU
+    side runs in a child process under `MKL_CBWR=AVX2`, its host logged."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = reduced_config(registry.get_config("qwen3-1.7b")).replace(
         num_layers=2)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    batch = _tokens(13, b=2, s=64, vocab=cfg.vocab_size)
-    loss, _, grads = _port_loss_and_grads(model, params, batch)
+    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    loss, grads, host = _cpu_loss_and_grads_in_a_child(tmp_path / "cpu.pt")
+    print(f"CPU side: {host}")
     gparams = tree_map(lambda t: t.detach().to(cuda), params)
     before = flash_attention_cuda.launches
     leaves = tree_leaves(gparams)
@@ -588,8 +669,9 @@ def test_cuda_loss_and_grads_match_the_cpu(cuda):
     ggrads = torch.autograd.grad(gloss, leaves)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before
-    np.testing.assert_allclose(float(gloss), float(loss), rtol=1e-4)
-    for g, c in zip(ggrads, tree_leaves(grads)):
+    np.testing.assert_allclose(float(gloss), loss, rtol=1e-4)
+    assert len(ggrads) == len(grads)
+    for g, c in zip(ggrads, grads):
         torch.testing.assert_close(g.cpu(), c, rtol=0,
                                    atol=1e-4 * float(c.abs().max()) + 1e-30)
 
