@@ -117,8 +117,8 @@ and then the "distributed" engine and the LM training path:
       differentiates the blockwise attention, as the reference does.
 
 and then the MoE, xLSTM and hybrid decoder families at full width (the
-CPU sides of [15a], [16a] and [17a] in one child process, MKL in its
-reproducible mode, started first):
+CPU sides of [14a]-[20a] in one child process, MKL in its reproducible
+mode, started before [13]):
 
   [15] mixtral-8x7b: [15a] 1 layer, f32, 1 x 256 tokens on the card
       against the CPU (logits 1e-4 of max, aux 1e-5 relative, the MoE
@@ -126,13 +126,13 @@ reproducible mode, started first):
       logged beside it); [15b] the flash kernel at mixtral's attention
       shape (1, 32, 8192, 128), causal, window 4096, f32 and bf16 against
       plain, timed beside its bound and SDPA with the mask; [15c] 8 of 32
-      layers (bf16) serving 8 requests of 3968-4090 tokens to max_len 4224
-      (64 flash launches, the 4096-slot ring wraps); [15d] phi3.5-moe, 4
+      layers (bf16) serving 4 requests of 3968-4090 tokens to max_len 4224
+      (32 flash launches, the 4096-slot ring wraps); [15d] phi3.5-moe, 4
       of 32 layers, 4 requests of 1985-2039 tokens (16 launches);
   [16] xlstm-1.3b: [16a] one group, f32, 600 tokens, a prefill and 8
       decode steps card vs CPU at three scales, held at 1/16 of the
       fan-in scale, the card's own sensitivity logged at each; [16b] all
-      48 blocks (f32 params, bf16 activations) serving 8 requests of
+      48 blocks (f32 params, bf16 activations) serving 4 requests of
       960-1024 tokens (no flash launch), the sLSTM's share of a prefill;
   [17] jamba-v0.1-52b: [17a] one Mamba mixer, f32, 1100 tokens and 8
       decode steps card vs CPU; [17b] one group (8 of 32 layers, bf16)
@@ -145,6 +145,38 @@ reproducible mode, started first):
   at the fan-in scale (ROADMAP.md queue C 1.6), and every phase frees
   them before the next.
 
+and then the audio and VLM families and the families' training:
+
+  [18] whisper-small: [18a] 2 encoder and 2 decoder layers at full
+      width, f32, 1 x 1500 frames and 64 prompt tokens card vs CPU (the
+      encoder output, the prefill's logits at every position and 8
+      decode steps from its caches, 1e-4 of max at the fan-in scale, the
+      init scale's logged); [18b] the flash kernel non-causal at the
+      encoder's (4, 16, 1500, 64) and the cross (4, 16, 448, 64) x
+      (4, 16, 1500, 64), f32 and bf16 against plain (the ragged key edge
+      at 1500 element by element), timed beside its bound and SDPA;
+      [18c] 12 + 12 layers (bf16) serving 4 requests of 1500 frames and
+      Whisper's 4-token prompt as one batch through `Model.prefill` (36
+      flash launches: 12 encoder, 12 self, 12 cross) and decoding
+      greedily through `Model.decode_step` to position 447 (no launch);
+  [19] internvl2-2b: [19a] 2 layers, f32, 1 x (256 patch embeddings +
+      256 tokens), prefill logits and 8 decode steps card vs CPU; [19b]
+      24 layers (bf16) serving 4 requests of 256 patches + 256 tokens as
+      one batch (24 flash launches) and 128 greedy decode steps, then
+      `Engine(ServeConfig(max_slots=4, max_len=640))` on 4 text-only
+      prompts of 500-512 tokens (24 launches a request);
+  [20] training: [20a] the loss and every gradient leaf card vs CPU,
+      1e-4 of max (whisper 1 + 1 layers with 1500 frames and 128 tokens,
+      internvl2 2 layers with 256 + 256, mixtral 1 layer with 128 tokens,
+      xlstm one group with 256 tokens, one jamba Mamba mixer with 512),
+      the init scale logged beside; [20b] `Trainer` steps at full width
+      (f32 params and AdamW, bf16 activations, remat "block", one fixed
+      batch, params at the fan-in scale): whisper 12 + 12 layers 2 x
+      (1500 + 448), internvl2 24 layers 2 x (256 + 1792), mixtral 1 layer
+      1 x 2048, xlstm one group 1 x 1024, finite with the last loss below
+      the first, no flash launch; [20c] the restart drill at the reduced
+      config for jamba and whisper.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -155,6 +187,7 @@ version, kernel / plain / bound / library times); the last line is
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import faulthandler
 import gc
@@ -334,17 +367,20 @@ def bf16_ulp(torch, x):
     return torch.exp2(e - 7)
 
 
-def hold_flash(torch, gen, dev, label, b, h, s, d, causal, window, dtype):
+def hold_flash(torch, gen, dev, label, b, h, s, d, causal, window, dtype,
+               sk=None):
     """The flash-attention kernel against its plain version on random
-    (b, h, s, d) inputs of `dtype`, element by element: f32 within 2e-5
-    abs + 2e-5 rel (the same f32 function, sums in another order), bf16
-    within one bf16 ulp of the larger magnitude + 2e-5 (both round the
-    same f32 function once). Returns (q, k, v, max_abs_err)."""
+    (b, h, s, d) queries and (b, h, sk, d) keys and values (sk = s by
+    default) of `dtype`, element by element: f32 within 2e-5 abs + 2e-5
+    rel (the same f32 function, sums in another order), bf16 within one
+    bf16 ulp of the larger magnitude + 2e-5 (both round the same f32
+    function once). Returns (q, k, v, max_abs_err)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain)
 
-    q, k, v = (torch.randn((b, h, s, d), generator=gen,
-                           device=dev).to(dtype) for _ in range(3))
+    sk = s if sk is None else sk
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype)
+               for n in (s, sk, sk))
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -358,13 +394,13 @@ def hold_flash(torch, gen, dev, label, b, h, s, d, causal, window, dtype):
         ok = bool(((g - w).abs() <= bf16_ulp(torch, torch.maximum(
             g.abs(), w.abs())) + 2e-5).all())
         tol = "1 bf16 ulp + 2e-5"
-    log(f"{label} flash_attention {str(dtype)[6:]} ({b}, {h}, {s}, {d}) "
+    shape = f"({b}, {h}, {s}, {d})" + (f" x sk {sk}" if sk != s else "")
+    log(f"{label} flash_attention {str(dtype)[6:]} {shape} "
         f"causal={causal} window={window}: max_abs_err {err:.3e} "
         f"(tol {tol}, element by element)")
     if not ok:
-        fail(f"flash attention kernel disagrees with plain at "
-             f"({b},{h},{s},{d}) {dtype} causal={causal} "
-             f"window={window}: {err}")
+        fail(f"flash attention kernel disagrees with plain at {shape} "
+             f"{dtype} causal={causal} window={window}: {err}")
     return q, k, v, err
 
 
@@ -1688,11 +1724,7 @@ def lm_phase(torch, np, dev, entries) -> dict:
         _, caches = m4.prefill(p4, {"tokens": toks[:, :s]})
         if flash_attention_cuda.launches - launches0 != 2 * cfg4.num_layers:
             fail("the consistency check did not run the kernel once a layer")
-        pool = m4.init_caches(b, s + 8, device=dev)
-        for pc, one in zip(pool, caches):
-            pc["kv"].k[..., :s, :] = one["kv"].k
-            pc["kv"].v[..., :s, :] = one["kv"].v
-            pc["kv"].pos[..., :s] = one["kv"].pos
+        pool = grow_caches(torch, m4, caches, b, s, s + 8, dev)
         dec, _ = m4.decode_step(p4, {"tokens": toks[:, s:s + 1],
                                      "caches": pool, "index": s})
         # the real vocab only: the padded columns are -1e30 on both sides
@@ -2116,7 +2148,8 @@ CPU_REFS = {"grads": grads_ref, "moe": moe_ref, "xlstm": xlstm_ref,
 def cpu_ref_main(cases: str, out_dir: str) -> None:
     """`chip_smoke.py --cpu-ref CASE[,CASE...] DIR`: the CPU sides of the
     card-vs-CPU checks ([14a] "grads", [15a] "moe", [16a] "xlstm", [17a]
-    "mamba"), in a process of its own so that nothing an earlier phase
+    "mamba", [18a] "whisper", [19a] "internvl", [20a] "grads_<case>"), in
+    a process of its own so that nothing an earlier phase
     left in the parent (threads, allocator, floating-point state) touches
     the reference. Saves DIR/CASE.pt for each case in turn (written whole,
     then renamed), with its seconds, the CPU settings and the host."""
@@ -2134,46 +2167,121 @@ def cpu_ref_main(cases: str, out_dir: str) -> None:
         part.rename(Path(out_dir) / f"{case}.pt")
 
 
-def start_cpu_refs(cases: str, out_dir) -> subprocess.Popen:
-    """The CPU-side child of `cpu_ref_main`, MKL in its conditional
+class CpuRefs:
+    """One `cpu_ref_main` child computing `cases` in order, each saved to
+    a temporary directory; `get` waits for a case, `close` ends the child
+    and removes the directory. The child runs MKL in its conditional
     numerical reproducibility mode: by default MKL's f32 products come out
     one of two ways from process to process on one host, one of them
     1.85e-4 of its max off in a gradient (grad_reference_probe.py)."""
-    return subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-ref", cases,
-         str(out_dir)], env=dict(os.environ, MKL_CBWR="AVX2"))
+
+    def __init__(self, cases: str):
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_cpu_refs_")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-ref", cases,
+             self.tmp], env=dict(os.environ, MKL_CBWR="AVX2"))
+
+    def get(self, torch, case: str, limit_s: float = 900):
+        """The child's result for `case`, once written; fails if the child
+        ended without it or `limit_s` passed."""
+        path = Path(self.tmp) / f"{case}.pt"
+        t0 = time.perf_counter()
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                fail(f"the CPU-side child ended ({self.proc.returncode}) "
+                     f"without {case}")
+            if time.perf_counter() - t0 > limit_s:
+                fail(f"the CPU side of {case} took over {limit_s} s")
+            time.sleep(0.2)
+        return torch.load(path)
+
+    def close(self) -> None:
+        """Let the child end (it exits after its last result), or end it."""
+        if self.proc.poll() is None:
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
-def stop_child(proc: subprocess.Popen) -> None:
-    """Let the child end (it exits after its last result), or end it."""
+def restart_drill(torch, np, dev, c, label, cfg) -> dict:
+    """The restart drill of `cfg` (a reduced config): 6 Trainer steps on
+    `launch.train.synthetic_batch`es of 4 x 256 tokens (and the family's
+    patches or frames) with ckpt_every 3; a fresh Trainer, its params drawn
+    from another seed, restores step 6 bit for bit; one checkpoint write
+    and restore timed. No flash launch (training differentiates the
+    blockwise attention)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import tree_leaves
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    ck_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
-        proc.wait(timeout=60)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        tcfg = TrainerConfig(steps=6, log_every=1, ckpt_every=3,
+                             ckpt_dir=str(ck_root / "run"),
+                             opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                             total_steps=6))
+        tr = Trainer(cfg, tcfg, device=dev)
+        params, opt_state = tr.init_state(0)
+        c.zero_counts()
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        params, opt_state, hist = tr.fit(
+            params, opt_state, lambda step: synthetic_batch(cfg, step, 4,
+                                                            256))
+        fit_s = time.perf_counter() - t0
+        got = dict(c.read_counts(),
+                   flash_attention=flash_attention_cuda.launches)
+        c.expect(label, got, flash_attention=0)
+        t0 = time.perf_counter()
+        Checkpointer(ck_root / "timed").save(6, (params, opt_state))
+        write_s = time.perf_counter() - t0
+        tr2 = Trainer(cfg, tcfg, device=dev)
+        p2, o2 = tr2.init_state(1)
+        t0 = time.perf_counter()
+        p2, o2, start = tr2.maybe_restore(p2, o2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(a.device == b.device and torch.equal(a, b)
+                   for a, b in zip(tree_leaves((p2, o2)),
+                                   tree_leaves((params, opt_state))))
+        size_gib = sum(a.numel() * a.element_size()
+                       for a in tree_leaves((params, opt_state))) / 2**30
+        out = dict(arch=cfg.name, params=tr.model.num_params(),
+                   losses=[h["loss"] for h in hist], fit_s=fit_s,
+                   start=start, bit_identical=same, checkpoint_gib=size_gib,
+                   write_s=write_s, restore_s=restore_s, launches=got)
+        shown = ", ".join(f"{v:.4f}" for v in out["losses"])
+        log(f"{label} restart drill, reduced {cfg.name} "
+            f"({tr.model.num_params() / 1e6:.1f} M params): 6 steps in "
+            f"{fit_s:.2f} s (checkpoints at 3 and 6), losses {shown}; a "
+            f"fresh Trainer resumed at step {start}, leaves bit-identical "
+            f"{same}; one {size_gib:.2f} GiB checkpoint written (snapshot, "
+            f"np.save, sha256) in {write_s:.2f} s, restored (sha256, load, "
+            f"copy to the card) in {restore_s:.2f} s")
+        if start != 6 or not same:
+            fail(f"{label} restart at {start}, bit-identical {same}")
+        if not all(np.isfinite(out["losses"])):
+            fail(f"{label} a loss is not finite")
+        del params, opt_state, p2, o2, tr, tr2
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
 
 
-def wait_cpu_ref(torch, proc, out_dir, case: str, limit_s: float = 900):
-    """The child's result for `case`, once written; fails if the child
-    ended without it or `limit_s` passed."""
-    path = Path(out_dir) / f"{case}.pt"
-    t0 = time.perf_counter()
-    while not path.exists():
-        if proc.poll() is not None and not path.exists():
-            fail(f"the CPU-side child ended ({proc.returncode}) without "
-                 f"{case}")
-        if time.perf_counter() - t0 > limit_s:
-            fail(f"the CPU side of {case} took over {limit_s} s")
-        time.sleep(0.2)
-    return torch.load(path)
-
-
-def training_phase(torch, np, dev, c) -> dict:
+def training_phase(torch, np, dev, c, refs) -> dict:
     """[14]: the LM training path of qwen3-1.7b: card against CPU at full
-    width with 2 layers; 4 Trainer steps at full width and depth; the
-    restart drill at the reduced config."""
+    width with 2 layers (the CPU side from `refs`, a `CpuRefs` child);
+    4 Trainer steps at full width and depth; the restart drill at the
+    reduced config."""
     from repro_torch.checkpoint.checkpointer import _flatten, _keystr
-    from repro_torch.configs.base import tree_leaves, tree_map
+    from repro_torch.configs.base import tree_map
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.launch.train import reduced_config
@@ -2198,18 +2306,13 @@ def training_phase(torch, np, dev, c) -> dict:
                 "labels": torch.from_numpy(toks[:, 1:])}
 
     # [14a] the card against the CPU: full width, 2 layers, f32, TF32 off;
-    # the CPU side in a fresh process (`cpu_ref_main`), its MKL in the
+    # the CPU side in a process of its own (`cpu_ref_main`), its MKL in the
     # conditional numerical reproducibility mode: by default MKL's f32
     # products here come out one of two ways from run to run on one host,
     # one of them 1.85e-4 of its max off in ffn.w1's gradient
     # (grad_reference_probe.py)
     model, params, batch = card_vs_cpu_inputs(torch, np, rng)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_grads_") as tmp:
-        proc = start_cpu_refs("grads", tmp)
-        try:
-            ref = wait_cpu_ref(torch, proc, tmp, "grads")
-        finally:
-            stop_child(proc)
+    ref = refs.get(torch, "grads")
     closs, cgrads, cpu_s = ref["loss"], ref["grads"], ref["seconds"]
     gparams = tree_map(lambda p: p.to(dev), params)
     zero_counts()
@@ -2302,68 +2405,9 @@ def training_phase(torch, np, dev, c) -> dict:
     del params, opt_state, tr, batch
     torch.cuda.empty_cache()
 
-    # [14c] the restart drill at reduced_config(qwen3-1.7b): 6 steps with
-    # ckpt_every=3, a fresh Trainer restores step 6 bit for bit
-    from repro_torch.checkpoint.checkpointer import Checkpointer
-    from repro_torch.data import make_token_batch
-
-    small = reduced_config(full)
-    ck_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    try:
-        tcfg = TrainerConfig(steps=6, log_every=1, ckpt_every=3,
-                             ckpt_dir=str(ck_root / "run"),
-                             opt=AdamWConfig(lr=1e-3, warmup_steps=2,
-                                             total_steps=6))
-
-        def batch_fn(step):
-            toks, labels = make_token_batch(
-                torch.Generator().manual_seed(step), 4, 256,
-                small.vocab_size)
-            return {"tokens": toks, "labels": labels}
-
-        tr = Trainer(small, tcfg, device=dev)
-        params, opt_state = tr.init_state(0)
-        zero_counts()
-        t0 = time.perf_counter()
-        params, opt_state, hist = tr.fit(params, opt_state, batch_fn)
-        fit_s = time.perf_counter() - t0
-        got = read_counts()
-        c.expect("[14c]", got, flash_attention=0)
-        t0 = time.perf_counter()
-        Checkpointer(ck_root / "timed").save(6, (params, opt_state))
-        write_s = time.perf_counter() - t0
-        tr2 = Trainer(small, tcfg, device=dev)
-        p2, o2 = tr2.init_state(1)
-        t0 = time.perf_counter()
-        p2, o2, start = tr2.maybe_restore(p2, o2)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        same = all(a.device == b.device and torch.equal(a, b)
-                   for a, b in zip(tree_leaves((p2, o2)),
-                                   tree_leaves((params, opt_state))))
-        size_gib = sum(a.numel() * a.element_size()
-                       for a in tree_leaves((params, opt_state))) / 2**30
-        out["restart"] = dict(arch=small.name, params=tr.model.num_params(),
-                              losses=[h["loss"] for h in hist],
-                              fit_s=fit_s, start=start, bit_identical=same,
-                              checkpoint_gib=size_gib, write_s=write_s,
-                              restore_s=restore_s, launches=got)
-        shown = ", ".join(f"{v:.4f}" for v in out["restart"]["losses"])
-        log(f"[14c] restart drill, reduced qwen3-1.7b "
-            f"({tr.model.num_params() / 1e6:.1f} M params): 6 steps in "
-            f"{fit_s:.2f} s (checkpoints at 3 and 6), losses {shown}; a "
-            f"fresh "
-            f"Trainer resumed at step {start}, leaves bit-identical {same}; "
-            f"one {size_gib:.2f} GiB checkpoint written (snapshot, np.save, "
-            f"sha256) in {write_s:.2f} s, restored (sha256, load, copy to "
-            f"the card) in {restore_s:.2f} s")
-        if start != 6 or not same:
-            fail(f"[14c] restart at {start}, bit-identical {same}")
-        if not all(np.isfinite(out["restart"]["losses"])):
-            fail("[14c] a loss is not finite")
-        del params, opt_state, p2, o2, tr, tr2
-    finally:
-        shutil.rmtree(ck_root, ignore_errors=True)
+    # [14c] the restart drill at reduced_config(qwen3-1.7b)
+    out["restart"] = restart_drill(torch, np, dev, c, "[14c]",
+                                   reduced_config(full))
     torch.cuda.empty_cache()
     return out
 
@@ -2569,28 +2613,14 @@ def serve_family(torch, np, dev, label, name, layers, max_len, n_req, lo,
     drawn on the card from seed 0, at the fan-in scale), 4 slots,
     `max_len`; with `share_kind`, the share of that mixer in one prefill
     of the longest prompt."""
-    from repro_torch.configs.base import PD, tree_leaves
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import build_model
     from repro_torch.serving.engine import ServeConfig
 
-    cfg = get_config(name).replace(num_layers=layers)
-    model = build_model(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(0),
-                        dtype=param_dtype, device=dev)
-    # at the fan-in scale: at the init scale the activations of these
-    # stacks grow by orders of magnitude a layer (ROADMAP.md queue C 1.6)
-    for p, pd in zip(tree_leaves(params), tree_leaves(
-            model.desc(), is_leaf=lambda x: isinstance(x, PD))):
-        p.mul_(fan_in_factor(pd))
-    torch.cuda.synchronize()
+    cfg, model, params = draw_on_card(torch, dev, label, name, param_dtype,
+                                      num_layers=layers)
     init_s = time.perf_counter() - t0
-    log(f"{label} {name}: {layers} of {get_config(name).num_layers} layers, "
-        f"{model.num_params() / 1e9:.3f} B {str(param_dtype)[6:]} params "
-        f"drawn on the card at the fan-in scale in {init_s:.2f} s; "
-        f"{device_gib(torch)}")
     rng = np.random.default_rng(seed)
     lens = rng.integers(lo, hi + 1, n_req)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
@@ -2612,211 +2642,210 @@ def serve_family(torch, np, dev, label, name, layers, max_len, n_req, lo,
     return out
 
 
-def families_phase(torch, np, dev, c) -> dict:
+def families_phase(torch, np, dev, c, refs) -> dict:
     """[15]-[17]: the MoE, xLSTM and hybrid decoder families at full
-    width: each card-vs-CPU check (the CPU sides in one child process,
-    started first and read as each check needs it), the flash kernel at
-    mixtral's attention shape, and each family served."""
+    width: each card-vs-CPU check (the CPU sides from `refs`, a
+    `CpuRefs` child started first and read as each check needs it), the
+    flash kernel at mixtral's attention shape, and each family served."""
     from repro_torch.configs.base import tree_map
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain)
 
     out, phase_s = {}, {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
-    proc = start_cpu_refs("moe,xlstm,mamba", tmp)
-    try:
-        # [15a] mixtral's full width, 1 layer, f32, TF32 off, 1 x 256
-        # tokens, at the init scale (logged) and the fan-in scale (held)
-        t = time.perf_counter()
-        log(f"[15a] device memory before: {device_gib(torch)}")
-        model, host, toks = moe_case_inputs(torch, np)
-        params = tree_map(lambda t: t.to(dev), host)
-        del host
-        gc.collect()
-        host_gib = host_peak_gib()
-        c.zero_counts()
-        flash_attention_cuda.launches = 0
-        got = {which: moe_case_run(torch, model, params, toks, which)
-               for which in SCALES}
-        launches = dict(c.read_counts(),
-                        flash_attention=flash_attention_cuda.launches)
-        del params
-        ref = wait_cpu_ref(torch, proc, tmp, "moe")
-        res = {}
-        for which in SCALES:
-            g, r = got[which], ref[which]
-            res[which] = dict(
-                logits_rel_err=rel_err(torch, g["logits"], r["logits"]),
-                aux_card=g["aux"], aux_cpu=r["aux"],
-                aux_rel_err=abs(g["aux"] - r["aux"]) / abs(r["aux"]),
-                routing_equal={k: bool(torch.equal(g[k], r[k]))
-                               for k in ("gate_idx", "pos", "keep")},
-                dropped_choices=int((~g["keep"]).sum()))
-            log(f"[15a] mixtral-8x7b width, 1 layer, f32, 1 x 256 tokens, "
-                f"{which} scale: logits max_abs_err / max |CPU| "
-                f"{res[which]['logits_rel_err']:.3e}; aux card "
-                f"{g['aux']:.7f} vs CPU {r['aux']:.7f} (rel "
-                f"{res[which]['aux_rel_err']:.2e}); routing equal "
-                f"{res[which]['routing_equal']} "
-                f"({res[which]['dropped_choices']} of {g['keep'].numel()} "
-                f"choices dropped)")
-        out["moe_card_vs_cpu"] = dict(
-            res, cpu_s=ref["seconds"], settings=ref["settings"],
-            host_peak_gib=host_gib, launches=launches)
-        log(f"[15a] CPU side {ref['seconds']:.1f} s in the child; host peak "
-            f"{host_gib:.2f} GiB; launches {launches} (both scales)")
-        # held at the fan-in scale (tol: logits 1e-4 of max |CPU|, aux 1e-5
-        # relative, routing equal); at the init scale attention saturates
-        # and the error is the rounding noise it amplifies
-        held = res["fan_in"]
-        if not (held["logits_rel_err"] <= 1e-4
-                and held["aux_rel_err"] <= 1e-5
-                and all(held["routing_equal"].values())):
-            fail(f"[15a] card and CPU disagree at the fan-in scale: {held}")
-        if launches["flash_attention"] != len(SCALES):
-            fail(f"[15a] expected {len(SCALES)} flash launches, got "
-                 f"{launches}")
-        del model, got, ref
-        free_phase(torch, "[15a]")
-        phase_s["[15a]"] = time.perf_counter() - t
+    # [15a] mixtral's full width, 1 layer, f32, TF32 off, 1 x 256
+    # tokens, at the init scale (logged) and the fan-in scale (held)
+    t = time.perf_counter()
+    log(f"[15a] device memory before: {device_gib(torch)}")
+    model, host, toks = moe_case_inputs(torch, np)
+    params = tree_map(lambda t: t.to(dev), host)
+    del host
+    gc.collect()
+    host_gib = host_peak_gib()
+    c.zero_counts()
+    flash_attention_cuda.launches = 0
+    got = {which: moe_case_run(torch, model, params, toks, which)
+           for which in SCALES}
+    launches = dict(c.read_counts(),
+                    flash_attention=flash_attention_cuda.launches)
+    del params
+    ref = refs.get(torch, "moe")
+    res = {}
+    for which in SCALES:
+        g, r = got[which], ref[which]
+        res[which] = dict(
+            logits_rel_err=rel_err(torch, g["logits"], r["logits"]),
+            aux_card=g["aux"], aux_cpu=r["aux"],
+            aux_rel_err=abs(g["aux"] - r["aux"]) / abs(r["aux"]),
+            routing_equal={k: bool(torch.equal(g[k], r[k]))
+                           for k in ("gate_idx", "pos", "keep")},
+            dropped_choices=int((~g["keep"]).sum()))
+        log(f"[15a] mixtral-8x7b width, 1 layer, f32, 1 x 256 tokens, "
+            f"{which} scale: logits max_abs_err / max |CPU| "
+            f"{res[which]['logits_rel_err']:.3e}; aux card "
+            f"{g['aux']:.7f} vs CPU {r['aux']:.7f} (rel "
+            f"{res[which]['aux_rel_err']:.2e}); routing equal "
+            f"{res[which]['routing_equal']} "
+            f"({res[which]['dropped_choices']} of {g['keep'].numel()} "
+            f"choices dropped)")
+    out["moe_card_vs_cpu"] = dict(
+        res, cpu_s=ref["seconds"], settings=ref["settings"],
+        host_peak_gib=host_gib, launches=launches)
+    log(f"[15a] CPU side {ref['seconds']:.1f} s in the child; host peak "
+        f"{host_gib:.2f} GiB; launches {launches} (both scales)")
+    # held at the fan-in scale (tol: logits 1e-4 of max |CPU|, aux 1e-5
+    # relative, routing equal); at the init scale attention saturates
+    # and the error is the rounding noise it amplifies
+    held = res["fan_in"]
+    if not (held["logits_rel_err"] <= 1e-4
+            and held["aux_rel_err"] <= 1e-5
+            and all(held["routing_equal"].values())):
+        fail(f"[15a] card and CPU disagree at the fan-in scale: {held}")
+    if launches["flash_attention"] != len(SCALES):
+        fail(f"[15a] expected {len(SCALES)} flash launches, got "
+             f"{launches}")
+    del model, got, ref
+    free_phase(torch, "[15a]")
+    phase_s["[15a]"] = time.perf_counter() - t
 
-        # [15b] flash at mixtral's attention shape: 32 heads of 128,
-        # 8192 tokens, causal, window 4096
-        t = time.perf_counter()
-        gen = torch.Generator(device=dev).manual_seed(151)
-        shape = (1, 32, 8192, 128)
-        flash = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, ferr = hold_flash(torch, gen, dev, "[15b]", *shape,
-                                       True, 4096, dtype)
-            elt = 4 if dtype == torch.float32 else 2
-            ms = cuda_ms(torch, lambda: flash_attention_cuda(
-                q, k, v, causal=True, window=4096), reps=10)
-            bound, by = flash_bound_ms(*shape[:3], shape[2], shape[3], True,
-                                       4096, elt)
-            rec = dict(max_abs_err=ferr, ms=ms, bound_ms=bound, bound_by=by)
-            if dtype == torch.bfloat16:
-                rec["plain_ms"] = cuda_ms(torch, lambda: flash_attention_plain(
-                    q, k, v, causal=True, window=4096), reps=2)
-                i = torch.arange(shape[2], device=dev)
-                mask = (i[None, :] <= i[:, None]) & (i[None, :] >
-                                                     i[:, None] - 4096)
-                rec["library_ms"] = cuda_ms(
-                    torch, lambda: torch.nn.functional.
-                    scaled_dot_product_attention(q, k, v, attn_mask=mask),
-                    reps=10)
-                del mask
-            rate = 4.0 * shape[0] * shape[1] * shape[3] * visible_pairs(
-                shape[2], shape[2], True, 4096) / (ms * 1e-3) / 1e12
-            rec["tflops"] = rate
-            flash[str(dtype)[6:]] = rec
-            log(f"[15b] flash_attention {shape} {str(dtype)[6:]} causal "
-                f"window 4096: kernel {ms:.4f} ms = {rate:.1f} TFLOP/s, "
-                f"bound {bound:.4f} ms ({by})"
-                + (f", plain {rec['plain_ms']:.3f} ms, "
-                   f"scaled_dot_product_attention with the mask "
-                   f"{rec['library_ms']:.4f} ms" if "plain_ms" in rec
-                   else ""))
-            del q, k, v
-        out["flash_window"] = flash
-        free_phase(torch, "[15b]")
-        phase_s["[15b]"] = time.perf_counter() - t
+    # [15b] flash at mixtral's attention shape: 32 heads of 128,
+    # 8192 tokens, causal, window 4096
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(151)
+    shape = (1, 32, 8192, 128)
+    flash = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, ferr = hold_flash(torch, gen, dev, "[15b]", *shape,
+                                   True, 4096, dtype)
+        elt = 4 if dtype == torch.float32 else 2
+        ms = cuda_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=4096), reps=10)
+        bound, by = flash_bound_ms(*shape[:3], shape[2], shape[3], True,
+                                   4096, elt)
+        rec = dict(max_abs_err=ferr, ms=ms, bound_ms=bound, bound_by=by)
+        if dtype == torch.bfloat16:
+            rec["plain_ms"] = cuda_ms(torch, lambda: flash_attention_plain(
+                q, k, v, causal=True, window=4096), reps=2)
+            i = torch.arange(shape[2], device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] >
+                                                 i[:, None] - 4096)
+            rec["library_ms"] = cuda_ms(
+                torch, lambda: torch.nn.functional.
+                scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                reps=10)
+            del mask
+        rate = 4.0 * shape[0] * shape[1] * shape[3] * visible_pairs(
+            shape[2], shape[2], True, 4096) / (ms * 1e-3) / 1e12
+        rec["tflops"] = rate
+        flash[str(dtype)[6:]] = rec
+        log(f"[15b] flash_attention {shape} {str(dtype)[6:]} causal "
+            f"window 4096: kernel {ms:.4f} ms = {rate:.1f} TFLOP/s, "
+            f"bound {bound:.4f} ms ({by})"
+            + (f", plain {rec['plain_ms']:.3f} ms, "
+               f"scaled_dot_product_attention with the mask "
+               f"{rec['library_ms']:.4f} ms" if "plain_ms" in rec
+               else ""))
+        del q, k, v
+    out["flash_window"] = flash
+    free_phase(torch, "[15b]")
+    phase_s["[15b]"] = time.perf_counter() - t
 
-        # [15c], [15d] the MoE family served at full width, bf16
-        t = time.perf_counter()
-        out["mixtral"] = serve_family(
-            torch, np, dev, "[15c]", "mixtral-8x7b", 8, 4224, 8, 3968, 4090,
-            15, torch.bfloat16, want_flash=8 * 8)
-        free_phase(torch, "[15c]")
-        phase_s["[15c]"] = time.perf_counter() - t
-        t = time.perf_counter()
-        out["phi35_moe"] = serve_family(
-            torch, np, dev, "[15d]", "phi3.5-moe-42b-a6.6b", 4, 2112, 4, 1985,
-            2039, 151, torch.bfloat16, want_flash=4 * 4)
-        free_phase(torch, "[15d]")
-        phase_s["[15d]"] = time.perf_counter() - t
+    # [15c], [15d] the MoE family served at full width, bf16
+    t = time.perf_counter()
+    # 4 requests (8 before [18]-[20] were added: one wave of the 4 slots
+    # instead of two, for the script's time)
+    log("[15c] cut: 4 requests (was 8)")
+    out["mixtral"] = serve_family(
+        torch, np, dev, "[15c]", "mixtral-8x7b", 8, 4224, 4, 3968, 4090,
+        15, torch.bfloat16, want_flash=8 * 4)
+    free_phase(torch, "[15c]")
+    phase_s["[15c]"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["phi35_moe"] = serve_family(
+        torch, np, dev, "[15d]", "phi3.5-moe-42b-a6.6b", 4, 2112, 4, 1985,
+        2039, 151, torch.bfloat16, want_flash=4 * 4)
+    free_phase(torch, "[15d]")
+    phase_s["[15d]"] = time.perf_counter() - t
 
-        # [16a] xlstm's full width, one group, f32, at each scale; the
-        # card's own sensitivity at each: the train logits again with
-        # every parameter times (1 + 1e-7 N(0, 1)), f32 rounding's size
-        t = time.perf_counter()
-        model, host, toks = xlstm_case_inputs(torch, np)
-        params = tree_map(lambda t: t.to(dev), host)
-        del host
-        flash_attention_cuda.launches = 0
-        got = {which: xlstm_case_run(torch, model, params, toks, which)
-               for which in XLSTM_SCALES}
-        launches = flash_attention_cuda.launches
-        noise = torch.Generator(device=dev).manual_seed(161)
-        nudged = tree_map(lambda p: p * (1 + 1e-7 * torch.randn(
-            p.shape, generator=noise, device=dev)), params)
-        sens = {which: rel_err(torch, xlstm_case_run(
-            torch, model, nudged, toks, which)["train"], got[which]["train"])
+    # [16a] xlstm's full width, one group, f32, at each scale; the
+    # card's own sensitivity at each: the train logits again with
+    # every parameter times (1 + 1e-7 N(0, 1)), f32 rounding's size
+    t = time.perf_counter()
+    model, host, toks = xlstm_case_inputs(torch, np)
+    params = tree_map(lambda t: t.to(dev), host)
+    del host
+    flash_attention_cuda.launches = 0
+    got = {which: xlstm_case_run(torch, model, params, toks, which)
+           for which in XLSTM_SCALES}
+    launches = flash_attention_cuda.launches
+    noise = torch.Generator(device=dev).manual_seed(161)
+    nudged = tree_map(lambda p: p * (1 + 1e-7 * torch.randn(
+        p.shape, generator=noise, device=dev)), params)
+    sens = {which: rel_err(torch, xlstm_case_run(
+        torch, model, nudged, toks, which)["train"], got[which]["train"])
+        for which in XLSTM_SCALES}
+    del params, nudged
+    ref = refs.get(torch, "xlstm")
+    errs = {which: {part: rel_err(torch, got[which][part],
+                                  ref[which][part])
+                    for part in ("train", "prefill", "decode")}
             for which in XLSTM_SCALES}
-        del params, nudged
-        ref = wait_cpu_ref(torch, proc, tmp, "xlstm")
-        errs = {which: {part: rel_err(torch, got[which][part],
-                                      ref[which][part])
-                        for part in ("train", "prefill", "decode")}
-                for which in XLSTM_SCALES}
-        out["xlstm_card_vs_cpu"] = dict(rel_errs=errs, card_sensitivity=sens,
-                                        cpu_s=ref["seconds"],
-                                        flash_launches=launches)
-        for which in XLSTM_SCALES:
-            log(f"[16a] xlstm-1.3b width, one group, f32, {which} scale: "
-                f"logits max_abs_err / max |CPU|: train (600) "
-                f"{errs[which]['train']:.3e}, prefill "
-                f"{errs[which]['prefill']:.3e}, 8 decode steps "
-                f"{errs[which]['decode']:.3e}; the card's train logits "
-                f"move {sens[which]:.3e} when its parameters move 1e-7")
-        log(f"[16a] CPU side {ref['seconds']:.1f} s in the child; flash "
-            f"launches {launches}")
-        # held where the stack is well conditioned (tol 1e-4 of max |CPU|);
-        # at the other scales the error is rounding noise it amplifies
-        held = errs["fan_in/16"]
-        if not all(e <= 1e-4 for e in held.values()) or launches:
-            fail(f"[16a] card and CPU disagree at 1/16 of the fan-in "
-                 f"scale: {held}, flash launches {launches}")
-        del model, got, ref
-        free_phase(torch, "[16a]")
-        phase_s["[16a]"] = time.perf_counter() - t
+    out["xlstm_card_vs_cpu"] = dict(rel_errs=errs, card_sensitivity=sens,
+                                    cpu_s=ref["seconds"],
+                                    flash_launches=launches)
+    for which in XLSTM_SCALES:
+        log(f"[16a] xlstm-1.3b width, one group, f32, {which} scale: "
+            f"logits max_abs_err / max |CPU|: train (600) "
+            f"{errs[which]['train']:.3e}, prefill "
+            f"{errs[which]['prefill']:.3e}, 8 decode steps "
+            f"{errs[which]['decode']:.3e}; the card's train logits "
+            f"move {sens[which]:.3e} when its parameters move 1e-7")
+    log(f"[16a] CPU side {ref['seconds']:.1f} s in the child; flash "
+        f"launches {launches}")
+    # held where the stack is well conditioned (tol 1e-4 of max |CPU|);
+    # at the other scales the error is rounding noise it amplifies
+    held = errs["fan_in/16"]
+    if not all(e <= 1e-4 for e in held.values()) or launches:
+        fail(f"[16a] card and CPU disagree at 1/16 of the fan-in "
+             f"scale: {held}, flash launches {launches}")
+    del model, got, ref
+    free_phase(torch, "[16a]")
+    phase_s["[16a]"] = time.perf_counter() - t
 
-        # [16b] xlstm served at full width and depth: f32 params, bf16
-        # activations; no attention, so no flash launch
-        t = time.perf_counter()
-        out["xlstm"] = serve_family(
-            torch, np, dev, "[16b]", "xlstm-1.3b", 48, 1088, 8, 960, 1024, 16,
-            torch.float32, want_flash=0, share_kind="slstm")
-        free_phase(torch, "[16b]")
-        phase_s["[16b]"] = time.perf_counter() - t
+    # [16b] xlstm served at full width and depth: f32 params, bf16
+    # activations; no attention, so no flash launch
+    t = time.perf_counter()
+    # 4 requests (8 before [18]-[20] were added), for the script's time
+    log("[16b] cut: 4 requests (was 8)")
+    out["xlstm"] = serve_family(
+        torch, np, dev, "[16b]", "xlstm-1.3b", 48, 1088, 4, 960, 1024, 16,
+        torch.float32, want_flash=0, share_kind="slstm")
+    free_phase(torch, "[16b]")
+    phase_s["[16b]"] = time.perf_counter() - t
 
-        # [17a] one Mamba mixer at jamba's full width, f32
-        t = time.perf_counter()
-        cfg, host, x, xs = mamba_case_inputs(torch, np)
-        params = tree_map(lambda t: t.to(dev), host)
-        del host
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated() / 2**30
-        got = mamba_case_run(torch, cfg, params, x, xs)
-        peak = torch.cuda.max_memory_allocated() / 2**30 - held
-        del params
-        ref = wait_cpu_ref(torch, proc, tmp, "mamba")
-        errs = {k: rel_err(torch, got[k], ref[k])
-                for k in ("y", "decode", "conv", "ssm")}
-        out["mamba_card_vs_cpu"] = dict(rel_errs=errs, cpu_s=ref["seconds"],
-                                        forward_peak_gib=peak)
-        log(f"[17a] Mamba mixer at jamba-v0.1-52b width, f32, 1 x 1100 "
-            f"(chunks 512, 512, 76), then 8 decode steps: max_abs_err / "
-            f"max |CPU| {errs} (tol 1e-4); peak {peak:.2f} GiB above the "
-            f"params; CPU side {ref['seconds']:.1f} s in the child")
-        if not all(e <= 1e-4 for e in errs.values()):
-            fail(f"[17a] card and CPU disagree: {errs}")
-        del got, ref
-        free_phase(torch, "[17a]")
-        phase_s["[17a]"] = time.perf_counter() - t
-    finally:
-        stop_child(proc)
-        shutil.rmtree(tmp, ignore_errors=True)
+    # [17a] one Mamba mixer at jamba's full width, f32
+    t = time.perf_counter()
+    cfg, host, x, xs = mamba_case_inputs(torch, np)
+    params = tree_map(lambda t: t.to(dev), host)
+    del host
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    got = mamba_case_run(torch, cfg, params, x, xs)
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    del params
+    ref = refs.get(torch, "mamba")
+    errs = {k: rel_err(torch, got[k], ref[k])
+            for k in ("y", "decode", "conv", "ssm")}
+    out["mamba_card_vs_cpu"] = dict(rel_errs=errs, cpu_s=ref["seconds"],
+                                    forward_peak_gib=peak)
+    log(f"[17a] Mamba mixer at jamba-v0.1-52b width, f32, 1 x 1100 "
+        f"(chunks 512, 512, 76), then 8 decode steps: max_abs_err / "
+        f"max |CPU| {errs} (tol 1e-4); peak {peak:.2f} GiB above the "
+        f"params; CPU side {ref['seconds']:.1f} s in the child")
+    if not all(e <= 1e-4 for e in errs.values()):
+        fail(f"[17a] card and CPU disagree: {errs}")
+    del got, ref
+    free_phase(torch, "[17a]")
+    phase_s["[17a]"] = time.perf_counter() - t
 
     # [17b] jamba served at full width, one group of 8 of 32 layers, bf16
     t = time.perf_counter()
@@ -2825,6 +2854,659 @@ def families_phase(torch, np, dev, c) -> dict:
         torch.bfloat16, want_flash=1 * 4, share_kind="mamba")
     free_phase(torch, "[17b]")
     phase_s["[17b]"] = time.perf_counter() - t
+    out["phase_s"] = phase_s
+    return out
+
+
+# ------------------------------------ [18]-[20]: audio, VLM, family training
+# Whisper's decoder prompt: start-of-transcript, English, transcribe, no
+# timestamps
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+
+
+def grow_caches(torch, model, caches, b: int, n: int, max_len: int, dev):
+    """A decode pool of `max_len` positions (`Model.init_caches`) holding a
+    prefill's caches of `n` positions: KV caches copied into its first n
+    slots (tests/test_models_smoke.py's `grow`), cross (xkv) caches and SSM
+    states taken as they are."""
+    pool = model.init_caches(b, max_len, device=dev)
+    for pc, one in zip(pool, caches):
+        if "kv" in pc:
+            pc["kv"].k[..., :n, :] = one["kv"].k
+            pc["kv"].v[..., :n, :] = one["kv"].v
+            pc["kv"].pos[..., :n] = one["kv"].pos
+        for key in ("xkv", "ssm"):
+            if key in pc:
+                pc[key] = one[key]
+    return pool
+
+
+def enc_vlm_case_inputs(torch, np, name: str):
+    """[18a] / [19a]'s model, CPU parameters and inputs, f32 at full width:
+    whisper-small with 2 encoder and 2 decoder layers, 1 x 1500 frames and
+    72 tokens (64 prompt + 8 decoded); internvl2-2b with 2 layers, 1 x 256
+    patch embeddings and 264 tokens (256 + 8). Seeds 18 / 19."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    seed = 18 if name == "whisper-small" else 19
+    cfg = get_config(name).replace(num_layers=2, dtype=torch.float32)
+    if cfg.family == "audio":
+        cfg = cfg.replace(encoder_layers=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        extra = {"frames": rng.normal(size=(1, cfg.encoder_seq, cfg.d_model))}
+        s = 64
+    else:
+        extra = {"patch_embeds": rng.normal(
+            size=(1, cfg.num_patches, cfg.d_model))}
+        s = 256
+    extra = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in extra.items()}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s + 8)))
+    return model, params, extra, toks, s
+
+
+def enc_vlm_case_run(torch, model, params, extra, toks, s, which) -> dict:
+    """[18a] / [19a] on the device of `params` at the scale `which`: the
+    prefill's logits at every position (the real vocab), then 8 greedy-free
+    decode steps of the fixed tokens s..s+7 from the prefill's caches; for
+    audio also the encoder output. On the host."""
+    from repro_torch.configs.base import tree_leaves
+    from repro_torch.models import whisper as W
+
+    dev = tree_leaves(params)[0].device
+    params = at_scale(torch, model, params, which)
+    cfg, nv = model.cfg, model.cfg.vocab_size
+    extra = {k: v.to(dev) for k, v in extra.items()}
+    toks = toks.to(dev)
+    n = s + (cfg.num_patches if "patch_embeds" in extra else 0)
+    out = {}
+    with torch.no_grad():
+        if cfg.family == "audio":
+            out["encoder"] = W.encode(params, cfg, extra["frames"]).cpu()
+        logits, _, caches, _ = model._fwd(
+            params, dict(extra, tokens=toks[:, :s]), "prefill")
+        pool = grow_caches(torch, model, caches, 1, n, n + 8, dev)
+        dec = []
+        for t in range(8):
+            lg, pool = model.decode_step(params, {
+                "tokens": toks[:, s + t:s + t + 1], "caches": pool,
+                "index": n + t})
+            dec.append(lg)
+    out.update(prefill=logits[..., :nv].cpu(),
+               decode=torch.cat(dec, 1)[..., :nv].cpu())
+    return out
+
+
+def whisper_ref(torch, np) -> dict:
+    model, params, extra, toks, s = enc_vlm_case_inputs(torch, np,
+                                                        "whisper-small")
+    return {which: enc_vlm_case_run(torch, model, params, extra, toks, s,
+                                    which) for which in SCALES}
+
+
+def internvl_ref(torch, np) -> dict:
+    model, params, extra, toks, s = enc_vlm_case_inputs(torch, np,
+                                                        "internvl2-2b")
+    return {which: enc_vlm_case_run(torch, model, params, extra, toks, s,
+                                    which) for which in SCALES}
+
+
+# [20a]'s models: (arch, cut, tokens, the scale held); each also runs at
+# the init scale (logged). xlstm is held at 1/16 of the fan-in scale, as
+# [16a] is: at the fan-in scale the card moves its own logits by 1.1e-4
+# under 1e-7 parameter noise.
+GRAD_CASES = {
+    "whisper": ("whisper-small", dict(num_layers=1, encoder_layers=1), 128,
+                "fan_in"),
+    "internvl": ("internvl2-2b", dict(num_layers=2), 256, "fan_in"),
+    "mixtral": ("mixtral-8x7b", dict(num_layers=1), 128, "fan_in"),
+    "xlstm": ("xlstm-1.3b", dict(num_layers=8), 256, "fan_in/16"),
+}
+
+
+def grad_case_inputs(torch, np, key: str):
+    """[20a]'s model, CPU parameters (seed 20) and batch (numpy seed 20):
+    `GRAD_CASES[key]` at full width, f32; the VLM's 256 patch embeddings
+    and the audio family's 1500 frames besides the tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    name, cut, s, _ = GRAD_CASES[key]
+    cfg = get_config(name).replace(dtype=torch.float32, **cut)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(20), device="cpu")
+    rng = np.random.default_rng(20)
+    toks = rng.integers(0, cfg.vocab_size, (1, s + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(
+            size=(1, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(
+            size=(1, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return model, params, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def grad_case_run(torch, model, params, batch, which) -> dict:
+    """The loss and every gradient leaf of `model.loss_fn` at the scale
+    `which`, on the device of `params`; the gradients on the host."""
+    from repro_torch.configs.base import tree_leaves
+
+    dev = tree_leaves(params)[0].device
+    loss, grads = _loss_and_grads(
+        torch, model, at_scale(torch, model, params, which),
+        {k: v.to(dev) for k, v in batch.items()})
+    return {"loss": float(loss), "grads": [g.cpu() for g in grads]}
+
+
+def mamba_grad_inputs(torch, np):
+    """[20a]'s Mamba mixer at jamba-v0.1-52b's full width, f32, its CPU
+    parameters (seed 20), a 1 x 512 input and the fixed weights of its
+    scalar loss sum(y * w) (numpy seed 20)."""
+    from repro_torch.configs.base import init_params
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import ssm as S
+
+    cfg = get_config("jamba-v0.1-52b").replace(dtype=torch.float32)
+    params = init_params(S.mamba_desc(cfg), torch.Generator().manual_seed(20),
+                         device="cpu")
+    rng = np.random.default_rng(20)
+    x, w = (torch.from_numpy(rng.normal(size=(1, 512, cfg.d_model)).astype(
+        np.float32)) for _ in range(2))
+    return cfg, params, x, w
+
+
+def mamba_grad_run(torch, cfg, params, x, w) -> dict:
+    """The loss sum(mamba_forward(x) * w) and its gradients (every
+    parameter leaf, then x) on the device of `params`, on the host."""
+    from repro_torch.configs.base import tree_leaves
+    from repro_torch.models import ssm as S
+
+    dev = params["in_proj"].device
+    x = x.to(dev).requires_grad_(True)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    y, _ = S.mamba_forward(params, x, cfg)
+    loss = (y * w.to(dev)).sum()
+    grads = torch.autograd.grad(loss, leaves + [x])
+    for p in leaves:
+        p.requires_grad_(False)
+    return {"loss": float(loss.detach()),
+            "grads": [g.cpu() for g in grads]}
+
+
+def grads_case_ref(key: str):
+    """The CPU side of [20a]'s case `key`: each of its scales."""
+    def ref(torch, np) -> dict:
+        if key == "mamba":
+            return {"plain": mamba_grad_run(torch,
+                                            *mamba_grad_inputs(torch, np))}
+        model, params, batch = grad_case_inputs(torch, np, key)
+        return {which: grad_case_run(torch, model, params, batch, which)
+                for which in ("init", GRAD_CASES[key][3])}
+    return ref
+
+
+CPU_REFS.update({"whisper": whisper_ref, "internvl": internvl_ref,
+                 **{f"grads_{key}": grads_case_ref(key)
+                    for key in (*GRAD_CASES, "mamba")}})
+# the child's cases in the order [14]-[20] read them
+REF_CASES = ",".join(
+    ["grads", "moe", "xlstm", "mamba", "whisper", "internvl"]
+    + [f"grads_{key}" for key in (*GRAD_CASES, "mamba")])
+
+
+def host_free_gib() -> float:
+    """MemAvailable of /proc/meminfo, GiB (nan where it cannot be read)."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return float("nan")
+
+
+def batch_serve(torch, np, dev, label, model, params, batch, max_len,
+                want_flash) -> dict:
+    """Prefill `batch` (tokens, and the family's frames or patches) as one
+    batch through `Model.prefill`, grow its caches to `max_len` positions
+    (`grow_caches`) and decode greedily through `Model.decode_step` until
+    position max_len - 1 is filled. Fails unless the prefill launches the
+    flash kernel `want_flash` times, decode none, no logit row is NaN and
+    every token is in the vocab. The prefill is timed after one untimed
+    warm-up prefill of the same batch. Returns prefill ms, decode ms per
+    step,
+    tokens/s, peak memory and the device busy share (torch.profiler over
+    one prefill and 8 decode steps against the unprofiled times)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    cfg = model.cfg
+    b = batch["tokens"].shape[0]
+    n = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
+                                    if "patch_embeds" in batch else 0)
+    with torch.no_grad():
+        # one untimed prefill first: the first call of each shape pays for
+        # the libraries' set-up (cuBLAS handles, kernel selection)
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        last, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = flash_attention_cuda.launches
+        pool = grow_caches(torch, model, caches, b, n, max_len, dev)
+        del caches
+        tok = last[:, 0].argmax(-1)
+        nan_seen = torch.isnan(last).any()
+        made = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for index in range(n, max_len - 1):
+            logits, pool = model.decode_step(params, {
+                "tokens": tok[:, None], "caches": pool, "index": index})
+            nan_seen |= torch.isnan(logits).any()
+            tok = logits[:, 0].argmax(-1)
+            made.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    steps = max_len - 1 - n
+    made = torch.stack(made, 1).cpu()
+    decode_launches = flash_attention_cuda.launches - prefill_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = made.numel()
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               params=model.num_params(), batch=b, prompt_positions=n,
+               decode_steps=steps, generated_tokens=n_tok,
+               prefill_ms=1e3 * prefill_s,
+               decode_ms_per_step=1e3 * decode_s / max(steps, 1),
+               tokens_per_s=n_tok / (prefill_s + decode_s), peak_gib=peak,
+               flash_launches=prefill_launches,
+               decode_flash_launches=decode_launches)
+    log(f"{label} {cfg.name} ({cfg.num_layers} layers, "
+        f"{model.num_params() / 1e9:.3f} B params): one batch of {b} x {n} "
+        f"prompt positions prefilled in {out['prefill_ms']:.1f} ms "
+        f"({prefill_launches} flash launches), {steps} greedy decode steps "
+        f"at {out['decode_ms_per_step']:.2f} ms a step ({decode_launches} "
+        f"flash launches), {n_tok} tokens = {out['tokens_per_s']:.1f} "
+        f"tokens/s; peak device memory {peak:.2f} GiB")
+    if prefill_launches != want_flash or decode_launches:
+        fail(f"{label} expected {want_flash} flash launches in the prefill "
+             f"and none in decode, got {prefill_launches} and "
+             f"{decode_launches}")
+    if bool(nan_seen):
+        fail(f"{label} a logit row held NaN")
+    if not bool(((made >= 0) & (made < cfg.vocab_size)).all()):
+        fail(f"{label} a token outside the vocab")
+    with torch.no_grad():
+        dec_batch = {"tokens": tok[:, None], "caches": pool,
+                     "index": max_len - 2}
+        busy = {"prefill": device_busy(torch, lambda: model.prefill(
+                    params, batch)),
+                "decode": device_busy(torch, lambda: [model.decode_step(
+                    params, dec_batch) for _ in range(8)])}
+    if all(v is not None for v in busy.values()):
+        for key in ("busy_ms", "flash_ms"):
+            busy["decode"][key] /= 8
+        busy["decode"]["top"] = [(nm, ms / 8)
+                                 for nm, ms in busy["decode"]["top"]]
+        for key, wall in (("prefill", out["prefill_ms"]),
+                          ("decode", out["decode_ms_per_step"])):
+            busy[key]["busy_share"] = busy[key]["busy_ms"] / wall
+            log(f"{label} {key}: device busy {busy[key]['busy_ms']:.2f} ms "
+                f"of {wall:.2f} ms wall "
+                f"({100 * busy[key]['busy_share']:.1f} %), flash attention "
+                f"{busy[key]['flash_ms']:.3f} ms; top kernels (ms): "
+                + ", ".join(f"{nm[:48]} {ms:.2f}"
+                            for nm, ms in busy[key]["top"]))
+    else:
+        log(f"{label} torch.profiler traced no device time: busy share not "
+            f"measured")
+    out["device_busy"] = busy
+    del pool
+    return out
+
+
+def to_fan_in(model, params) -> None:
+    """`params` (as `model.init` draws them) taken to the fan-in scale in
+    place: at the init scale the activations of the stacks grow by orders
+    of magnitude a layer (ROADMAP.md queue C 1.6)."""
+    from repro_torch.configs.base import PD, tree_leaves
+
+    for p, pd in zip(tree_leaves(params), tree_leaves(
+            model.desc(), is_leaf=lambda x: isinstance(x, PD))):
+        p.mul_(fan_in_factor(pd))
+
+
+def draw_on_card(torch, dev, label, name, param_dtype, **cut):
+    """`name`'s config (with `cut`), its model, and params of
+    `param_dtype` drawn on the card from seed 0 at the fan-in scale."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(name).replace(**cut)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        dtype=param_dtype, device=dev)
+    to_fan_in(model, params)
+    torch.cuda.synchronize()
+    log(f"{label} {name}: {cfg.num_layers} of "
+        f"{get_config(name).num_layers} decoder layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "")
+        + f", num_params() = {model.num_params()} "
+        f"({model.num_params() / 1e9:.3f} B {str(param_dtype)[6:]}), drawn "
+        f"on the card at the fan-in scale in {time.perf_counter() - t0:.2f} "
+        f"s; {device_gib(torch)}")
+    return cfg, model, params
+
+
+def card_vs_cpu_enc_vlm(torch, np, dev, label, name, refs, case) -> dict:
+    """[18a] / [19a]: `enc_vlm_case_run` on the card at each scale against
+    the CPU child's, held at the fan-in scale within 1e-4 of max |CPU|."""
+    from repro_torch.configs.base import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    model, host, extra, toks, s = enc_vlm_case_inputs(torch, np, name)
+    params = tree_map(lambda t: t.to(dev), host)
+    del host
+    flash_attention_cuda.launches = 0
+    got = {which: enc_vlm_case_run(torch, model, params, extra, toks, s,
+                                   which) for which in SCALES}
+    launches = flash_attention_cuda.launches
+    del params
+    ref = refs.get(torch, case)
+    errs = {which: {part: rel_err(torch, got[which][part], ref[which][part])
+                    for part in got[which]} for which in SCALES}
+    for which in SCALES:
+        log(f"{label} {name} width, {model.cfg.num_layers} layers, f32, "
+            f"{which} scale: max_abs_err / max |CPU| "
+            + ", ".join(f"{part} {e:.3e}" for part, e in errs[which].items()))
+    log(f"{label} CPU side {ref['seconds']:.1f} s in the child; flash "
+        f"launches {launches} (both scales)")
+    cfg = model.cfg
+    per_prefill = cfg.num_layers + (2 * cfg.encoder_layers + cfg.num_layers
+                                    if cfg.family == "audio" else 0)
+    if not all(e <= 1e-4 for e in errs["fan_in"].values()):
+        fail(f"{label} card and CPU disagree at the fan-in scale: "
+             f"{errs['fan_in']}")
+    if launches != per_prefill * len(SCALES):
+        fail(f"{label} expected {per_prefill * len(SCALES)} flash launches, "
+             f"got {launches}")
+    return dict(rel_errs=errs, cpu_s=ref["seconds"], flash_launches=launches,
+                settings=ref["settings"])
+
+
+def audio_phase(torch, np, dev, refs) -> dict:
+    """[18]: whisper-small: card vs CPU at full width with 2 + 2 layers,
+    the flash kernel at whisper's encoder and cross shapes, and a batch
+    served at full width and depth."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.models import whisper as W
+
+    out, phase_s = {}, {}
+    t = time.perf_counter()
+    out["card_vs_cpu"] = card_vs_cpu_enc_vlm(torch, np, dev, "[18a]",
+                                             "whisper-small", refs,
+                                             "whisper")
+    free_phase(torch, "[18a]")
+    phase_s["[18a]"] = time.perf_counter() - t
+
+    # [18b] flash, non-causal, at the encoder's (4, 16, 1500, 64) and the
+    # cross (4, 16, 448, 64) x (4, 16, 1500, 64): 12 heads padded to 16,
+    # the ragged key edge at 1500 = 23 x 64 + 28 masked by index
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(181)
+    flash = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype in (torch.float32, torch.bfloat16):
+        elt = 4 if dtype == torch.float32 else 2
+        for part, s, sk in (("encoder", 1500, 1500), ("cross", 448, 1500)):
+            q, k, v, err = hold_flash(torch, gen, dev, "[18b]", 4, 16, s, 64,
+                                      False, None, dtype, sk=sk)
+            ms = cuda_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=False), reps=20)
+            plain_ms = cuda_ms(torch, lambda: flash_attention_plain(
+                q, k, v, causal=False), reps=3)
+            lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v), reps=20)
+            bound, by = flash_bound_ms(4, 16, s, sk, 64, False, None, elt)
+            rate = 4.0 * 4 * 16 * 64 * s * sk / (ms * 1e-3) / 1e12
+            flash[f"{part}_{str(dtype)[6:]}"] = dict(
+                shape=f"({4}, {16}, {s}, 64) x sk {sk}", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, tflops=rate)
+            log(f"[18b] flash_attention (4, 16, {s}, 64) x sk {sk} "
+                f"{str(dtype)[6:]} non-causal ({part}): kernel {ms:.4f} ms = "
+                f"{rate:.1f} TFLOP/s, plain {plain_ms:.3f} ms, "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms "
+                f"({ms / lib_ms:.2f}x), bound {bound:.4f} ms ({by})")
+            del q, k, v
+    out["flash"] = flash
+    free_phase(torch, "[18b]")
+    phase_s["[18b]"] = time.perf_counter() - t
+
+    # [18c] full width and depth (12 + 12 layers, bf16): 4 requests of
+    # 1500 frames and Whisper's 4-token prompt prefilled as one batch,
+    # decoded greedily to position 447 (the decoder's 448 positions)
+    t = time.perf_counter()
+    cfg, model, params = draw_on_card(torch, dev, "[18c]", "whisper-small",
+                                      torch.bfloat16)
+    frames = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.dtype)
+    toks = torch.tensor(WHISPER_PROMPT, device=dev).expand(4, -1)
+    served = batch_serve(torch, np, dev, "[18c]", model, params,
+                         {"tokens": toks, "frames": frames}, 448,
+                         want_flash=cfg.encoder_layers + 2 * cfg.num_layers)
+    with torch.no_grad():
+        served["encoder_ms"] = cuda_ms(
+            torch, lambda: W.encode(params, cfg, frames), reps=3)
+    log(f"[18c] the encoder alone over 4 x 1500 frames: "
+        f"{served['encoder_ms']:.2f} ms")
+    out["serve"] = served
+    del params, model, frames
+    free_phase(torch, "[18c]")
+    phase_s["[18c]"] = time.perf_counter() - t
+    out["phase_s"] = phase_s
+    return out
+
+
+def vlm_phase(torch, np, dev, refs) -> dict:
+    """[19]: internvl2-2b: card vs CPU at full width with 2 layers, a
+    batch of image + text prompts served at full width and depth, and the
+    Engine on text-only prompts."""
+    from repro_torch.serving.engine import ServeConfig
+
+    out, phase_s = {}, {}
+    t = time.perf_counter()
+    out["card_vs_cpu"] = card_vs_cpu_enc_vlm(torch, np, dev, "[19a]",
+                                             "internvl2-2b", refs,
+                                             "internvl")
+    free_phase(torch, "[19a]")
+    phase_s["[19a]"] = time.perf_counter() - t
+
+    # [19b] full width and depth (24 layers, bf16): 4 requests of one
+    # 448 x 448 tile's 256 patch embeddings + 256 tokens as one batch, 128
+    # greedy decode steps; then the Engine on 4 text-only prompts
+    t = time.perf_counter()
+    cfg, model, params = draw_on_card(torch, dev, "[19b]", "internvl2-2b",
+                                      torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(191)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 256),
+                                     generator=gen, device=dev),
+             "patch_embeds": torch.randn(
+                 (4, cfg.num_patches, cfg.d_model), generator=gen,
+                 device=dev).to(cfg.dtype)}
+    out["serve"] = batch_serve(torch, np, dev, "[19b]", model, params, batch,
+                               512 + 128 + 1, want_flash=cfg.num_layers)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(500, 513, 4)]
+    out["engine"] = serve_measure(
+        torch, np, dev, "[19b] Engine", cfg, model, params,
+        ServeConfig(max_slots=4, max_len=640, eos_id=-1), prompts,
+        busy_steps=8)
+    del params, model, batch
+    free_phase(torch, "[19b]")
+    phase_s["[19b]"] = time.perf_counter() - t
+    out["phase_s"] = phase_s
+    return out
+
+
+# [20b]'s runs: (arch, cut, batch, tokens, steps)
+TRAIN_RUNS = (("whisper-small", {}, 2, 448, 4),
+              ("internvl2-2b", {}, 2, 1792, 4),
+              ("mixtral-8x7b", {"num_layers": 1}, 1, 2048, 3),
+              ("xlstm-1.3b", {"num_layers": 8}, 1, 1024, 3))
+
+
+def family_training_phase(torch, np, dev, c, refs) -> dict:
+    """[20]: training on the card of the families ported since [14]: the
+    loss and every gradient leaf card vs CPU ([20a]), a few Trainer steps
+    at full width ([20b]) and the restart drill ([20c])."""
+    from repro_torch.checkpoint.checkpointer import _flatten, _keystr
+    from repro_torch.configs.base import tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.train import reduced_config, synthetic_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    out, phase_s = {"card_vs_cpu": {}, "full": {}, "restart": {}}, {}
+
+    def zero_counts():
+        c.zero_counts()
+        flash_attention_cuda.launches = 0
+
+    def read_counts():
+        return dict(c.read_counts(),
+                    flash_attention=flash_attention_cuda.launches)
+
+    def held(label, key, which, got, ref, names) -> dict:
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        errs = sorted(((rel_err(torch, g, w), nm) for g, w, nm in zip(
+            got["grads"], ref["grads"], names)), reverse=True)
+        log(f"{label} {key}, {which} scale: loss card {got['loss']:.6f} vs "
+            f"CPU {ref['loss']:.6f} (rel {loss_rel:.2e}); worst gradient "
+            f"leaves max_abs_err / max |CPU| "
+            + ", ".join(f"{nm} {e:.2e}" for e, nm in errs[:3])
+            + f" ({len(names)} leaves)")
+        return dict(loss_card=got["loss"], loss_cpu=ref["loss"],
+                    loss_rel_err=loss_rel, worst_leaf_rel_err=errs[0][0],
+                    worst_leaf=errs[0][1])
+
+    # [20a] card vs CPU, f32, TF32 off; the CPU sides from the child
+    t = time.perf_counter()
+    log(f"[20a] host memory available: {host_free_gib():.1f} GiB")
+    for key in (*GRAD_CASES, "mamba"):
+        zero_counts()
+        if key == "mamba":
+            cfg, host, x, w = mamba_grad_inputs(torch, np)
+            names = [_keystr(p) for p, _ in _flatten(host)] + ["x"]
+            params = tree_map(lambda t_: t_.to(dev), host)
+            del host
+            got = {"plain": mamba_grad_run(torch, cfg, params, x, w)}
+            scales, hold = ("plain",), "plain"
+        else:
+            model, host, batch = grad_case_inputs(torch, np, key)
+            names = [_keystr(p) for p, _ in _flatten(host)]
+            params = tree_map(lambda t_: t_.to(dev), host)
+            del host
+            hold = GRAD_CASES[key][3]
+            scales = ("init", hold)
+            got = {which: grad_case_run(torch, model, params, batch, which)
+                   for which in scales}
+        torch.cuda.synchronize()
+        launches = read_counts()
+        del params
+        log(f"[20a] {key}: host memory available {host_free_gib():.1f} GiB "
+            f"before reading the CPU side")
+        ref = refs.get(torch, f"grads_{key}")
+        res = {which: held("[20a]", key, which, got[which], ref[which],
+                           names) for which in scales}
+        res.update(held_scale=hold, cpu_s=ref["seconds"], launches=launches)
+        out["card_vs_cpu"][key] = res
+        log(f"[20a] {key}: CPU side {ref['seconds']:.1f} s in the child; "
+            f"launches {launches}")
+        if not (res[hold]["loss_rel_err"] <= 1e-4
+                and res[hold]["worst_leaf_rel_err"] <= 1e-4):
+            fail(f"[20a] {key}: card and CPU disagree at the {hold} scale: "
+                 f"{res[hold]}")
+        c.expect(f"[20a] {key}", launches, flash_attention=0)
+        del got, ref
+        gc.collect()
+        free_phase(torch, f"[20a] {key}")
+    phase_s["[20a]"] = time.perf_counter() - t
+
+    # [20b] Trainer steps at full width: f32 params and AdamW, bf16
+    # activations, remat "block", one fixed batch, params at the fan-in
+    # scale (ROADMAP.md queue C 1.6)
+    for name, cut, b, s, steps in TRAIN_RUNS:
+        t = time.perf_counter()
+        cfg = get_config(name).replace(**cut)
+        tcfg = TrainerConfig(steps=steps, log_every=1, opt=AdamWConfig(
+            warmup_steps=1, total_steps=steps))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, tcfg, device=dev)
+        params, opt_state = tr.init_state(0)
+        to_fan_in(tr.model, params)
+        fixed = synthetic_batch(cfg, 0, b, s)
+        positions = b * (s + (cfg.num_patches if cfg.family == "vlm" else 0)
+                         + (cfg.encoder_seq if cfg.family == "audio" else 0))
+        zero_counts()
+        params, opt_state, hist = tr.fit(params, opt_state, lambda _: fixed)
+        got = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in hist]
+        step_s = [h["time_s"] for h in hist]
+        steady = sum(step_s[1:]) / len(step_s[1:])
+        rec = dict(arch=name, layers=cfg.num_layers,
+                   encoder_layers=cfg.encoder_layers,
+                   params=tr.model.num_params(), batch=b, tokens=s,
+                   positions_per_step=positions, losses=losses,
+                   grad_norms=[h["grad_norm"] for h in hist], step_s=step_s,
+                   steady_step_ms=1e3 * steady,
+                   tokens_per_s=b * s / steady,
+                   positions_per_s=positions / steady, peak_gib=peak,
+                   launches=got)
+        out["full"][name] = rec
+        log(f"[20b] {name}, {cfg.num_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+               else "")
+            + f" ({tr.model.num_params() / 1e9:.3f} B params), {b} x {s} "
+            f"tokens ({positions} positions a step): losses "
+            + ", ".join(f"{v:.4f}" for v in losses) + "; step s "
+            + ", ".join(f"{v:.3f}" for v in step_s)
+            + f" (steps 1-{steps - 1} {1e3 * steady:.1f} ms = "
+            f"{b * s / steady:.0f} tokens/s, {positions / steady:.0f} "
+            f"positions/s); peak device memory {peak:.2f} GiB; launches "
+            f"{got}")
+        if not all(np.isfinite(losses + rec["grad_norms"])) \
+                or not losses[-1] < losses[0]:
+            fail(f"[20b] {name}: losses {losses}: not finite and decreasing")
+        c.expect(f"[20b] {name}", got, flash_attention=0)
+        del params, opt_state, tr, fixed
+        free_phase(torch, f"[20b] {name}")
+        phase_s[f"[20b] {name}"] = time.perf_counter() - t
+
+    # [20c] the restart drill: jamba (MoE, Mamba and attention) and
+    # whisper (frames in the batch) at reduced_config
+    for name in ("jamba-v0.1-52b", "whisper-small"):
+        t = time.perf_counter()
+        out["restart"][name] = restart_drill(
+            torch, np, dev, c, f"[20c] {name}",
+            reduced_config(get_config(name)))
+        phase_s[f"[20c] {name}"] = time.perf_counter() - t
     out["phase_s"] = phase_s
     return out
 
@@ -3892,6 +4574,10 @@ def main() -> None:
             fail(f"{name} was not launched on {want}'s path")
 
     # ------------- 13. the distributed engine; 14. the LM training path
+    # the CPU sides of [14] and [15]-[20] in one child, started here so
+    # that it computes while the card runs [13]-[14]; ended at exit too
+    refs = CpuRefs(REF_CASES)
+    atexit.register(refs.close)
     # earlier phases' objects caught in reference cycles would otherwise
     # be freed at some later collection, in the middle of a phase's peak
     gc.collect()
@@ -3902,7 +4588,7 @@ def main() -> None:
     distributed["phase_s"] = time.perf_counter() - t13
     log(f"[13] phase {distributed['phase_s']:.1f} s")
     t14 = time.perf_counter()
-    training = training_phase(torch, np, dev, ctx)
+    training = training_phase(torch, np, dev, ctx, refs)
     training["phase_s"] = time.perf_counter() - t14
     log(f"[14] phase {training['phase_s']:.1f} s")
     for name, entry in entries.items():
@@ -3922,10 +4608,21 @@ def main() -> None:
     gc.collect()
     log(f"[15] device memory held before: {device_gib(torch)}")
     t15 = time.perf_counter()
-    families = families_phase(torch, np, dev, ctx)
+    families = families_phase(torch, np, dev, ctx, refs)
     families["phase_s"]["[15]-[17]"] = time.perf_counter() - t15
     log("[15]-[17] phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in families["phase_s"].items()))
+    # ---------- 18-19. the audio and VLM families; 20. family training
+    t18 = time.perf_counter()
+    audio = audio_phase(torch, np, dev, refs)
+    vlm = vlm_phase(torch, np, dev, refs)
+    fam_training = family_training_phase(torch, np, dev, ctx, refs)
+    fam_training["phase_s"]["[18]-[20]"] = time.perf_counter() - t18
+    log("[18]-[20] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in {**audio["phase_s"],
+                                    **vlm["phase_s"],
+                                    **fam_training["phase_s"]}.items()))
+    refs.close()
     entries["flash_attention"]["families_launches"] = {
         "[15a]": families["moe_card_vs_cpu"]["launches"]["flash_attention"],
         "[15c]": families["mixtral"]["flash_launches"],
@@ -3935,6 +4632,18 @@ def main() -> None:
         "[17b]": families["jamba"]["flash_launches"]}
     log(f"[15]-[17] flash_attention launches by path: "
         f"{entries['flash_attention']['families_launches']}")
+    entries["flash_attention"]["audio_vlm_launches"] = {
+        "[18a]": audio["card_vs_cpu"]["flash_launches"],
+        "[18c]": audio["serve"]["flash_launches"],
+        "[19a]": vlm["card_vs_cpu"]["flash_launches"],
+        "[19b]": vlm["serve"]["flash_launches"],
+        "[19b] Engine": vlm["engine"]["flash_launches"],
+        "[20]": sum(r["launches"]["flash_attention"]
+                    for part in ("card_vs_cpu", "full", "restart")
+                    for r in fam_training[part].values())}
+    entries["flash_attention"]["whisper_shapes"] = audio["flash"]
+    log(f"[18]-[20] flash_attention launches by path: "
+        f"{entries['flash_attention']['audio_vlm_launches']}")
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -3950,9 +4659,10 @@ def main() -> None:
                                        e["resilient_service_launches"]}
                                       if "resilient_service_launches" in e
                                       else {}),
-                                   **({"families_launches":
-                                       e["families_launches"]}
-                                      if "families_launches" in e else {}),
+                                   **{key: e[key] for key in (
+                                       "families_launches",
+                                       "audio_vlm_launches",
+                                       "whisper_shapes") if key in e},
                                    "distributed_training_launches":
                                        e["distributed_training_launches"]}
                                   for e in entries.values()],
@@ -3979,6 +4689,9 @@ def main() -> None:
                       "distributed": distributed,
                       "training": training,
                       "families": families,
+                      "audio": audio,
+                      "vlm": vlm,
+                      "family_training": fam_training,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,12 @@
 (counterpart of `repro.configs.base`).
 
 Params are described by `PD` trees (shape, logical axes, init); `init_params`
-materializes one from an explicit `torch.Generator`. The logical axes are
-kept for the sharding slice to come; nothing reads them yet.
+materializes one from an explicit `torch.Generator`, `abstract_params`
+describes one on the meta device (no allocation), and `spec_tree` maps the
+logical axes onto mesh-axis names through a rule table (`DEFAULT_RULES`,
+`FSDP_RULES`). Nothing reads the specs until the LM half of the sharding
+slice (ROADMAP.md queue A 3.8), which also brings the reference's
+`scan_unroll`, `fsdp_constrain` and `shmap_axes` fields.
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ModelConfig", "PD", "init_params", "pad_to", "tree_leaves",
-           "tree_map", "tree_unflatten"]
+__all__ = ["ModelConfig", "ShapeSpec", "PD", "init_params", "spec_tree",
+           "abstract_params", "DEFAULT_RULES", "FSDP_RULES", "pad_to",
+           "tree_leaves", "tree_map", "tree_unflatten"]
 
 
 def pad_to(x: int, m: int) -> int:
@@ -26,10 +31,11 @@ def pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields of `repro.configs.base.ModelConfig` that the dense, MoE,
-    SSM and hybrid families read, with `dtype` a torch dtype. The fields of
-    the audio and VLM families and of sharding come with their slices
-    (ROADMAP.md queue A 3)."""
+    """The fields of `repro.configs.base.ModelConfig` that the model
+    families read, with `dtype` a torch dtype. The reference's sharding
+    and lowering fields (`scan_unroll`, `fsdp_constrain`, `shmap_axes`)
+    come with the LM half of the sharding slice (ROADMAP.md queue A
+    3.8)."""
     name: str
     family: str                    # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
@@ -60,10 +66,16 @@ class ModelConfig:
     ssm_conv_dim: int = 4
     ssm_expand: int = 2
     dt_rank: int = 0               # 0 -> d_model // 16
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0           # stub frontend positions (frames)
+    # vlm
+    num_patches: int = 0
     norm_eps: float = 1e-5
     norm_kind: str = "rmsnorm"     # rmsnorm | layernorm
     act: str = "silu"              # silu (swiglu) | gelu (plain mlp)
     tie_embeddings: bool = False
+    max_seq_len: int = 524288
     dtype: Any = torch.bfloat16
     tp_pad_heads: int = 16         # pad head count to a multiple of this
     vocab_pad: int = 256
@@ -107,6 +119,15 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell of the shape grid (`configs.shapes`)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
 
 
 @dataclass(frozen=True)
@@ -186,3 +207,42 @@ def init_params(desc, generator: torch.Generator, dtype=torch.float32,
     dev = resolve_device(device)
     return tree_map(lambda pd: _leaf_init(pd, generator, dtype, dev), desc,
                     is_leaf=_is_pd)
+
+
+def abstract_params(desc, dtype=torch.float32):
+    """The PD tree as tensors on the meta device: each leaf's shape and
+    `dtype`, no storage (the counterpart of the reference's
+    `jax.ShapeDtypeStruct` tree)."""
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=dtype,
+                                           device="meta"),
+                    desc, is_leaf=_is_pd)
+
+
+# Logical-axis -> mesh-axis rule tables (the reference's). None =
+# replicated.
+DEFAULT_RULES = {
+    None: None,
+    "embed": None,          # d_model
+    "heads": "model",
+    "kv": None,             # kv heads replicated (GQA, kv << tp)
+    "mlp": "model",
+    "vocab": "model",
+    "expert": None,         # expert count dim (E small) -- TP inside expert
+    "expert_mlp": "model",
+    "inner": "model",       # ssm/mlstm inner dim
+    "layers": None,         # stacked group dim
+    "stage": None,
+    "dv": "model",          # mlstm value dim
+    "conv": None,
+    "state": None,
+}
+
+# FSDP variant: the d_model dim of big weights sharded over the data axis
+FSDP_RULES = dict(DEFAULT_RULES, embed="data")
+
+
+def spec_tree(desc, rules=DEFAULT_RULES):
+    """For each PD leaf, a tuple of one mesh-axis name (or None) per
+    dimension: what `tuple(PartitionSpec(...))` holds in the reference."""
+    return tree_map(lambda pd: tuple(rules.get(a, None) for a in pd.axes),
+                    desc, is_leaf=_is_pd)

@@ -73,7 +73,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "flash_attention_cuda is forward only, as the reference's "
             "kernel is: training differentiates the blockwise attention "
-            "of models.attention (ROADMAP.md queue A 3)")
+            "of models.attention (ROADMAP.md queue A 3.1)")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
 

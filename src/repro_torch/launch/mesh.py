@@ -2,7 +2,7 @@
 
 A function, never a module-level constant, so importing this module
 touches no device. `make_production_mesh` (the TPU pod's 16 x 16 layout)
-waits for the LM half of the sharding slice (ROADMAP.md queue A 3).
+waits for the tooling slice (ROADMAP.md queue A 4).
 """
 
 from __future__ import annotations

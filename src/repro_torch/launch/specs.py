@@ -2,8 +2,8 @@
 of `repro.launch.specs.sti_cell`.
 
 The LM cells of the JAX module (`lm_cell`, the abstract input specs) lower
-to a TPU pod and wait for the LM half of the sharding slice (ROADMAP.md
-queue A 3); this module holds only `sti_cell`.
+to a TPU pod and wait for the tooling slice (ROADMAP.md queue A 4); this
+module holds only `sti_cell`.
 """
 
 from __future__ import annotations

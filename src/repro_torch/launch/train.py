@@ -1,7 +1,7 @@
 """Training launcher of the port: counterpart of `repro.launch.train`.
 
-On the card, at full width (a dense arch; the MoE, SSM and hybrid archs
-hold more than one card at full depth):
+On the card, at full width (a dense, audio or VLM arch; the MoE, SSM
+and hybrid archs hold more than one card at full depth):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --steps 10 --batch 2 --seq 2048 --ckpt-dir CKPT
 On the CPU, reduced dims:
@@ -21,12 +21,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["reduced_config", "main"]
+__all__ = ["reduced_config", "synthetic_batch", "main"]
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
-    """~100M-param member of the same family for a local run: the dense,
-    MoE and SSM fields of `repro.launch.train.reduced_config`, f32."""
+    """~100M-param member of the same family for a local run: the fields
+    of `repro.launch.train.reduced_config`, f32."""
     kw = dict(d_model=512, num_heads=8, num_kv_heads=4, head_dim=64,
               vocab_size=min(cfg.vocab_size, 32000), tp_pad_heads=1,
               dtype=torch.float32, mlstm_chunk=32, mamba_chunk=32,
@@ -35,16 +35,43 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     kw["d_ff"] = 0 if cfg.d_ff == 0 else 1536
     if cfg.num_experts:
         kw["num_experts"] = 4
+    if cfg.family == "audio":
+        kw["encoder_layers"] = 4
+        kw["encoder_seq"] = 128
+    if cfg.family == "vlm":
+        kw["num_patches"] = 16
     if cfg.sliding_window:
         kw["sliding_window"] = 512
     return cfg.replace(**kw)
 
 
+def synthetic_batch(cfg: ModelConfig, step: int, batch: int, seq: int
+                    ) -> dict:
+    """The launcher's batch of `step`, on the host, from a generator seeded
+    with `step`: (batch, seq) tokens and labels, and the VLM's patch
+    embeddings (batch, num_patches, d_model) or the audio family's frames
+    (batch, encoder_seq, d_model), standard normal in the activation type
+    (the reference draws them from keys of their own)."""
+    from repro_torch.data import make_token_batch
+
+    gen = torch.Generator().manual_seed(step)
+    toks, labels = make_token_batch(gen, batch, seq, cfg.vocab_size)
+    out = {"tokens": toks, "labels": labels}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.num_patches, cfg.d_model), generator=gen
+        ).to(cfg.dtype)
+    if cfg.family == "audio":
+        out["frames"] = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model), generator=gen
+        ).to(cfg.dtype)
+    return out
+
+
 def main(argv=None):
     """Parse the CLI, restore from --ckpt-dir if it holds a checkpoint,
-    and train on synthetic token batches (one seeded generator a step)."""
+    and train on `synthetic_batch`es."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.data import make_token_batch
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -80,10 +107,7 @@ def main(argv=None):
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={name}")
 
     def batch_fn(step):
-        gen = torch.Generator().manual_seed(step)
-        toks, labels = make_token_batch(gen, args.batch, args.seq,
-                                        cfg.vocab_size)
-        return {"tokens": toks, "labels": labels}
+        return synthetic_batch(cfg, step, args.batch, args.seq)
 
     return tr.fit(params, opt_state, batch_fn, start_step=start)
 

@@ -1,6 +1,8 @@
-"""GQA attention of the port: causal / sliding-window prefill through the
-flash-attention kernel, the plain blockwise path, and KV-cache decode
-(linear and ring buffer). Counterpart of `repro.models.attention`.
+"""GQA attention of the port: causal / sliding-window prefill, non-causal
+encoder self-attention and cross-attention through the flash-attention
+kernel, the plain blockwise path, and KV-cache decode (linear and ring
+buffer; cross-attention reads its cache). Counterpart of
+`repro.models.attention`.
 
 Head-count padding: q heads are padded up to `cfg.padded_heads`; padded
 heads have zero rows in wo, so the math is exact. K/V stay at the true
@@ -138,16 +140,22 @@ def attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
               xattn_kv=None, use_rope=True):
     """Full (train/prefill) attention. x: (b, s, d_model).
 
-    Self-attention at the default positions (`positions=None`: arange)
-    runs `ops.flash_attention` -- the CUDA kernel on the card, forward
-    only. A call that needs a gradient (grad on, an input requiring it),
-    explicit positions and cross-attention (`xattn_kv`: (b, s_enc,
-    d_model); then causal/window are ignored and kv positions are the
-    encoder arange) take the plain blockwise path, the one the reference
-    differentiates.
+    Cross-attention: `xattn_kv` is (b, s_enc, d_model); then causal is
+    ignored and the kv positions are the encoder arange. Two kinds of
+    call run `ops.flash_attention` -- the CUDA kernel on the card,
+    forward only -- because no position-dependent mask applies to them:
+    self-attention at the default positions (`positions=None`: arange;
+    causal or not, windowed or not), and cross-attention without a window
+    (non-causal over every encoder key, whatever the query positions). A
+    call that needs a gradient (grad on, an input requiring it), explicit
+    self-attention positions and a windowed cross call take the plain
+    blockwise path, the one the reference differentiates.
     """
     b, s, _ = x.shape
-    default_positions = positions is None and xattn_kv is None
+    if xattn_kv is None:
+        kernel_ok = positions is None
+    else:
+        kernel_ok = window is None
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
@@ -168,7 +176,7 @@ def attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     qx = q.transpose(1, 2).contiguous()
     needs_grad = torch.is_grad_enabled() and (
         qx.requires_grad or kx.requires_grad or vx.requires_grad)
-    if default_positions and not needs_grad:
+    if kernel_ok and not needs_grad:
         out = ops.flash_attention(qx, kx, vx, causal=causal, window=window)
     else:
         out = _blockwise_attn(qx, kx, vx, positions, k_pos, causal=causal,

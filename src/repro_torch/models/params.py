@@ -8,8 +8,10 @@ Both copy values exactly, so a round trip is bit for bit.
 `opt_state_from_jax` does the same for the optimizer state
 (`repro.training.optimizer.AdamState`, its leaves numpy arrays) and
 returns the port's `AdamState`; `caches_from_jax` for a decode cache tree
-(`KVCache`, `MambaState`, `MLSTMState`, `SLSTMState`), each NamedTuple
-becoming the port's class of the same name.
+(`KVCache`, the cross-attention "xkv" caches too, `MambaState`,
+`MLSTMState`, `SLSTMState`), each NamedTuple becoming the port's class of
+the same name. Every family's tree carries over, Whisper's encoder
+(`enc_pos`, `enc_groups`, `enc_ln_f`) and decoder included.
 """
 
 from __future__ import annotations

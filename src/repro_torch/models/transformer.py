@@ -1,6 +1,8 @@
 """Decoder-LM assembly of the port (counterpart of
 `repro.models.transformer`): heterogeneous per-group layer schedules for
-the dense, MoE, SSM (xLSTM) and hybrid (Jamba) families.
+the dense, MoE, SSM (xLSTM), hybrid (Jamba), audio (the Whisper decoder,
+with a cross-attention sub-block in every block and learned positions)
+and VLM (patch embeddings prepended to the tokens) families.
 
 A "group" is the repeating unit (cfg.group_size layers): dense and MoE
 archs have a 1-layer group; Jamba an 8-layer group (1 attention + 7 Mamba,
@@ -38,37 +40,38 @@ from repro_torch.models import ssm as S
 __all__ = ["layer_schedule", "model_desc", "forward", "init_caches",
            "pooled_embeddings"]
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the learned decoder positions of the audio family: sized for the
+# reference's stress shapes (real Whisper caps at 448 positions)
+AUDIO_POSITIONS = 32768
 
 
 class Entry(NamedTuple):
     mixer: str            # attn | swa | mamba | mlstm | slstm
     ffn: Optional[str]    # mlp | moe | None
+    cross: bool = False   # a cross-attention sub-block (whisper decoder)
 
 
 def layer_schedule(cfg: ModelConfig) -> list[Entry]:
-    """The per-group layer schedule. The audio and VLM families are not
-    ported and raise."""
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported; the port "
-            f"runs the {', '.join(_FAMILIES)} families (ROADMAP.md queue "
-            f"A 3)")
+    """The per-group layer schedule; an unknown family raises ValueError."""
     out = []
     for i in range(cfg.group_size):
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             mixer = "swa" if cfg.sliding_window else "attn"
         elif cfg.family == "hybrid":
             mixer = "attn" if i in cfg.attn_layer_in_group else cfg.ssm_kind
-        else:
+        elif cfg.family == "ssm":
             mixer = "slstm" if i in cfg.slstm_layer_in_group else "mlstm"
+        elif cfg.family == "audio":
+            mixer = "attn"
+        else:
+            raise ValueError(cfg.family)
         if cfg.d_ff == 0 and not cfg.moe_d_ff:
             ffn = None
         elif cfg.num_experts and i % cfg.moe_period == cfg.moe_period - 1:
             ffn = "moe"
         else:
             ffn = "mlp"
-        out.append(Entry(mixer, ffn))
+        out.append(Entry(mixer, ffn, cfg.family == "audio"))
     return out
 
 
@@ -94,6 +97,9 @@ def _block_desc(cfg: ModelConfig, e: Entry):
     mixer = (A.attn_desc(cfg) if e.mixer in ("attn", "swa")
              else _MIXERS[e.mixer].desc(cfg))
     d = {"ln1": L.norm_desc(cfg), "mixer": mixer}
+    if e.cross:
+        d["ln_x"] = L.norm_desc(cfg)
+        d["xattn"] = A.attn_desc(cfg, cross=True)
     if e.ffn:
         d["ln2"] = L.norm_desc(cfg)
         d["ffn"] = (MOE.moe_desc(cfg) if e.ffn == "moe"
@@ -111,22 +117,28 @@ def _stack_desc(desc, n: int):
 def model_desc(cfg: ModelConfig):
     """Full parameter description tree for a decoder LM."""
     group = {"blocks": [_block_desc(cfg, e) for e in layer_schedule(cfg)]}
-    return {
+    d = {
         "embed": L.embedding_desc(cfg),
         "groups": _stack_desc(group, cfg.num_groups),
         "ln_f": L.norm_desc(cfg),
     }
+    if cfg.family == "audio":
+        d["pos_emb"] = PD((AUDIO_POSITIONS, cfg.d_model), (None, "embed"),
+                          init="embed")
+    return d
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                device="cuda"):
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                enc_len: int = 0, dtype=None, device="cuda"):
     """Stacked per-group caches for decode, one dict per schedule entry:
     attention layers hold "kv", a KVCache of (groups, batch, kv, S, hd)
     k/v and (groups, batch, S) positions, all empty (`EMPTY_POS`); SSM
     layers hold "ssm", their state with a leading groups axis, all zeros
     (the reference's pool: zeros, the mLSTM stabilizer m too, and the sLSTM
-    h in bf16 whatever the activation type). max_len is the KV length
-    (cfg.sliding_window caps it for SWA archs)."""
+    h in bf16 whatever the activation type); a cross sub-block holds
+    "xkv", the encoder's k/v (zeros, `enc_len` of them) at positions
+    arange(enc_len). max_len is the KV length (cfg.sliding_window caps it
+    for SWA archs)."""
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
     g, kvh, hd = cfg.num_groups, cfg.num_kv_heads, cfg.hd
@@ -148,11 +160,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             caches.append({"ssm": tree_map(
                 lambda a: torch.zeros((g, *a.shape), dtype=a.dtype,
                                       device=dev), st)})
+        if e.cross:
+            caches[-1]["xkv"] = A.KVCache(
+                k=torch.zeros((g, batch, kvh, enc_len, hd), dtype=dtype,
+                              device=dev),
+                v=torch.zeros((g, batch, kvh, enc_len, hd), dtype=dtype,
+                              device=dev),
+                pos=torch.arange(enc_len, dtype=torch.int32, device=dev
+                                 ).expand(g, batch, enc_len).contiguous())
     return caches
 
 
 def _apply_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
-                 index, positions, kv_block):
+                 index, positions, kv_block, enc_out):
     """One block. Returns (x, new_cache, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(bp["ln1"], x, cfg)
@@ -179,6 +199,20 @@ def _apply_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
             if mode == "prefill":
                 new_cache["ssm"] = st
     x = x + y
+    if e.cross:
+        hx = L.apply_norm(bp["ln_x"], x, cfg)
+        if mode == "decode":
+            # reads the encoder k/v cached at prefill; never writes it
+            y, _ = A.decode_attention(bp["xattn"], hx, cfg, cache["xkv"],
+                                      index, use_rope=False, xattn=True)
+        elif mode == "prefill":
+            y, new_cache["xkv"] = A.attention(
+                bp["xattn"], hx, cfg, positions=positions, xattn_kv=enc_out,
+                use_rope=False, return_cache=True)
+        else:
+            y = A.attention(bp["xattn"], hx, cfg, positions=positions,
+                            xattn_kv=enc_out, use_rope=False)
+        x = x + y
     if e.ffn:
         h2 = L.apply_norm(bp["ln2"], x, cfg)
         if e.ffn == "moe":
@@ -225,14 +259,19 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            caches=None, index=None, kv_block=1024, positions=None):
+            caches=None, index=None, extra_embeds=None, kv_block=1024,
+            positions=None, enc_out=None):
     """Decoder LM forward.
 
     mode: train (no caches) | prefill (returns caches) | decode (s == 1,
     caches required, index = current position; the caches are written in
-    place and returned, an SSM state rebound where its type changes). Without `positions`, train and prefill attend at
+    place and returned, an SSM state rebound where its type changes).
+    Without `positions`, train and prefill self-attention runs at
     positions arange(s) through the flash-attention path; explicit
     positions take the plain blockwise path.
+    extra_embeds: (b, p, d_model) continuous embeddings prepended to the
+    token embeddings (VLM). enc_out: (b, s_enc, d_model) encoder output
+    for the cross-attention sub-blocks (audio; train and prefill).
     Returns (logits, hidden, caches, aux_loss): aux_loss is the MoE
     load-balancing loss summed over the MoE blocks (0 without experts).
     """
@@ -242,6 +281,18 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
         raise ValueError("decode needs caches")
     sched = layer_schedule(cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    if cfg.family == "audio":
+        b, s = x.shape[:2]
+        if positions is not None:
+            at = positions
+        elif mode == "decode":
+            at = torch.full((b, s), int(index), dtype=torch.int64,
+                            device=x.device)
+        else:
+            at = torch.arange(s, device=x.device).expand(b, s)
+        x = x + params["pos_emb"][at].to(x.dtype)
     have_cache = caches is not None
 
     def group_fn(x, gparams, gcaches):
@@ -251,7 +302,7 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
             x, nc, a = _apply_block(
                 gparams["blocks"][i], x, cfg, e, mode,
                 gcaches[i] if have_cache else None, index, positions,
-                kv_block)
+                kv_block, enc_out)
             new_caches.append(nc)
             aux = aux + a
         return x, new_caches, aux

@@ -279,8 +279,8 @@ def _emulate_bf16_kernel(q, k, v, *, causal=True, window=None, scale=None,
 
 
 # (b, h, s, sk, d, causal, window): chip_smoke.py's held cases at small
-# size, cross lengths both ways, and the head dims of the configs (64, 96,
-# 128). No row here is left without a visible key (the kernel gives such a
+# size, cross lengths both ways, the head dims of the configs (64, 96,
+# 128) and whisper's encoder and cross lengths. No row here is left without a visible key (the kernel gives such a
 # row 0, the oracle the mean of v).
 DESIGN_CASES = [
     (1, 2, 64, 64, 16, True, None),
@@ -296,6 +296,10 @@ DESIGN_CASES = [
     (1, 2, 50, 130, 32, True, None),
     (1, 2, 130, 50, 64, False, None),
     (1, 2, 130, 50, 96, True, None),
+    # whisper: the encoder's 1500 frames (non-causal, ragged last key tile
+    # of 28) and the decoder's 448 positions against them (cross)
+    (1, 2, 1500, 1500, 64, False, None),
+    (1, 2, 448, 1500, 64, False, None),
 ]
 
 

@@ -88,10 +88,17 @@ def test_params_round_trip_is_exact(jx):
     assert params["groups"]["blocks"][0]["mixer"]["wq"].shape == (2, 32, 32)
 
 
-@pytest.mark.parametrize("name", sorted(registry.NOT_PORTED))
+@pytest.mark.parametrize("name", ["internvl2-2b", "whisper-small"])
 def test_get_config_raises_for_non_dense_archs(name):
-    with pytest.raises(NotImplementedError, match="queue A 3"):
-        registry.get_config(name)
+    """The audio and VLM archs, the last families ported, are configs
+    like any other now; only an unknown name raises."""
+    cfg = registry.get_config(name)
+    assert registry.ARCHS[name] is cfg
+    assert cfg.family == {"internvl2-2b": "vlm",
+                          "whisper-small": "audio"}[name]
+    assert not hasattr(registry, "NOT_PORTED")
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config(name + "-large")
 
 
 def test_dense_configs_match_the_jax_package(jx):
@@ -103,8 +110,7 @@ def test_dense_configs_match_the_jax_package(jx):
             assert getattr(cfg, f) == getattr(jcfg, f), (name, f)
         assert build_model(cfg).num_params() == \
             jx.build(jcfg).num_params(), name
-    assert set(registry.ARCHS) | set(registry.NOT_PORTED) == set(
-        jx.registry.ARCHS)
+    assert set(registry.ARCHS) == set(jx.registry.ARCHS)
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
@@ -125,12 +131,17 @@ def test_family_configs_match_the_jax_package(jx, name):
         assert getattr(cfg, prop) == getattr(jcfg, prop), (name, prop)
     assert build_model(cfg).num_params() == jx.build(jcfg).num_params()
     assert registry.ARCHS[name] is cfg
-    assert set(registry.NOT_PORTED) == {"whisper-small", "internvl2-2b"}
 
 
 def test_layer_schedule_raises_for_other_families():
-    cfg = registry.ARCHS["qwen3-1.7b"].replace(family="audio")
-    with pytest.raises(NotImplementedError, match="queue A 3"):
+    """Every family of the reference has a schedule; an unknown family
+    raises ValueError, as the reference's does."""
+    for family in ("audio", "vlm"):
+        sched = T.layer_schedule(
+            registry.ARCHS["qwen3-1.7b"].replace(family=family))
+        assert [e.cross for e in sched] == [family == "audio"]
+    cfg = registry.ARCHS["qwen3-1.7b"].replace(family="diffusion")
+    with pytest.raises(ValueError, match="diffusion"):
         T.layer_schedule(cfg)
 
 
