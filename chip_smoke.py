@@ -177,6 +177,28 @@ and then the audio and VLM families and the families' training:
       the first, no flash launch; [20c] the restart drill at the reduced
       config for jamba and whisper.
 
+and then the LM on a (data 2, model 2) `DeviceGrid` of the one card
+(`launch/specs.py::lm_cell`, the grid `Trainer`):
+
+  [21] [21a] one lm_cell train step card vs CPU (the CPU side a (2, 2)
+      grid of the CPU in the same child, under `MKL_CBWR=AVX2`), f32 at
+      the fan-in scale: mixtral-8x7b's full width with 1 layer, fsdp (the
+      `shmap_axes` MoE, capacity factor 0.5: the dropped choices logged
+      on both sides), 2 x 64 tokens, and qwen3-1.7b's with 2 layers,
+      tp_dp, 2 x 128; the metrics and every updated parameter leaf within
+      1e-4 of max; [21b] each step synchronized, its time, tokens/s and
+      peak memory logged: 3 lm_cell train steps of mixtral (1 layer,
+      bf16 activations, fsdp) on 2 x 1024 tokens; 3 steps of
+      `Trainer(mesh=grid)` (tp_dp) on qwen3-1.7b at full depth, 2 x 2048;
+      then, f32 on those trained params, lm_cell prefill of 4 x 2048
+      (56 flash launches: one a layer for each data row) and 32 lm_cell
+      decode steps from KV caches seq-sharded over model, the last
+      logits, the caches and every decode step's logits (over the real
+      vocab: the padded columns are -1e30) within 1e-5 of max of the
+      single-device `Model.prefill` / `decode_step` on the card; [21c] a checkpoint of the (2, 2) grid Trainer (reduced
+      qwen3-1.7b, fsdp) restored onto (1, 1) and (4, 1) grids bit for
+      bit.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -3175,14 +3197,17 @@ def batch_serve(torch, np, dev, label, model, params, batch, max_len,
 
 
 def to_fan_in(model, params) -> None:
-    """`params` (as `model.init` draws them) taken to the fan-in scale in
-    place: at the init scale the activations of the stacks grow by orders
-    of magnitude a layer (ROADMAP.md queue C 1.6)."""
+    """`params` (as `model.init` draws them, or laid out over a grid as
+    `Sharded` blocks, each distinct block scaled once) taken to the
+    fan-in scale in place: at the init scale the activations of the
+    stacks grow by orders of magnitude a layer (ROADMAP.md queue C
+    1.6)."""
     from repro_torch.configs.base import PD, tree_leaves
 
     for p, pd in zip(tree_leaves(params), tree_leaves(
             model.desc(), is_leaf=lambda x: isinstance(x, PD))):
-        p.mul_(fan_in_factor(pd))
+        for b in (p.tensors() if hasattr(p, "tensors") else (p,)):
+            b.mul_(fan_in_factor(pd))
 
 
 def draw_on_card(torch, dev, label, name, param_dtype, **cut):
@@ -3507,6 +3532,405 @@ def family_training_phase(torch, np, dev, c, refs) -> dict:
             torch, np, dev, c, f"[20c] {name}",
             reduced_config(get_config(name)))
         phase_s[f"[20c] {name}"] = time.perf_counter() - t
+    out["phase_s"] = phase_s
+    return out
+
+
+# ------------------------------------ [21]: the LM on a device grid
+# [21a]'s cells: (arch, cut, strategy, batch, tokens); f32, params at the
+# fan-in scale, the MoE at capacity factor 0.5 so that tokens drop
+GRID_CASES = {"moe": ("mixtral-8x7b", {"num_layers": 1,
+                                       "capacity_factor": 0.5}, "fsdp",
+                      2, 64),
+              "dense": ("qwen3-1.7b", {"num_layers": 2}, "tp_dp", 2, 128)}
+
+
+def grid_of(torch, dev, shape=(2, 2)):
+    """A (D, M) `DeviceGrid` whose every cell is `dev`."""
+    from repro_torch.distributed.sharding import DeviceGrid
+
+    return DeviceGrid((dev,) * (shape[0] * shape[1]), shape)
+
+
+def place_train_state(torch, grid, in_sh, params):
+    """`params` (whole tensors) laid out by lm_cell's in specs, and zero
+    AdamW moments laid out as they are (made on the blocks' devices)."""
+    from repro_torch.distributed.grid_step import zero_moments
+    from repro_torch.distributed.sharding import place_tree
+
+    placed = place_tree(grid, in_sh[0], params)
+    return placed, zero_moments(placed, grid.device(0, 0))
+
+
+def counting_drops(torch):
+    """Wrap `moe.route` to count (choices, dropped choices) of every call;
+    returns (counts dict, restore function)."""
+    from repro_torch.models import moe as MOE
+
+    counts, route = {"choices": 0, "dropped": 0}, MOE.route
+
+    def counted(xg, router, cfg):
+        r = route(xg, router, cfg)
+        counts["choices"] += r.keep.numel()
+        counts["dropped"] += int((~r.keep).sum())
+        return r
+
+    MOE.route = counted
+    return counts, lambda: setattr(MOE, "route", route)
+
+
+def lm_grid_case_inputs(torch, np, key):
+    """[21a]'s config, CPU params (seed 21, at the fan-in scale) and
+    batch (numpy seed 21)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    name, cut, _, b, s = GRID_CASES[key]
+    cfg = get_config(name).replace(dtype=torch.float32, **cut)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(21), device="cpu")
+    to_fan_in(model, params)
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (b, s + 1))
+    return cfg, params, {"tokens": torch.from_numpy(toks[:, :-1]),
+                         "labels": torch.from_numpy(toks[:, 1:])}
+
+
+def lm_grid_case_run(torch, grid, cfg, params, batch, key) -> dict:
+    """One lm_cell train step of [21a]'s case on `grid`: the metrics,
+    every updated parameter leaf (whole, on the host) and the MoE drops."""
+    from repro_torch.configs.base import ShapeSpec, tree_leaves
+    from repro_torch.launch.specs import lm_cell
+
+    _, _, strategy, b, s = GRID_CASES[key]
+    step, _, in_sh, _ = lm_cell(cfg, ShapeSpec("t", s, b, "train"), grid,
+                                strategy=strategy)
+    placed, opt_state = place_train_state(torch, grid, in_sh, params)
+    params.clear()
+    drops, restore = counting_drops(torch)
+    try:
+        p2, _, metrics = step(placed, opt_state, batch)
+    finally:
+        restore()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": [x.gather(torch.device("cpu")) for x in
+                       tree_leaves(p2)], **drops}
+
+
+def lm_grid_ref(key: str):
+    """The CPU side of [21a]'s case `key`, on a (2, 2) grid of the CPU."""
+    def ref(torch, np) -> dict:
+        cfg, params, batch = lm_grid_case_inputs(torch, np, key)
+        return lm_grid_case_run(torch, grid_of(torch, "cpu"), cfg, params,
+                                batch, key)
+    return ref
+
+
+CPU_REFS.update({f"lm_grid_{key}": lm_grid_ref(key) for key in GRID_CASES})
+REF_CASES += "," + ",".join(f"lm_grid_{key}" for key in GRID_CASES)
+
+
+def lm_grid_phase(torch, np, dev, c, refs) -> dict:
+    """[21]: the LM on a (2, 2) `DeviceGrid` of the one card: lm_cell train
+    card vs CPU ([21a]), lm_cell train, the grid Trainer, lm_cell prefill
+    and decode at full width ([21b]), a checkpoint of the grid Trainer
+    restored onto (1, 1) and (4, 1) grids ([21c])."""
+    from repro_torch.checkpoint.checkpointer import _flatten, _keystr
+    from repro_torch.configs.base import (
+        ShapeSpec, tree_leaves, tree_map)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import (
+        Sharded, place_tree, tree_named)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.specs import lm_cell
+    from repro_torch.launch.train import reduced_config, synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    out, phase_s = {"card_vs_cpu": {}}, {}
+    grid = grid_of(torch, dev)
+
+    def zero_counts():
+        c.zero_counts()
+        flash_attention_cuda.launches = 0
+
+    def read_counts():
+        return dict(c.read_counts(),
+                    flash_attention=flash_attention_cuda.launches)
+
+    # [21a] one lm_cell train step card vs CPU, both on (2, 2) grids
+    t = time.perf_counter()
+    for key in GRID_CASES:
+        cfg, host, batch = lm_grid_case_inputs(torch, np, key)
+        names = [_keystr(p) for p, _ in _flatten(host)]
+        zero_counts()
+        got = lm_grid_case_run(torch, grid, cfg, tree_map(
+            lambda x: x.to(dev), host), {k: v.to(dev) for k, v in
+                                          batch.items()}, key)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        del host
+        ref = refs.get(torch, f"lm_grid_{key}")
+        errs = sorted(((rel_err(torch, g, w), nm) for g, w, nm in zip(
+            got["params"], ref["params"], names)), reverse=True)
+        m_errs = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+                  for k, v in ref["metrics"].items()}
+        rec = dict(arch=GRID_CASES[key][0], strategy=GRID_CASES[key][2],
+                   metrics_card=got["metrics"], metrics_cpu=ref["metrics"],
+                   metric_rel_errs=m_errs, worst_leaf_rel_err=errs[0][0],
+                   worst_leaf=errs[0][1],
+                   drops_card=(got["dropped"], got["choices"]),
+                   drops_cpu=(ref["dropped"], ref["choices"]),
+                   cpu_s=ref["seconds"], launches=launches)
+        out["card_vs_cpu"][key] = rec
+        log(f"[21a] {key} ({rec['arch']} {cfg.num_layers} layers, "
+            f"{rec['strategy']}, f32, {GRID_CASES[key][3]} x "
+            f"{GRID_CASES[key][4]} tokens, (2, 2) grid): loss card "
+            f"{got['metrics']['loss']:.6f} vs CPU "
+            f"{ref['metrics']['loss']:.6f}; metric rel errs "
+            + ", ".join(f"{k} {v:.2e}" for k, v in m_errs.items())
+            + "; worst updated leaves max_abs_err / max |CPU| "
+            + ", ".join(f"{nm} {e:.2e}" for e, nm in errs[:3])
+            + f" ({len(names)} leaves; tol 1e-4); MoE choices dropped card "
+            f"{got['dropped']} of {got['choices']}, CPU {ref['dropped']} of "
+            f"{ref['choices']}; CPU side {ref['seconds']:.1f} s; launches "
+            f"{launches}")
+        if not (max(m_errs.values()) <= 1e-4 and errs[0][0] <= 1e-4):
+            fail(f"[21a] {key}: card and CPU disagree: {rec}")
+        if key == "moe" and not got["dropped"]:
+            fail("[21a] the MoE case dropped no token")
+        c.expect(f"[21a] {key}", launches, flash_attention=0)
+        del got, ref
+        free_phase(torch, f"[21a] {key}")
+    phase_s["[21a]"] = time.perf_counter() - t
+
+    def timed_steps(label, run, n, tokens):
+        """n calls of run(), each followed by a synchronize: step times,
+        tokens/s over steps 1.., peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, last = [], None
+        for _ in range(n):
+            t0 = time.perf_counter()
+            last = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        steady = sum(times[1:]) / len(times[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label}: step s " + ", ".join(f"{v:.3f}" for v in times)
+            + f" (steps 1-{n - 1} {1e3 * steady:.1f} ms = "
+            f"{tokens / steady:.0f} tokens/s); peak device memory "
+            f"{peak:.2f} GiB")
+        return last, dict(step_s=times, steady_step_ms=1e3 * steady,
+                          tokens_per_s=tokens / steady, peak_gib=peak)
+
+    # [21b] mixtral-8x7b, 1 layer, bf16 activations, f32 params and AdamW,
+    # fsdp (the cast before the gather, the shmap MoE): lm_cell train
+    t = time.perf_counter()
+    cfg, model, params = draw_on_card(torch, dev, "[21b]", "mixtral-8x7b",
+                                      torch.float32, num_layers=1)
+    b, s = 2, 1024
+    step, _, in_sh, _ = lm_cell(cfg, ShapeSpec("t", s, b, "train"), grid,
+                                strategy="fsdp")
+    placed, opt_state = place_train_state(torch, grid, in_sh, params)
+    del params
+    fixed = {k: v.to(dev) for k, v in synthetic_batch(cfg, 0, b, s).items()
+             if k in ("tokens", "labels")}
+    state = [placed, opt_state]
+
+    def train_step():
+        state[0], state[1], metrics = step(state[0], state[1], fixed)
+        return metrics
+
+    zero_counts()
+    metrics, rec = timed_steps(
+        "[21b] mixtral-8x7b 1 layer lm_cell train (fsdp, (2, 2))",
+        train_step, 3, b * s)
+    rec.update(launches=read_counts(), loss=float(metrics["loss"]),
+               params=model.num_params(), tokens_per_step=b * s)
+    # where a grid step's time goes: one more step under torch.profiler
+    rec["device_busy"] = busy = device_busy(torch, train_step, top=6)
+    if busy is not None:
+        log(f"[21b] mixtral one lm_cell step: device busy "
+            f"{busy['busy_ms']:.1f} ms of {rec['steady_step_ms']:.1f} ms "
+            f"wall; top kernels (ms): " + ", ".join(
+                f"{nm[:48]} {ms:.1f}" for nm, ms in busy["top"]))
+    out["mixtral_train"] = rec
+    if not np.isfinite(rec["loss"]):
+        fail(f"[21b] mixtral lm_cell train loss {rec['loss']}")
+    c.expect("[21b] mixtral train", rec["launches"], flash_attention=0)
+    del placed, opt_state, step, fixed, state
+    free_phase(torch, "[21b] mixtral")
+    phase_s["[21b] mixtral"] = time.perf_counter() - t
+
+    # [21b] qwen3-1.7b at full depth: the grid Trainer (tp_dp), 3 steps of
+    # 2 x 2048 tokens (bf16 activations, f32 params and AdamW)
+    t = time.perf_counter()
+    full = get_config("qwen3-1.7b")
+    tr = Trainer(full, TrainerConfig(steps=3, log_every=1, opt=AdamWConfig(
+        warmup_steps=1, total_steps=3)), mesh=grid)
+    params, opt_state = tr.init_state(0)
+    to_fan_in(tr.model, params)
+    fixed = synthetic_batch(full, 0, 2, 2048)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    params, opt_state, hist = tr.fit(params, opt_state, lambda _: fixed)
+    step_s = [h["time_s"] for h in hist]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    rec = dict(losses=[h["loss"] for h in hist], step_s=step_s,
+               steady_step_ms=1e3 * steady, tokens_per_s=2 * 2048 / steady,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=read_counts(), strategy="tp_dp",
+               params=tr.model.num_params())
+    out["qwen3_trainer"] = rec
+    log(f"[21b] qwen3-1.7b 28 layers Trainer(mesh=(2, 2), tp_dp), 2 x 2048 "
+        f"tokens: losses " + ", ".join(f"{v:.4f}" for v in rec["losses"])
+        + "; step s " + ", ".join(f"{v:.3f}" for v in step_s)
+        + f" (steps 1-2 {1e3 * steady:.1f} ms = {2 * 2048 / steady:.0f} "
+        f"tokens/s, each step synchronized); peak device memory "
+        f"{rec['peak_gib']:.2f} GiB; launches {rec['launches']}")
+    if not all(np.isfinite(rec["losses"])) or \
+            not rec["losses"][-1] < rec["losses"][0]:
+        fail(f"[21b] grid Trainer losses {rec['losses']}")
+    c.expect("[21b] qwen3 Trainer", rec["launches"], flash_attention=0)
+    del opt_state, tr
+    free_phase(torch, "[21b] qwen3 Trainer")
+    phase_s["[21b] qwen3 Trainer"] = time.perf_counter() - t
+
+    # [21b] lm_cell prefill of 4 x 2048 and 32 decode steps from
+    # seq-sharded caches, f32 (TF32 off) on the trained params, against
+    # the single-device Model.prefill / decode_step on the card
+    t = time.perf_counter()
+    f32 = full.replace(dtype=torch.float32)
+    single = build_model(f32)
+    b, s, n_dec = 4, 2048, 32
+    toks = np.random.default_rng(211).integers(0, full.vocab_size,
+                                               (b, s + n_dec))
+    toks = torch.from_numpy(toks).to(dev)
+    pstep, _, p_in, _ = lm_cell(f32, ShapeSpec("p", s, b, "prefill"), grid)
+    dstep, _, d_in, _ = lm_cell(f32, ShapeSpec("d", s + n_dec, b,
+                                               "decode"), grid)
+    if [x.placement.spec for x in tree_leaves(params)] != \
+            [x.spec for x in tree_leaves(tree_named(grid, p_in[0]))]:
+        fail("[21b] the Trainer's tp_dp layout is not lm_cell's")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = pstep(params, {"tokens": toks[:, :s]})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_launches = read_counts()
+    whole = tree_map(lambda x: x.gather(), params)
+    want_last, want_caches = single.prefill(whole, {"tokens": toks[:, :s]})
+    vocab = full.vocab_size   # the padded columns are -1e30 on both sides
+    pre_err = rel_err(torch, last[..., :vocab], want_last[..., :vocab])
+    cache_err = max(rel_err(torch, a, w) for a, w in zip(
+        tree_leaves(caches), tree_leaves(want_caches)))
+
+    def grown(pc):
+        """Decode caches of s + n_dec positions holding prefill's."""
+        dc = single.init_caches(b, s + n_dec, device=dev)
+        for d, p in zip(tree_leaves(dc), tree_leaves(pc)):
+            if d.ndim == 5:    # k, v (g, b, kv, S, hd)
+                d[..., :s, :].copy_(p)
+            else:              # pos (g, b, S)
+                d[..., :s].copy_(p)
+        return dc
+
+    single_caches = grown(want_caches)
+    grid_caches = place_tree(grid, d_in[1]["caches"], grown(caches))
+    del caches, want_caches
+    kv = grid_caches[0]["kv"].k
+    kv_blocks = len(kv.tensors())
+    zero_counts()
+    dec_err, dec_s = 0.0, []
+    for i in range(n_dec):
+        tk = toks[:, s + i:s + i + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, grid_caches = dstep(params, {"tokens": tk, "caches":
+                                         grid_caches, "index": s + i})
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            want, single_caches = single.decode_step(
+                whole, {"tokens": tk, "caches": single_caches,
+                        "index": s + i})
+        dec_err = max(dec_err, rel_err(torch, lg[..., :vocab],
+                                       want[..., :vocab]))
+    dec_launches = read_counts()
+    steady = sum(dec_s[1:]) / len(dec_s[1:])
+    logits_max = float(want[..., :vocab].abs().max())
+    busy = device_busy(torch, lambda: dstep(params, {
+        "tokens": tk, "caches": grid_caches, "index": s + n_dec - 1}))
+    out["qwen3_serve"] = dict(
+        batch=b, prompt=s, decode_steps=n_dec, prefill_s=prefill_s,
+        prefill_tokens_per_s=b * s / prefill_s,
+        prefill_last_logits_rel_err=pre_err, prefill_cache_rel_err=cache_err,
+        decode_ms=1e3 * steady, decode_tokens_per_s=b / steady,
+        decode_logits_rel_err=dec_err, logits_max=logits_max,
+        kv_blocks_per_leaf=kv_blocks, decode_device_busy=busy,
+        prefill_launches=pre_launches, decode_launches=dec_launches,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[21b] qwen3-1.7b 28 layers f32 on (2, 2): lm_cell prefill of "
+        f"{b} x {s} in {prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s), "
+        f"last logits max_abs_err / max {pre_err:.2e} and caches "
+        f"{cache_err:.2e} against the single-device Model.prefill (tol "
+        f"1e-5); {n_dec} decode steps from caches seq-sharded over model "
+        f"({kv_blocks} KV blocks a leaf), {1e3 * steady:.2f} ms a step "
+        f"({b / steady:.0f} tokens/s; device busy "
+        f"{busy['busy_ms'] if busy else float('nan'):.1f} ms of a step), "
+        f"logits {dec_err:.2e} of the single-device decode_step (the "
+        f"real vocab, max |logit| {logits_max:.3e}; tol 1e-5); launches "
+        f"prefill "
+        f"{pre_launches}, decode {dec_launches}; {device_gib(torch)}")
+    want_flash = 2 * full.num_layers   # one a layer for each data row
+    c.expect("[21b] prefill", pre_launches, flash_attention=want_flash)
+    c.expect("[21b] decode", dec_launches, flash_attention=0)
+    if not (pre_err <= 1e-5 and cache_err <= 1e-5 and dec_err <= 1e-5):
+        fail(f"[21b] grid prefill / decode off the single device: "
+             f"{out['qwen3_serve']}")
+    del params, whole, grid_caches, single_caches, last, want_last
+    free_phase(torch, "[21b] qwen3 prefill/decode")
+    phase_s["[21b] qwen3 prefill/decode"] = time.perf_counter() - t
+
+    # [21c] a checkpoint of the (2, 2) grid Trainer (fsdp) restored onto
+    # (1, 1) and (4, 1) grids of the card, bit for bit
+    t = time.perf_counter()
+    ck_root = Path(tempfile.mkdtemp(prefix="chip_smoke_grid_"))
+    try:
+        small = reduced_config(full)
+        tcfg = TrainerConfig(steps=2, log_every=1, ckpt_every=2,
+                             ckpt_dir=str(ck_root), strategy="fsdp",
+                             opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                             total_steps=2))
+        tr = Trainer(small, tcfg, mesh=grid)
+        p, o = tr.init_state(0)
+        p, o, hist = tr.fit(p, o, lambda st: synthetic_batch(small, st, 4,
+                                                             256))
+        written = [x.gather() if isinstance(x, Sharded) else x
+                   for x in tree_leaves((p, o))]
+        same = {}
+        for shape in ((1, 1), (4, 1)):
+            tr2 = Trainer(small, tcfg, mesh=grid_of(torch, dev, shape))
+            p2, o2, start = tr2.maybe_restore(*tr2.init_state(1))
+            same[str(shape)] = start == 2 and all(
+                torch.equal(x.gather() if isinstance(x, Sharded) else x, w)
+                for x, w in zip(tree_leaves((p2, o2)), written))
+            del tr2, p2, o2
+        out["restore"] = dict(losses=[h["loss"] for h in hist],
+                              bit_identical=same)
+        log(f"[21c] reduced qwen3-1.7b Trainer on (2, 2), fsdp: losses "
+            + ", ".join(f"{h['loss']:.4f}" for h in hist)
+            + f"; its step-2 checkpoint restored bit for bit onto {same}")
+        if not all(same.values()):
+            fail(f"[21c] restore across grid shapes: {same}")
+        del tr, p, o, written
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    free_phase(torch, "[21c]")
+    phase_s["[21c]"] = time.perf_counter() - t
     out["phase_s"] = phase_s
     return out
 
@@ -4622,7 +5046,16 @@ def main() -> None:
         f"{k} {v:.1f}" for k, v in {**audio["phase_s"],
                                     **vlm["phase_s"],
                                     **fam_training["phase_s"]}.items()))
+    # ---------- 21. the LM on a device grid of the card
+    t21 = time.perf_counter()
+    lm_grid = lm_grid_phase(torch, np, dev, ctx, refs)
+    lm_grid["phase_s"]["[21]"] = time.perf_counter() - t21
+    log("[21] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in lm_grid["phase_s"].items()))
     refs.close()
+    entries["flash_attention"]["lm_grid_launches"] = {
+        "[21b] prefill": lm_grid["qwen3_serve"]["prefill_launches"][
+            "flash_attention"]}
     entries["flash_attention"]["families_launches"] = {
         "[15a]": families["moe_card_vs_cpu"]["launches"]["flash_attention"],
         "[15c]": families["mixtral"]["flash_launches"],
@@ -4662,6 +5095,7 @@ def main() -> None:
                                    **{key: e[key] for key in (
                                        "families_launches",
                                        "audio_vlm_launches",
+                                       "lm_grid_launches",
                                        "whisper_shapes") if key in e},
                                    "distributed_training_launches":
                                        e["distributed_training_launches"]}
@@ -4692,6 +5126,7 @@ def main() -> None:
                       "audio": audio,
                       "vlm": vlm,
                       "family_training": fam_training,
+                      "lm_grid": lm_grid,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

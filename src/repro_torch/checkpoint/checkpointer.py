@@ -121,8 +121,11 @@ def _file_sha256(path: Path) -> str:
 
 def _host_copy(x) -> np.ndarray:
     """An owned host numpy copy of a leaf: a tensor (a CUDA tensor's
-    device-to-host copy; a CPU tensor cloned), a numpy array or scalar
-    (copied)."""
+    device-to-host copy; a CPU tensor cloned), a grid's `Sharded` blocks
+    (gathered whole, so the file is the reference's), a numpy array or
+    scalar (copied)."""
+    if hasattr(x, "gather") and hasattr(x, "placement"):
+        return x.gather(torch.device("cpu")).detach().numpy()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         return (x.to("cpu") if x.is_cuda else x.clone()).numpy()
@@ -288,12 +291,18 @@ class Checkpointer:
         return None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                devices: Any = None) -> tuple[Any, int]:
+                devices: Any = None, placements: Any = None
+                ) -> tuple[Any, int]:
         """Restore into the structure of `tree_like` (its leaves are only
         placeholders). Leaves come back as numpy arrays; with `devices`
         (one device for every leaf, or a tree of `tree_like`'s structure
         naming a device or None per leaf) a numeric leaf comes back as a
-        tensor on its device, owned (made from the loaded array).
+        tensor on its device, owned (made from the loaded array). With
+        `placements` (a tree of `tree_like`'s structure naming a
+        `distributed.sharding.Placement` or None per leaf: `tree_named`'s,
+        the counterpart of the reference's `shardings=`) a leaf with a
+        placement comes back laid over its grid, whatever grid wrote it;
+        the other leaves go by `devices`.
 
         With `step=None` the newest checkpoint whose leaf checksums verify
         is used -- a corrupted step directory is skipped in favour of the
@@ -317,10 +326,14 @@ class Checkpointer:
             placement = [devices] * len(leaves)
         else:
             placement = [dev for _, dev in _flatten(devices, keep_none=True)]
+        laid = ([None] * len(leaves) if placements is None else
+                [pl for _, pl in _flatten(placements, keep_none=True)])
         out = []
-        for (path, _), dev in zip(leaves, placement):
+        for (path, _), dev, pl in zip(leaves, placement, laid):
             arr = np.load(d / by_key[_keystr(path)]["file"])
-            if dev is not None and arr.dtype.kind in "biuf":
+            if pl is not None:
+                arr = pl.place(torch.from_numpy(arr))
+            elif dev is not None and arr.dtype.kind in "biuf":
                 arr = torch.from_numpy(arr).to(dev)
             out.append(arr)
         return _unflatten(tree_like, iter(out)), step

@@ -5,9 +5,9 @@ Params are described by `PD` trees (shape, logical axes, init); `init_params`
 materializes one from an explicit `torch.Generator`, `abstract_params`
 describes one on the meta device (no allocation), and `spec_tree` maps the
 logical axes onto mesh-axis names through a rule table (`DEFAULT_RULES`,
-`FSDP_RULES`). Nothing reads the specs until the LM half of the sharding
-slice (ROADMAP.md queue A 3.8), which also brings the reference's
-`scan_unroll`, `fsdp_constrain` and `shmap_axes` fields.
+`FSDP_RULES`). The specs lay parameters over a `DeviceGrid`
+(`distributed.sharding.tree_named`): `launch/specs.py::lm_cell` and the
+grid `Trainer` read them.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["ModelConfig", "ShapeSpec", "PD", "init_params", "spec_tree",
            "abstract_params", "DEFAULT_RULES", "FSDP_RULES", "pad_to",
-           "tree_leaves", "tree_map", "tree_unflatten"]
+           "tree_leaves", "tree_map", "tree_unflatten", "spec_entry"]
 
 
 def pad_to(x: int, m: int) -> int:
@@ -31,11 +31,14 @@ def pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields of `repro.configs.base.ModelConfig` that the model
-    families read, with `dtype` a torch dtype. The reference's sharding
-    and lowering fields (`scan_unroll`, `fsdp_constrain`, `shmap_axes`)
-    come with the LM half of the sharding slice (ROADMAP.md queue A
-    3.8)."""
+    """The fields of `repro.configs.base.ModelConfig`, with `dtype` a
+    torch dtype. Of the lowering fields, `fsdp_constrain` casts each
+    group's >= 2-D f32 weights to `dtype` at use (the reference casts
+    before its FSDP gather) and `shmap_axes` runs the MoE blocks per data
+    shard and per model shard of the expert hidden dim (`models.moe`);
+    `scan_unroll` is accepted and changes nothing: the reference unrolls
+    its layer scan for XLA's cost analysis, and the port runs a Python
+    loop over the groups either way."""
     name: str
     family: str                    # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
@@ -83,6 +86,15 @@ class ModelConfig:
     mamba_chunk: int = 512
     kv_block: int = 1024           # KV block of the plain blockwise path
     logits_f32: bool = True        # False: bf16 vocab matmul, f32 accum
+    # accepted for the reference's configs; no effect (see the docstring)
+    scan_unroll: bool = False
+    # cast each group's >= 2-D f32 weights to `dtype` at use, as the
+    # reference does before its FSDP all-gather (lm_cell sets it for fsdp)
+    fsdp_constrain: bool = False
+    # MoE blocks per (data axes, model axis) shard, e.g. (("data",),
+    # "model"): tokens routed per data shard, the expert hidden dim split
+    # over the model shards (lm_cell sets it for MoE configs)
+    shmap_axes: tuple = ()
     # recompute in the backward pass, per layer group, in train mode with
     # grad on: none | block | full (save nothing) | dots (save the
     # projections' matmul outputs)
@@ -241,8 +253,19 @@ DEFAULT_RULES = {
 FSDP_RULES = dict(DEFAULT_RULES, embed="data")
 
 
+def spec_entry(axes):
+    """One dimension's mesh axes as `PartitionSpec` holds them: a tuple of
+    one name becomes the name, an empty tuple None."""
+    if isinstance(axes, (tuple, list)):
+        axes = tuple(axes)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return axes
+
+
 def spec_tree(desc, rules=DEFAULT_RULES):
-    """For each PD leaf, a tuple of one mesh-axis name (or None) per
-    dimension: what `tuple(PartitionSpec(...))` holds in the reference."""
-    return tree_map(lambda pd: tuple(rules.get(a, None) for a in pd.axes),
-                    desc, is_leaf=_is_pd)
+    """For each PD leaf, a tuple of one mesh-axis name (or None, or a
+    tuple of names) per dimension: what `tuple(PartitionSpec(...))`
+    holds in the reference."""
+    return tree_map(
+        lambda pd: tuple(spec_entry(rules.get(a, None)) for a in pd.axes),
+        desc, is_leaf=_is_pd)

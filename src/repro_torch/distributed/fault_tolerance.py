@@ -41,10 +41,12 @@ __all__ = ["StepGuard", "HealthLog", "degrade_plan", "block_until_ready"]
 
 def _cuda_devices(out, found: set) -> set:
     """Indices of the CUDA devices holding a tensor of `out` (nested
-    tuples, lists and dicts)."""
+    tuples, lists and dicts; a grid's `Sharded` blocks)."""
     if isinstance(out, torch.Tensor):
         if out.is_cuda:
             found.add(out.device.index)
+    elif hasattr(out, "tensors"):
+        _cuda_devices(out.tensors(), found)
     elif isinstance(out, (tuple, list)):
         for item in out:
             _cuda_devices(item, found)

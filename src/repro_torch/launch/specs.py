@@ -1,21 +1,142 @@
-"""The paper's workload as a production cell on a device grid: counterpart
-of `repro.launch.specs.sti_cell`.
+"""Cells on a device grid: counterpart of `repro.launch.specs`.
 
-The LM cells of the JAX module (`lm_cell`, the abstract input specs) lower
-to a TPU pod and wait for the tooling slice (ROADMAP.md queue A 4); this
-module holds only `sti_cell`.
+`lm_cell` builds one (arch x input shape) cell of an LM: its step
+function, abstract inputs (meta tensors) and the specs that lay them over
+a `DeviceGrid`; the step runs on blocks placed by `tree_named` (see
+`distributed/grid_step.py` for how). `sti_cell` is the paper's workload
+as a grid cell.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeSpec, tree_map
 from repro_torch.core.sti_knn import ranks_from_order, superdiagonal_g
-from repro_torch.distributed.sharding import DeviceGrid
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.grid_step import GridRun, update
+from repro_torch.distributed.sharding import DeviceGrid, Sharded
 from repro_torch.kernels.distance import distance_cuda
 from repro_torch.kernels.sti_fill import rect_row_view, sti_fill_acc_rect_cuda
+from repro_torch.models import build_model
+from repro_torch.training.optimizer import AdamState, AdamWConfig
 
-__all__ = ["sti_cell"]
+__all__ = ["lm_batch_specs", "lm_cell", "sti_cell"]
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lm_batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The abstract batch of one cell (meta tensors)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        batch = {"tokens": _meta((b, 1), torch.int32)}
+    elif cfg.family == "vlm":
+        batch = {"tokens": _meta((b, s - cfg.num_patches), torch.int32)}
+    else:
+        batch = {"tokens": _meta((b, s), torch.int32)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["patch_embeds"] = _meta((b, cfg.num_patches, cfg.d_model),
+                                      cfg.dtype)
+    if cfg.family == "audio" and shape.kind != "decode":
+        batch["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    if shape.kind == "train":
+        batch["labels"] = _meta(tuple(batch["tokens"].shape), torch.int32)
+    return batch
+
+
+def _whole(x):
+    """A batch field as one tensor: a `Sharded` gathered, a tensor as is."""
+    return x.gather() if isinstance(x, Sharded) else x
+
+
+def lm_cell(cfg: ModelConfig, shape: ShapeSpec, grid: DeviceGrid,
+            strategy: str | None = None, opt: AdamWConfig | None = None,
+            grad_accum: int = 1, cache_seq_shard: bool = True):
+    """(step, args, in_specs, out_specs) of one cell, as the reference's:
+
+    train  : step(params, opt_state, batch) -> (params, opt_state, metrics)
+             grad_accum micro-batches' gradients summed in f32 and
+             divided, then AdamW, every block updated in place
+    prefill: step(params, batch) -> (last_logits, caches)
+    decode : step(params, batch{tokens, caches, index}) -> (logits, caches)
+
+    The rules are the reference's: inference kinds default to "tp_dp" with
+    `cfg.dtype` params, train to `strategy_for(cfg)` with f32 params;
+    `fsdp_constrain` is set for "fsdp", `shmap_axes = (data axes,
+    "model")` for MoE configs; the batch is replicated where global_batch
+    does not divide the data axes. `args` are meta tensors; the specs are
+    trees of spec tuples (None where the reference leaves an output
+    unconstrained). The step takes params, moments, batch fields and
+    caches placed by `tree_named(grid, in_specs)` (`Sharded` leaves; a
+    batch field may also be a whole tensor) and returns those of
+    `out_specs` in that layout; an unconstrained output comes back whole
+    on cell (0, 0)'s device. Decode attends to a seq-sharded KV cache
+    block by block and combines the partials (`models.attention.
+    decode_attention`); prefill's self-attention runs the flash kernel.
+    The step raises without a card unless the grid names the CPU."""
+    if shape.kind != "train" and strategy is None:
+        strategy = "tp_dp"
+    strategy = strategy or SH.strategy_for(cfg)
+    da = SH.data_axes(grid)
+    cfg = cfg.replace(fsdp_constrain=(strategy == "fsdp"),
+                      shmap_axes=(da, "model") if cfg.num_experts else ())
+    model = build_model(cfg)
+    rules = SH.rules_for(cfg, strategy, grid)
+    pspec = model.param_spec(rules)
+    params = model.abstract(
+        dtype=cfg.dtype if shape.kind != "train" else torch.float32)
+    batch = lm_batch_specs(cfg, shape)
+    bspec = {k: v for k, v in SH.batch_spec(cfg, shape.kind, grid).items()
+             if k in batch}
+    if shape.global_batch % SH.data_size(grid):
+        bspec = {k: (None,) * len(v) for k, v in bspec.items()}
+    opt = opt or AdamWConfig()
+
+    if shape.kind == "train":
+        def step(params, opt_state, batch):
+            run = GridRun(model, grid, params)
+            loss, metrics, grads = run.grads(
+                {k: _whole(v) for k, v in batch.items()}, grad_accum)
+            if grad_accum > 1:
+                metrics = {}
+            count, om = update(opt, grads, opt_state, params)
+            if isinstance(opt_state.count, Sharded):
+                count = opt_state.count.placement.place(count)
+            return params, AdamState(opt_state.mu, opt_state.nu, count), \
+                dict(metrics, loss=loss, **om)
+
+        opt_state = AdamState(
+            mu=tree_map(lambda p: _meta(p.shape, torch.float32), params),
+            nu=tree_map(lambda p: _meta(p.shape, torch.float32), params),
+            count=_meta((), torch.int32))
+        opt_spec = AdamState(mu=pspec, nu=pspec, count=())
+        return step, (params, opt_state, batch), (pspec, opt_spec, bspec), \
+            (pspec, opt_spec, None)
+
+    if shape.kind == "prefill":
+        def step(params, batch):
+            return GridRun(model, grid, params).prefill(
+                {k: _whole(v) for k, v in batch.items()})
+
+        return step, (params, batch), (pspec, bspec), None
+
+    caches = model.init_caches(shape.global_batch, shape.seq_len,
+                               device="meta")
+    cspec = SH.cache_pytree_spec(cfg, caches, shape.kind, grid,
+                                 shape.seq_len,
+                                 cache_seq_shard=cache_seq_shard)
+    batch = dict(batch, caches=caches, index=_meta((), torch.int32))
+    bspec = dict(bspec, caches=cspec, index=())
+
+    def step(params, batch):
+        return GridRun(model, grid, params).decode(
+            _whole(batch["tokens"]), batch["caches"],
+            int(_whole(batch["index"])))
+
+    return step, (params, batch), (pspec, bspec), (None, cspec)
 
 
 def _check_cell(scfg, grid: DeviceGrid) -> tuple[int, int]:

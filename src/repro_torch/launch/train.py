@@ -8,8 +8,11 @@ On the CPU, reduced dims:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --reduced --steps 4 --batch 2 --seq 64
 
-One device (`training.trainer.Trainer`); the reference's production mesh
-waits for the LM half of the sharding slice (ROADMAP.md queue A 3.8).
+The `Trainer` runs on `make_local_mesh(--device)`, as the reference's
+on its local mesh: every local card as an (n_cards, 1) grid, a named card
+or the CPU as (1, 1), laid out by `strategy_for`. The reference's
+`--production-mesh` (a TPU pod's 16 x 16 layout) waits for the tooling
+slice (ROADMAP.md queue A 4).
 `reduced_config` is also what the serve launcher and the tests use.
 """
 
@@ -72,6 +75,7 @@ def main(argv=None):
     """Parse the CLI, restore from --ckpt-dir if it holds a checkpoint,
     and train on `synthetic_batch`es."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -98,13 +102,15 @@ def main(argv=None):
         opt=AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
                         total_steps=args.steps),
     )
-    tr = Trainer(cfg, tcfg, device=args.device)
+    mesh = make_local_mesh(args.device)
+    tr = Trainer(cfg, tcfg, mesh=mesh)
     params, opt_state = tr.init_state(seed=0)
     params, opt_state, start = tr.maybe_restore(params, opt_state)
     n_params = tr.model.num_params()
     name = (torch.cuda.get_device_name(tr.device)
             if tr.device.type == "cuda" else "cpu")
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={name}")
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={name} "
+          f"mesh={mesh.axis_sizes}")
 
     def batch_fn(step):
         return synthetic_batch(cfg, step, args.batch, args.seq)

@@ -191,7 +191,7 @@ def attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     return y
 
 
-def decode_attention(p, x, cfg: ModelConfig, cache: KVCache, index: int,
+def decode_attention(p, x, cfg: ModelConfig, cache, index: int,
                      *, window=None, use_rope=True, xattn=False):
     """One-token decode. x: (b, 1, d_model); cache k/v: (b, KV, S, hd).
 
@@ -201,34 +201,86 @@ def decode_attention(p, x, cfg: ModelConfig, cache: KVCache, index: int,
     tensors as `cache`. As `lax.dynamic_update_slice` in the JAX package, a
     write past the end lands on the last slot. Cross-attention
     (xattn=True): the cache holds encoder k/v and is not written.
+
+    `cache` may also be a list of KVCache blocks that split the seq dim in
+    order (a seq-sharded cache on a device grid, each block on its own
+    device): the new k/v go into the block holding the slot, and each
+    block's (max, sum, output) partial, computed on its device, is
+    combined on x's (`_combine_blocks`), the flash-decode across model
+    shards that the reference's partitioner writes. No block is gathered.
     """
     b = x.shape[0]
     index = int(index)
     pos_now = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q = _project_q(p, x, cfg, pos_now, use_rope)  # (b, 1, hp, hd)
+    blocks = cache if isinstance(cache, list) else [cache]
     if not xattn:
         k_new, v_new = _project_kv(p, x, cfg, pos_now, use_rope)
-        S = cache.k.shape[2]
+        S = sum(c.k.shape[2] for c in blocks)
         slot = index % S if window is not None and S == window else index
         slot = min(max(slot, 0), S - 1)
-        cache.k[:, :, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, :, slot] = v_new[:, 0].to(cache.v.dtype)
-        cache.pos[:, slot] = index
-    hmap = kv_head_map(cfg, x.device)
-    kx = cache.k[:, hmap]  # (b, hp, S, hd)
-    vx = cache.v[:, hmap]
-    scale = 1.0 / (cfg.hd ** 0.5)
-    logits = torch.einsum("bqhd,bhkd->bhqk", q.to(torch.float32),
-                          kx.to(torch.float32)) * scale  # (b, hp, 1, S)
-    if xattn:
-        # encoder positions are all visible; mask only empty slots
-        valid = cache.pos[:, None, None, :] < EMPTY_POS
+        for c in blocks:
+            if slot < c.k.shape[2]:
+                c.k[:, :, slot] = k_new[:, 0].to(c.k.device, c.k.dtype)
+                c.v[:, :, slot] = v_new[:, 0].to(c.v.device, c.v.dtype)
+                c.pos[:, slot] = index
+                break
+            slot -= c.k.shape[2]
+    if isinstance(cache, list):
+        out = _combine_blocks(q, blocks, cfg, index, window, xattn)
     else:
-        valid = cache.pos[:, None, None, :] <= index
-        if window is not None:
-            valid = valid & (cache.pos[:, None, None, :] > index - window)
-    logits = torch.where(valid, logits, _NEG)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bqhd", w, vx.to(torch.float32))
+        out = _attend(q, cache, cfg, index, window, xattn)
     y = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"].to(x.dtype)
     return y, cache
+
+
+def _valid(cache: KVCache, index: int, window, xattn: bool):
+    """(b, 1, 1, S) mask of the cache slots a decode query at `index`
+    reads."""
+    if xattn:
+        # encoder positions are all visible; mask only empty slots
+        return cache.pos[:, None, None, :] < EMPTY_POS
+    valid = cache.pos[:, None, None, :] <= index
+    if window is not None:
+        valid = valid & (cache.pos[:, None, None, :] > index - window)
+    return valid
+
+
+def _logits(q, cache: KVCache, cfg: ModelConfig):
+    """(b, hp, 1, S) f32 scaled logits of q (b, 1, hp, hd) against the
+    cache's keys, on the cache's device."""
+    hmap = kv_head_map(cfg, cache.k.device)
+    kx = cache.k[:, hmap]  # (b, hp, S, hd)
+    scale = 1.0 / (cfg.hd ** 0.5)
+    return torch.einsum("bqhd,bhkd->bhqk", q.to(cache.k.device, torch.float32),
+                        kx.to(torch.float32)) * scale
+
+
+def _attend(q, cache: KVCache, cfg: ModelConfig, index, window, xattn):
+    """Softmax attention of q over one whole cache -> (b, 1, hp, hd) f32."""
+    logits = torch.where(_valid(cache, index, window, xattn),
+                         _logits(q, cache, cfg), _NEG)
+    w = torch.softmax(logits, dim=-1)
+    vx = cache.v[:, kv_head_map(cfg, cache.v.device)]
+    return torch.einsum("bhqk,bhkd->bqhd", w, vx.to(torch.float32))
+
+
+def _combine_blocks(q, blocks, cfg: ModelConfig, index, window, xattn):
+    """Attention of q over seq blocks: each block's max m_b, sum l_b and
+    unnormalized output o_b on its device, then on q's device
+    out = sum_b exp(m_b - m) o_b / sum_b exp(m_b - m) l_b, m = max_b m_b.
+    A block with no visible slot has l_b = 0 and o_b = 0."""
+    parts = []
+    for c in blocks:
+        valid = _valid(c, index, window, xattn)
+        logits = torch.where(valid, _logits(q, c, cfg), _NEG)
+        m = logits.amax(-1, keepdim=True)  # (b, hp, 1, 1)
+        pexp = torch.where(valid, torch.exp(logits - m), 0.0)
+        vx = c.v[:, kv_head_map(cfg, c.v.device)].to(torch.float32)
+        o = torch.einsum("bhqk,bhkd->bhqd", pexp, vx)
+        parts.append(tuple(t.to(q.device) for t in
+                           (m, pexp.sum(-1, keepdim=True), o)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = sum(torch.exp(m - m_all) * o for m, _, o in parts)
+    den = sum(torch.exp(m - m_all) * l for m, l, _ in parts)
+    return (num / den).transpose(1, 2)  # (b, 1, hp, hd)

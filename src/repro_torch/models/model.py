@@ -51,27 +51,60 @@ class Model:
         (`configs.base.spec_tree`)."""
         return spec_tree(self.desc(), rules)
 
-    def _fwd(self, params, batch, mode, caches=None, index=None):
+    def one_row(self, params) -> T.Rows:
+        """`params` (a whole tree on one device) as the `Rows` of one
+        row."""
+        if self.cfg.family == "audio":
+            return T.one_row(params["decoder"], self.cfg, encoder={
+                k: v for k, v in params.items() if k != "decoder"})
+        return T.one_row(params, self.cfg)
+
+    def forward_rows(self, rows: T.Rows, batches: list, mode: str,
+                     caches=None, index=None):
+        """The family's forward over the data rows of `rows`, `batches`
+        one batch per row (on the row's device) -> `T.forward_rows`'
+        (logits, hidden, caches, aux), all but aux one entry per row. The
+        audio family encodes each row's frames first (not in decode: the
+        cross k/v live in the caches), at `whisper_forward`'s kv_block."""
         cfg = self.cfg
-        if cfg.family == "audio":
-            return W.whisper_forward(
-                params, cfg, batch["tokens"], batch.get("frames"),
-                mode=mode, caches=caches, index=index)
-        return T.forward(params, cfg, batch["tokens"], mode=mode,
-                         caches=caches, index=index,
-                         extra_embeds=batch.get("patch_embeds"),
-                         kv_block=cfg.kv_block)
+        enc = None
+        if cfg.family == "audio" and mode != "decode":
+            enc = [W.encode(p, cfg, b.get("frames"))
+                   for p, b in zip(rows.encoder(), batches)]
+        return T.forward_rows(
+            rows, cfg, [b["tokens"] for b in batches], mode=mode,
+            caches=caches, index=index,
+            extra_embeds=([b["patch_embeds"] for b in batches]
+                          if "patch_embeds" in batches[0] else None),
+            kv_block=1024 if cfg.family == "audio" else cfg.kv_block,
+            enc_out=enc)
+
+    def _fwd(self, params, batch, mode, caches=None, index=None):
+        logits, hidden, caches, aux = self.forward_rows(
+            self.one_row(params), [batch], mode,
+            None if caches is None else [caches], index)
+        return logits[0], hidden[0], None if caches is None else caches[0], \
+            aux
+
+    def loss_rows(self, rows: T.Rows, batches: list):
+        """`loss_fn` over the data rows of `rows` (`batches` one per row,
+        of equal size): the rows' mean cross entropies averaged, on row
+        0's device."""
+        logits, _, _, aux = self.forward_rows(rows, batches, "train")
+        ces = []
+        for lg, b in zip(logits, batches):
+            if self.cfg.family == "vlm":
+                lg = lg[:, b["patch_embeds"].shape[1]:, :]
+            ces.append(L.cross_entropy(lg, b["labels"]).to(aux.device))
+        ce = ces[0] if len(ces) == 1 else torch.stack(ces).mean()
+        return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of `batch` (the text segment only
         for the VLM) plus AUX_COEF times the MoE load-balancing loss summed
         over the MoE blocks -> (loss, {"ce", "aux"}), 0-d f32 tensors;
         differentiate it with torch.autograd."""
-        logits, _, _, aux = self._fwd(params, batch, "train")
-        if self.cfg.family == "vlm":
-            logits = logits[:, batch["patch_embeds"].shape[1]:, :]
-        loss = L.cross_entropy(logits, batch["labels"])
-        return loss + AUX_COEF * aux, {"ce": loss, "aux": aux}
+        return self.loss_rows(self.one_row(params), [batch])
 
     def prefill(self, params, batch):
         """-> (logits at the last position (B, 1, V), stacked caches)."""

@@ -17,6 +17,13 @@ unordered accumulate of the card leaves every slot exact. `route` is the
 routing alone, which `apply_moe` and the parity tests both call: a
 flipped choice or drop changes a token's output by O(1), so routing is
 held for equality, not within a tolerance.
+
+`cfg.shmap_axes` (set by `launch/specs.py::lm_cell` for MoE configs) is
+the reference's `shard_map` MoE: each data shard groups and routes only
+its own tokens, so groups, capacity and drops are per shard, and each
+model shard computes its slice of the expert hidden dim, the partial
+outputs summed in the activation type. The grid runs `apply_moe` on one
+data row's tokens with `model_shards` = the grid's model size.
 """
 
 from __future__ import annotations
@@ -87,10 +94,19 @@ def route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
     return Routing(probs, gate_vals, gate_idx, pos, slot, keep, cap)
 
 
-def apply_moe(p, x, cfg: ModelConfig):
+def apply_moe(p, x, cfg: ModelConfig, model_shards: int = 1):
     """x: (b, s, d) -> (out (b, s, d), aux_loss 0-d f32): the MoE FFN and
     the Switch load-balancing loss E * sum_e(frac_top1_e * mean_prob_e),
-    both over every row of every group, padding rows included."""
+    both over every row of every group, padding rows included.
+
+    With `cfg.shmap_axes` set, x is one data shard's tokens (the reference
+    runs the block under `shard_map`): they are grouped and routed alone,
+    and each of `model_shards` model shards computes its slice of the
+    expert hidden dim (w1 / w3 columns, w2 rows) and combines it; the
+    partial outputs are summed over the model shards in the activation
+    type, in shard order. Without it `model_shards` must be 1."""
+    if model_shards > 1 and not cfg.shmap_axes:
+        raise ValueError("model_shards > 1 needs cfg.shmap_axes")
     b, s, d = x.shape
     e, topk = cfg.num_experts, cfg.experts_per_token
     n_tok = b * s
@@ -115,18 +131,28 @@ def apply_moe(p, x, cfg: ModelConfig):
     # experts batched: (e, g * cap, d) @ (e, d, f)
     ein = expert_in.reshape(n_grp, e, cap, d).transpose(0, 1).reshape(
         e, n_grp * cap, d)
-    h = F.silu(ein @ p["w1"].to(cdtype)) * (ein @ p["w3"].to(cdtype))
-    eout = (h @ p["w2"].to(cdtype)).reshape(e, n_grp, cap, d).transpose(
-        0, 1).reshape(n_grp, e * cap, d)
-
-    # gather-combine
-    y = eout[gidx, r.slot]  # (g, sk, d)
     w = r.gate_vals.reshape(n_grp, gs * topk).to(cdtype) * keep
-    y = (y * w[..., None]).reshape(n_grp, gs, topk, d).sum(2)
-    out = y.reshape(n_grp * gs, d)[:n_tok].reshape(b, s, d)
+    f = p["w1"].shape[-1]
+    if f % model_shards:
+        raise ValueError(f"the expert hidden dim {f} does not split over "
+                         f"{model_shards} model shards")
+    fs = f // model_shards
+    out = None
+    for j in range(model_shards):
+        cols = slice(j * fs, (j + 1) * fs)
+        h = F.silu(ein @ p["w1"][..., cols].to(cdtype)) * (
+            ein @ p["w3"][..., cols].to(cdtype))
+        eout = (h @ p["w2"][:, cols].to(cdtype)).reshape(
+            e, n_grp, cap, d).transpose(0, 1).reshape(n_grp, e * cap, d)
+        # gather-combine
+        y = eout[gidx, r.slot]  # (g, sk, d)
+        y = (y * w[..., None]).reshape(n_grp, gs, topk, d).sum(2)
+        part = y.reshape(n_grp * gs, d)[:n_tok].reshape(b, s, d).to(x.dtype)
+        out = part if out is None else out + part
 
     top1 = F.one_hot(r.gate_idx[..., 0], e).to(torch.float32)
     frac = torch.mean(top1, dim=(0, 1))
     mean_prob = torch.mean(r.probs, dim=(0, 1))
     aux = e * torch.sum(frac * mean_prob)
-    return out.to(x.dtype), aux
+    return out, aux
+

@@ -20,6 +20,13 @@ In train mode with grad on, each group is recomputed in the backward pass
 function in `jax.checkpoint`), and the stacked weights are split once per
 forward (`torch.unbind`): slicing them group by group would give every
 group a full-size zero gradient of the stacked tensors to add.
+
+`forward` is `forward_rows` over one row. On a device grid
+(`distributed/grid_step.py`) `forward_rows` runs one forward over the
+data rows, each on its own device, all rows of a block before the next,
+so that an MoE block can route the tokens of every row as one batch.
+`cfg.fsdp_constrain` casts each group's >= 2-D f32 weights to
+`cfg.dtype` at use, as the reference does (ROADMAP.md queue C 1.10).
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
-__all__ = ["layer_schedule", "model_desc", "forward", "init_caches",
-           "pooled_embeddings"]
+__all__ = ["layer_schedule", "model_desc", "forward", "forward_rows",
+           "Rows", "one_row", "init_caches", "pooled_embeddings"]
 
 # the learned decoder positions of the audio family: sized for the
 # reference's stress shapes (real Whisper caps at 448 positions)
@@ -138,9 +145,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     h in bf16 whatever the activation type); a cross sub-block holds
     "xkv", the encoder's k/v (zeros, `enc_len` of them) at positions
     arange(enc_len). max_len is the KV length (cfg.sliding_window caps it
-    for SWA archs)."""
+    for SWA archs). `device="meta"` describes them without storage."""
     dtype = dtype or cfg.dtype
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     g, kvh, hd = cfg.num_groups, cfg.num_kv_heads, cfg.hd
     caches = []
     for e in layer_schedule(cfg):
@@ -171,10 +179,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
-def _apply_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
+def _mixer_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
                  index, positions, kv_block, enc_out):
-    """One block. Returns (x, new_cache, aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """One block up to its FFN: the mixer and the cross sub-block.
+    Returns (x, new_cache)."""
     h = L.apply_norm(bp["ln1"], x, cfg)
     new_cache: dict[str, Any] = {}
     if e.mixer in ("attn", "swa"):
@@ -213,14 +221,7 @@ def _apply_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
             y = A.attention(bp["xattn"], hx, cfg, positions=positions,
                             xattn_kv=enc_out, use_rope=False)
         x = x + y
-    if e.ffn:
-        h2 = L.apply_norm(bp["ln2"], x, cfg)
-        if e.ffn == "moe":
-            y2, aux = MOE.apply_moe(bp["ffn"], h2, cfg)
-        else:
-            y2 = L.apply_mlp(bp["ffn"], h2, cfg)
-        x = x + y2
-    return x, new_cache, aux
+    return x, new_cache
 
 
 def _unstack(tree, n: int) -> list:
@@ -258,6 +259,50 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(f"remat {cfg.remat!r}: none | block | full | dots")
 
 
+class Rows(NamedTuple):
+    """How `forward_rows` runs one forward over R data rows, each on its
+    own device (the grid executor's view, `distributed/grid_step.py`; a
+    single device is one row).
+
+    params(None) -> per row, the top-level params (all but "groups") on
+        the row's device;
+    params(gi) -> per row, group gi's params on the row's device, fetched
+        inside the group's (recomputed) function, so a gather there is
+        redone in the backward pass rather than kept;
+    moe(ps, hs) -> (ys, aux): an MoE block's FFN over the rows' inputs
+        hs, ps its params per row; aux one 0-d f32 tensor on row 0's
+        device;
+    encoder() -> per row, the audio encoder's params on the row's device
+        (None for the other families; read by `Model.forward_rows`)."""
+    params: Any
+    moe: Any
+    encoder: Any = None
+
+
+def one_row(params, cfg: ModelConfig, encoder=None) -> Rows:
+    """A decoder's `params` (and an audio model's `encoder` params), whole
+    tensors on one device, as the `Rows` of one row."""
+    groups = _unstack(params["groups"], cfg.num_groups)
+    top = {k: v for k, v in params.items() if k != "groups"}
+
+    def moe(ps, hs):
+        y, aux = MOE.apply_moe(ps[0], hs[0], cfg)
+        return [y], aux
+
+    return Rows(lambda gi: [top if gi is None else groups[gi]], moe,
+                None if encoder is None else lambda: [encoder])
+
+
+def _fsdp_use(cfg: ModelConfig):
+    """The reference's weight use under `fsdp_constrain`: a >= 2-D f32
+    weight cast to `cfg.dtype` (before its FSDP gather there)."""
+    def use(w):
+        if w.ndim >= 2 and w.dtype == torch.float32:
+            return w.to(cfg.dtype)
+        return w
+    return use
+
+
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
             caches=None, index=None, extra_embeds=None, kv_block=1024,
             positions=None, enc_out=None):
@@ -272,67 +317,113 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     extra_embeds: (b, p, d_model) continuous embeddings prepended to the
     token embeddings (VLM). enc_out: (b, s_enc, d_model) encoder output
     for the cross-attention sub-blocks (audio; train and prefill).
+    `cfg.fsdp_constrain` casts each group's >= 2-D f32 weights to
+    `cfg.dtype` at use, as the reference does.
     Returns (logits, hidden, caches, aux_loss): aux_loss is the MoE
     load-balancing loss summed over the MoE blocks (0 without experts).
     """
+    one = lambda v: None if v is None else [v]  # noqa: E731
+    logits, hidden, caches, aux = forward_rows(
+        one_row(params, cfg), cfg, [tokens], mode=mode, caches=one(caches),
+        index=index, extra_embeds=one(extra_embeds), kv_block=kv_block,
+        positions=one(positions), enc_out=one(enc_out))
+    return logits[0], hidden[0], None if caches is None else caches[0], aux
+
+
+def forward_rows(rows: Rows, cfg: ModelConfig, tokens, *, mode="train",
+                 caches=None, index=None, extra_embeds=None, kv_block=1024,
+                 positions=None, enc_out=None):
+    """`forward` over the data rows of `rows`, all rows of a block before
+    the next block: every argument of `forward` that is per batch is here
+    a list, one entry per row (on the row's device), and so is every
+    result but aux. Each row's block runs on its own, except an MoE
+    block's FFN, which `rows.moe` runs over all the rows' inputs."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if mode == "decode" and caches is None:
         raise ValueError("decode needs caches")
     sched = layer_schedule(cfg)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    if cfg.family == "audio":
-        b, s = x.shape[:2]
-        if positions is not None:
-            at = positions
-        elif mode == "decode":
-            at = torch.full((b, s), int(index), dtype=torch.int64,
-                            device=x.device)
-        else:
-            at = torch.arange(s, device=x.device).expand(b, s)
-        x = x + params["pos_emb"][at].to(x.dtype)
+    n_rows = len(tokens)
+    per_row = lambda v: [None] * n_rows if v is None else v  # noqa: E731
+    positions, enc_out = per_row(positions), per_row(enc_out)
+    top = rows.params(None)
+    xs = []
+    for r in range(n_rows):
+        x = L.embed_tokens(top[r]["embed"], tokens[r], cfg)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds[r].to(x.dtype), x], dim=1)
+        if cfg.family == "audio":
+            b, s = x.shape[:2]
+            if positions[r] is not None:
+                at = positions[r]
+            elif mode == "decode":
+                at = torch.full((b, s), int(index), dtype=torch.int64,
+                                device=x.device)
+            else:
+                at = torch.arange(s, device=x.device).expand(b, s)
+            x = x + top[r]["pos_emb"][at].to(x.dtype)
+        xs.append(x)
     have_cache = caches is not None
+    use = _fsdp_use(cfg) if cfg.fsdp_constrain else None
 
-    def group_fn(x, gparams, gcaches):
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        new_caches = []
+    def group_fn(xs, gi, gcaches):
+        xs = list(xs)
+        gps = rows.params(gi)
+        if use is not None:
+            gps = [tree_map(use, gp) for gp in gps]
+        aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+        new_caches = [[] for _ in range(n_rows)]
         for i, e in enumerate(sched):
-            x, nc, a = _apply_block(
-                gparams["blocks"][i], x, cfg, e, mode,
-                gcaches[i] if have_cache else None, index, positions,
-                kv_block, enc_out)
-            new_caches.append(nc)
-            aux = aux + a
-        return x, new_caches, aux
+            for r in range(n_rows):
+                xs[r], nc = _mixer_block(
+                    gps[r]["blocks"][i], xs[r], cfg, e, mode,
+                    gcaches[r][i] if have_cache else None, index,
+                    positions[r], kv_block, enc_out[r])
+                new_caches[r].append(nc)
+            if not e.ffn:
+                continue
+            bps = [gp["blocks"][i] for gp in gps]
+            hs = [L.apply_norm(bp["ln2"], x, cfg) for bp, x in zip(bps, xs)]
+            if e.ffn == "moe":
+                ys, a = rows.moe([bp["ffn"] for bp in bps], hs)
+                aux = aux + a
+            else:
+                ys = [L.apply_mlp(bp["ffn"], h, cfg) for bp, h in zip(bps,
+                                                                       hs)]
+            xs = [x + y for x, y in zip(xs, ys)]
+        return xs, new_caches, aux
 
     if mode == "train" and cfg.remat != "none" and torch.is_grad_enabled():
         group_fn = _remat(group_fn, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     per_group = []
-    for gi, gparams in enumerate(_unstack(params["groups"],
-                                          cfg.num_groups)):
-        gcaches = tree_map(lambda c: c[gi], caches) if have_cache else None
-        x, new_caches, a = group_fn(x, gparams, gcaches)
+    for gi in range(cfg.num_groups):
+        gcaches = ([tree_map(lambda c: c[gi], cr) for cr in caches]
+                   if have_cache else None)
+        xs, new_caches, a = group_fn(xs, gi, gcaches)
         aux = aux + a
         per_group.append(new_caches)
 
     if mode == "decode":
         # KV caches were written in place through the views; SSM states
         # come back new and go into their pool leaves
-        for i, e in enumerate(sched):
-            if "ssm" in caches[i]:
-                caches[i]["ssm"] = _write_states(
-                    caches[i]["ssm"], [pg[i]["ssm"] for pg in per_group])
+        for r in range(n_rows):
+            for i, e in enumerate(sched):
+                if "ssm" in caches[r][i]:
+                    caches[r][i]["ssm"] = _write_states(
+                        caches[r][i]["ssm"],
+                        [pg[r][i]["ssm"] for pg in per_group])
         out_caches = caches
     elif mode == "prefill":
-        out_caches = tree_map(lambda *cs: torch.stack(cs), *per_group)
+        out_caches = [tree_map(lambda *cs: torch.stack(cs),
+                               *[pg[r] for pg in per_group])
+                      for r in range(n_rows)]
     else:
         out_caches = None
-    x = L.apply_norm(params["ln_f"], x, cfg)
-    logits = L.logits_from_hidden(params["embed"], x, cfg)
-    return logits, x, out_caches, aux
+    xs = [L.apply_norm(top[r]["ln_f"], x, cfg) for r, x in enumerate(xs)]
+    logits = [L.logits_from_hidden(top[r]["embed"], x, cfg)
+              for r, x in enumerate(xs)]
+    return logits, xs, out_caches, aux
 
 
 def _write_states(pool, states):

@@ -22,7 +22,8 @@ import torch
 from repro_torch.configs.base import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "AdamState", "adamw_init", "adamw_update",
-           "cosine_schedule", "global_norm", "clip_by_global_norm"]
+           "adamw_step", "cosine_schedule", "global_norm",
+           "clip_by_global_norm"]
 
 
 @dataclass(frozen=True)
@@ -68,7 +69,9 @@ def global_norm(tree) -> torch.Tensor:
     tree order."""
     total = 0
     for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+        part = torch.sum(torch.square(x.to(torch.float32)))
+        total = part if isinstance(total, int) else total + part.to(
+            total.device)
     return torch.sqrt(total)
 
 
@@ -78,7 +81,7 @@ def clip_by_global_norm(tree, max_norm: float):
     g = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
     for x in tree_leaves(tree):
-        x.mul_(scale)   # an f32 product, rounded once to x's type
+        x.mul_(scale.to(x.device))   # an f32 product, rounded once
     return tree, g
 
 
@@ -93,14 +96,12 @@ def adamw_init(params) -> AdamState:
                      count=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def adamw_update(cfg: AdamWConfig, grads, state: AdamState, params):
-    """One AdamW step: clip `grads` (in place) by their global norm, then
-    update every parameter and both moments in place. Returns
-    (params, new_state, {"grad_norm", "lr"}), the metrics 0-d tensors;
-    the new state holds the same moment trees and a new count. No value
-    leaves the device."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    count = state.count + 1
+def adamw_step(cfg: AdamWConfig, count: torch.Tensor, params: list,
+               grads: list, mu: list, nu: list) -> torch.Tensor:
+    """The AdamW update at step `count` (after its increment), in place,
+    of each parameter and its two moments from its (clipped) gradient:
+    lists of tensors, each quadruple on one device (a gradient is moved
+    there). Returns the learning rate, on `count`'s device."""
     lr = cosine_schedule(cfg)(count)
     cf = count.to(torch.float32)
     b1c = 1 - torch.tensor(cfg.b1, dtype=torch.float32,
@@ -108,14 +109,28 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamState, params):
     b2c = 1 - torch.tensor(cfg.b2, dtype=torch.float32,
                            device=cf.device) ** cf
     with torch.no_grad():
-        for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
-                                tree_leaves(state.mu), tree_leaves(state.nu)):
-            g = g.to(torch.float32)
-            mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-            step = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+        for p, g, m, v in zip(params, grads, mu, nu, strict=True):
+            dev = p.device
+            g = g.to(dev, torch.float32)
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            step = (m / b1c.to(dev)) / (torch.sqrt(v / b2c.to(dev)) +
+                                        cfg.eps)
             if p.ndim >= 2:
                 step.add_(cfg.weight_decay * p.to(torch.float32))
-            p.copy_(p.to(torch.float32) - lr * step)
+            p.copy_(p.to(torch.float32) - lr.to(dev) * step)
+    return lr
+
+
+def adamw_update(cfg: AdamWConfig, grads, state: AdamState, params):
+    """One AdamW step: clip `grads` (in place) by their global norm, then
+    update every parameter and both moments in place (`adamw_step`).
+    Returns (params, new_state, {"grad_norm", "lr"}), the metrics 0-d
+    tensors; the new state holds the same moment trees and a new count.
+    No value leaves the device."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    count = state.count + 1
+    lr = adamw_step(cfg, count, tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(state.mu), tree_leaves(state.nu))
     return params, AdamState(state.mu, state.nu, count), {
         "grad_norm": gnorm, "lr": lr}

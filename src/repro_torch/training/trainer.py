@@ -21,10 +21,21 @@ buffers a second attempt could not read.
 Checkpoints hold the reference's leaves under the reference's keys, so a
 run resumes across the two packages in either direction.
 
-The reference lays the step over a ("data", "model") mesh with a sharding
-strategy (`strategy_for`, `rules_for`, `param_spec`): that is the LM half
-of `distributed/sharding.py`, which waits for ROADMAP.md queue A 3.8. The
-port's `TrainerConfig` has no `strategy` until then.
+`Trainer(cfg, tcfg, mesh=grid)` lays the step over a ("data", "model")
+`DeviceGrid`, as the reference lays it over a mesh: the strategy is
+`tcfg.strategy` or `strategy_for(cfg)`, and params and both AdamW moments
+are stored as `Sharded` blocks of `tree_named(grid, param_spec(
+rules_for(...)))`. Each step splits the batch over the data rows when it
+divides them, else runs it whole on data row 0 (the reference's
+`_maybe_replicate_batch`); the weights are gathered onto each row's
+device at use (each row reading its own replica of what is replicated
+over "data"), the gradients of each index range are summed over its
+replicas, and AdamW updates every block in place
+(`distributed/grid_step.py`). As in the reference, the config is not
+changed: no `fsdp_constrain` cast, and no `shmap_axes`, so an MoE block
+routes the tokens of all rows as one batch and its groups, drops and aux
+loss are the single-device run's.
+`maybe_restore` restores onto the grid's placements.
 """
 
 from __future__ import annotations
@@ -36,14 +47,17 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import ModelConfig, tree_leaves, tree_unflatten
+from repro_torch.configs.base import (
+    ModelConfig, tree_leaves, tree_map, tree_unflatten)
 from repro_torch.data.pipeline import ShardedPrefetchLoader
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.fault_tolerance import (
     HealthLog, StepGuard, block_until_ready)
+from repro_torch.distributed.grid_step import GridRun, update, zero_moments
 from repro_torch.models import build_model
 from repro_torch.training.optimizer import (
-    AdamWConfig, adamw_init, adamw_update)
+    AdamState, AdamWConfig, adamw_init, adamw_update)
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -56,18 +70,27 @@ class TrainerConfig:
     ckpt_every: int = 50
     ckpt_dir: Optional[str] = None
     step_deadline_s: float = float("inf")
+    strategy: Optional[str] = None   # "tp_dp" | "fsdp"; None: strategy_for
     opt: AdamWConfig = field(default_factory=AdamWConfig)
 
 
 class Trainer:
-    """One model trained on one device (see the module docstring)."""
+    """One model trained on one device, or on a `DeviceGrid` (`mesh`; see
+    the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 device="cuda"):
+                 device="cuda", *, mesh: Optional[SH.DeviceGrid] = None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.device(0, 0))
         self.model = build_model(cfg)
+        if mesh is not None:
+            strategy = tcfg.strategy or SH.strategy_for(cfg)
+            self.rules = SH.rules_for(cfg, strategy, mesh)
+            self.pspec = self.model.param_spec(self.rules)
+            self.psharding = SH.tree_named(mesh, self.pspec)
         self.ckpt = Checkpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
         self.health = HealthLog()
         self.guard = StepGuard(deadline_s=tcfg.step_deadline_s,
@@ -84,15 +107,22 @@ class Trainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         params = self.model.init(gen, device=self.device)
-        return params, adamw_init(params)
+        if self.mesh is None:
+            return params, adamw_init(params)
+        params = tree_map(lambda pl, p: pl.place(p), self.psharding, params)
+        return params, zero_moments(params, self.device)
 
     def maybe_restore(self, params, opt_state):
         """(params, opt_state, start_step): the newest verified checkpoint
         of `ckpt_dir` (either package's), else the arguments and 0."""
         start = 0
         if self.ckpt and self.ckpt.latest_step() is not None:
+            placements = None if self.mesh is None else (
+                self.psharding, AdamState(self.psharding, self.psharding,
+                                          None))
             (params, opt_state), start = self.ckpt.restore(
-                (params, opt_state), devices=self.device)
+                (params, opt_state), devices=self.device,
+                placements=placements)
             print(f"[restore] resumed from step {start}")
         return params, opt_state, start
 
@@ -121,7 +151,11 @@ class Trainer:
 
     def _gradients(self, params, batch):
         """(loss, metrics, grads) of one batch, the parameters left as they
-        were: the part of a step that is safe to run again."""
+        were: the part of a step that is safe to run again. On a grid the
+        grads are one per index range (`grid_step.range_grads`)."""
+        if self.mesh is not None:
+            return GridRun(self.model, self.mesh, params).grads(
+                batch, self.tcfg.grad_accum)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -137,6 +171,9 @@ class Trainer:
 
     def _apply(self, params, opt_state, grads):
         """AdamW in place -> (params, opt_state, {"grad_norm", "lr"})."""
+        if self.mesh is not None:
+            count, om = update(self.tcfg.opt, grads, opt_state, params)
+            return params, AdamState(opt_state.mu, opt_state.nu, count), om
         return adamw_update(self.tcfg.opt, tree_unflatten(params, grads),
                             opt_state, params)
 

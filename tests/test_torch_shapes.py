@@ -62,11 +62,11 @@ def test_new_config_fields_default_as_the_jax_package(jx):
     ref = {f.name: f.default for f in dataclasses.fields(
         jx.base.ModelConfig)}
     for name in ("encoder_layers", "encoder_seq", "num_patches",
-                 "max_seq_len"):
+                 "max_seq_len", "scan_unroll", "fsdp_constrain",
+                 "shmap_axes"):
         assert port[name] == ref[name], name
-    # the fields the port leaves to the sharding slice (queue A 3.8)
-    assert set(ref) - set(port) == {"scan_unroll", "fsdp_constrain",
-                                    "shmap_axes"}
+    # every field of the reference, the lowering fields included
+    assert set(ref) == set(port)
 
 
 def test_rule_tables_match_the_jax_package(jx):

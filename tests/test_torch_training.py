@@ -21,8 +21,10 @@ The reference `Trainer` fails under jax 0.9 on its explicit mesh axes
 import faulthandler
 import functools
 import os
+import pickle
 import subprocess
 import sys
+import textwrap
 import time
 import types
 from pathlib import Path
@@ -49,11 +51,14 @@ except ImportError:  # a card's host without JAX: only the cuda tests run
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import registry
-from repro_torch.configs.base import ModelConfig, tree_leaves, tree_map
+from repro_torch.configs.base import (
+    ModelConfig, tree_leaves, tree_map, tree_unflatten)
 from repro_torch.core.analysis import k_invariance_correlation
 from repro_torch.data import make_token_batch
 from repro_torch.data.pipeline import ShardedPrefetchLoader, host_slice
-from repro_torch.distributed.sharding import ShardGroup
+from repro_torch.distributed.grid_step import zero_moments
+from repro_torch.distributed.sharding import (
+    DeviceGrid, ShardGroup, Sharded, is_spec, rules_for)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.train import reduced_config
@@ -584,6 +589,244 @@ def test_k_invariance_correlation_matches_jax():
 
 
 # ---------------------------------------------------------- on the card
+# ------------------------------------------------- the Trainer on a grid
+# the tiny MoE of tests/test_distributed.py at capacity factor 0.5 (tokens
+# drop) and a group size that the batch's rows do not align with
+MOE_SMALL = ModelConfig(**dict(_SMALL, family="moe"), num_experts=4,
+                        capacity_factor=0.5, moe_group_size=48,
+                        dtype=torch.float32)
+
+
+def _grid(shape, device="cpu"):
+    return DeviceGrid((device,) * (shape[0] * shape[1]), shape)
+
+
+def _run(cfg, tmp_path, batch_fn=_batch_fn, strategy=None, **kw):
+    tr = Trainer(cfg, _tcfg(tmp_path, steps=3, strategy=strategy), **kw)
+    params, opt_state = tr.init_state(0)
+    return tr, tr.fit(params, opt_state, batch_fn)
+
+
+@pytest.mark.parametrize("strategy", ["tp_dp", "fsdp"])
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4), (8, 1), (1, 1)])
+@pytest.mark.parametrize("cfg", [SMALL, MOE_SMALL], ids=["dense", "moe"])
+def test_grid_trainer_matches_the_single_device_trainer(cfg, shape,
+                                                        strategy, tmp_path):
+    """`Trainer(mesh=grid)` stores params and moments as blocks of
+    tree_named(param_spec(rules_for(strategy))) and splits the batch of 4
+    over the data rows that divide it (else runs it whole): 3 steps'
+    losses and the first grad norm within 1e-5 (relative) of the single-device
+    Trainer's, the MoE with drops included (its groups and aux loss those
+    of the whole batch, as GSPMD keeps them); the later grad norms and the
+    final params within 1e-4 (AdamW amplifies last-bit differences of the
+    block-wise sums, as above)."""
+    _, (p1, _, h1) = _run(cfg, tmp_path / "one", device="cpu")
+    tr, (p2, o2, h2) = _run(cfg, tmp_path / "grid", mesh=_grid(shape),
+                            strategy=strategy)
+    np.testing.assert_allclose([h["loss"] for h in h2],
+                               [h["loss"] for h in h1], rtol=1e-5)
+    np.testing.assert_allclose(h2[0]["grad_norm"], h1[0]["grad_norm"],
+                               rtol=1e-5)
+    np.testing.assert_allclose([h["grad_norm"] for h in h2],
+                               [h["grad_norm"] for h in h1], rtol=1e-4)
+    assert all(isinstance(s, Sharded) for s in tree_leaves(p2))
+    want = tr.model.param_spec(rules_for(cfg, strategy, _grid(shape)))
+    assert [s.placement.spec for s in tree_leaves(p2)] == \
+        tree_leaves(want, is_leaf=is_spec)
+    for a, b in zip(tree_leaves(p2), tree_leaves(p1)):
+        np.testing.assert_allclose(a.gather().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    assert int(o2.count) == 3
+
+
+# the reference's Trainer on Auto meshes of 8 host devices (its Explicit
+# default fails under jax 0.9, ROADMAP.md queue C 1.3), in one subprocess:
+# JAX fixes its device count at first use
+_JAX_TRAINERS = r"""
+import pickle, sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import AxisType, Mesh
+from repro.configs.base import ModelConfig
+from repro.models import build_model
+from repro.training.optimizer import AdamWConfig, adamw_init
+from repro.training.trainer import Trainer, TrainerConfig
+
+configs, runs, batches, path = pickle.loads(bytes.fromhex(sys.argv[1]))
+leaves = lambda t: [np.asarray(x) for x in jax.tree.leaves(t)]
+out = {}
+for name, kw in configs.items():
+    cfg = ModelConfig(**kw, dtype=jnp.float32)
+    host = jax.tree.map(np.asarray, build_model(cfg).init(jax.random.key(0)))
+    out[name, "params"] = leaves(host)
+    for shape, strategy, rows in runs[name]:
+        mesh = Mesh(np.asarray(jax.devices()).reshape(shape),
+                    ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+        tr = Trainer(cfg, TrainerConfig(
+            steps=3, log_every=1, strategy=strategy, opt=AdamWConfig(
+                lr=1e-3, warmup_steps=2, total_steps=6)), mesh)
+        params, _, hist = tr.fit(
+            jax.device_put(host, tr.psharding),
+            jax.device_put(adamw_init(host), tr._osharding),
+            lambda s: {k: v[:rows] for k, v in batches[s].items()})
+        out[name, shape, strategy, rows] = (
+            leaves(params), [(h["loss"], h["grad_norm"]) for h in hist])
+with open(path, "wb") as f:
+    pickle.dump(out, f)
+"""
+JAX_GRIDS = [(4, 2), (2, 4), (8, 1)]
+_MOE_KW = dict(_SMALL, family="moe", num_experts=4, capacity_factor=0.5,
+               moe_group_size=48)
+
+
+@pytest.fixture(scope="module")
+def jax_trainers(tmp_path_factory):
+    """The reference Trainer's 3 steps of `_batch_fn` from JAX's init
+    (key 0): for the dense and MoE configs on every grid of JAX_GRIDS
+    under both strategies, and for the MoE on (4, 2) with a batch of 3
+    rows (replicated, `_maybe_replicate_batch`)."""
+    path = tmp_path_factory.mktemp("jax_trainers") / "out.pkl"
+    runs = [(shape, strategy, 4) for shape in JAX_GRIDS
+            for strategy in ("tp_dp", "fsdp")]
+    arg = pickle.dumps((
+        {"dense": _SMALL, "moe": _MOE_KW},
+        {"dense": runs, "moe": runs + [((4, 2), None, 3)]},
+        [_batch_fn(s) for s in range(3)], str(path))).hex()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    p = subprocess.run([sys.executable, "-c", textwrap.dedent(_JAX_TRAINERS),
+                        arg], env=env, cwd=REPO, capture_output=True,
+                       timeout=600)
+    assert p.returncode == 0, p.stderr.decode()[-4000:]
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _own_grid(shape):
+    """A grid whose cells name distinct (CPU) devices: a block replicated
+    over "data" is one tensor per data row, read by that row."""
+    n = shape[0] * shape[1]
+    return DeviceGrid(tuple(torch.device("cpu", i) for i in range(n)),
+                      shape)
+
+
+def _run_from(cfg, leaves, tmp_path, batch_fn=_batch_fn, strategy=None,
+              mesh=None):
+    """3 Trainer steps from JAX's params `leaves`, on `mesh` or on the
+    CPU -> (params, history)."""
+    tr = Trainer(cfg, _tcfg(tmp_path, steps=3, strategy=strategy),
+                 **({"device": "cpu"} if mesh is None else {"mesh": mesh}))
+    like = tr.model.init(torch.Generator().manual_seed(0), device="cpu")
+    params = tree_unflatten(like, [torch.from_numpy(a.copy())
+                                   for a in leaves])
+    if mesh is None:
+        opt_state = topt.adamw_init(params)
+    else:
+        params = tree_map(lambda pl, p: pl.place(p), tr.psharding, params)
+        opt_state = zero_moments(params, tr.device)
+    params, _, hist = tr.fit(params, opt_state, batch_fn)
+    return params, hist
+
+
+def _hold_trainer(params, hist, want):
+    """3 steps' losses and the first grad norm within 1e-5 (relative), the
+    later grad norms and every final param leaf within 1e-4 (AdamW
+    amplifies last-bit differences of the gradients' sums, as above)."""
+    want_p, want_h = want
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h[0] for h in want_h], rtol=1e-5)
+    np.testing.assert_allclose(hist[0]["grad_norm"], want_h[0][1],
+                               rtol=1e-5)
+    np.testing.assert_allclose([h["grad_norm"] for h in hist],
+                               [h[1] for h in want_h], rtol=1e-4)
+    for a, b in zip(tree_leaves(params), want_p, strict=True):
+        a = a.gather() if isinstance(a, Sharded) else a
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-4 * float(np.abs(b).max()))
+
+
+@pytest.mark.parametrize("devices", ["shared", "own"])
+@pytest.mark.parametrize("strategy", ["tp_dp", "fsdp"])
+@pytest.mark.parametrize("shape", JAX_GRIDS)
+@pytest.mark.parametrize("cfg", [SMALL, MOE_SMALL], ids=["dense", "moe"])
+def test_grid_trainer_matches_the_reference_trainer(
+        jax_trainers, cfg, shape, strategy, devices, tmp_path):
+    """`Trainer(mesh=grid)` against the reference's `Trainer(cfg, tcfg,
+    mesh)` on the same mesh shape, strategy, params and batches (`_hold_
+    trainer`), the MoE with drops included: its groups and aux loss those
+    of the whole batch, as GSPMD keeps them. On a grid of distinct
+    devices every replica of a range is its own block, updated alike."""
+    name = "moe" if cfg.num_experts else "dense"
+    grid = _grid(shape) if devices == "shared" else _own_grid(shape)
+    params, hist = _run_from(cfg, jax_trainers[name, "params"], tmp_path,
+                             strategy=strategy, mesh=grid)
+    _hold_trainer(params, hist, jax_trainers[name, shape, strategy, 4])
+    for s in tree_leaves(params):
+        for held in s.replicas():
+            assert all(torch.equal(b, held[0]) for b in held)
+
+
+def test_grid_trainer_replicates_a_batch_that_does_not_divide(
+        jax_trainers, tmp_path):
+    """A batch of 3 rows on a (4, 2) grid runs whole on data row 0 (the
+    reference's _maybe_replicate_batch): the reference Trainer's run on
+    the same mesh, and the single device's losses."""
+    fn = lambda s: {k: v[:3] for k, v in _batch_fn(s).items()}  # noqa
+    leaves = jax_trainers["moe", "params"]
+    _, h1 = _run_from(MOE_SMALL, leaves, tmp_path / "one", batch_fn=fn)
+    params, h2 = _run_from(MOE_SMALL, leaves, tmp_path / "grid",
+                           batch_fn=fn, mesh=_grid((4, 2)))
+    _hold_trainer(params, h2, jax_trainers["moe", (4, 2), None, 3])
+    np.testing.assert_allclose([h["loss"] for h in h2],
+                               [h["loss"] for h in h1], rtol=1e-5)
+
+
+def test_grid_trainer_restores_across_grid_shapes_and_packages(small,
+                                                               tmp_path):
+    """A checkpoint written by the (2, 2) Trainer (fsdp) holds the
+    reference's leaves: it restores onto (1, 1) and (4, 1) grids bit for
+    bit, in JAX's Checkpointer bit for bit, and a JAX-written checkpoint
+    restores onto a (2, 4) grid at its step."""
+    tr, (params, opt_state, _) = _run(SMALL, tmp_path / "run",
+                                      mesh=_grid((2, 2)), strategy="fsdp")
+    whole = [s.gather() if isinstance(s, Sharded) else s
+             for s in tree_leaves((params, opt_state))]
+    for shape in ((1, 1), (4, 1)):
+        tr2 = Trainer(SMALL, _tcfg(tmp_path / "run", strategy="fsdp"),
+                      mesh=_grid(shape))
+        p2, o2, start = tr2.maybe_restore(*tr2.init_state(1))
+        assert start == 3
+        got = tree_leaves((p2, o2))
+        assert all(isinstance(s, Sharded) and s.placement.grid.shape ==
+                   shape for s in got[:-1])
+        for a, b in zip(got, whole):
+            a = a.gather() if isinstance(a, Sharded) else a
+            assert torch.equal(a, b)
+    jstate = jopt.adamw_init(small.jparams)
+    back, step = JCheckpointer(tmp_path / "run").restore(
+        (small.jparams, jstate))
+    assert step == 3
+    for a, b in zip(jax.tree.leaves(back), whole):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    jparams, jstate, _ = _jax_loop(jopt.AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=6), small.jparams, 2)
+    JCheckpointer(tmp_path / "jax").save(2, (jparams, jstate))
+    tr3 = Trainer(SMALL, _tcfg(tmp_path / "jax"), mesh=_grid((2, 4)))
+    p3, o3, start = tr3.maybe_restore(*tr3.init_state(5))
+    assert start == 2
+    for a, b in zip(tree_leaves((p3, o3)), jax.tree.leaves((jparams,
+                                                             jstate))):
+        a = a.gather() if isinstance(a, Sharded) else a
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_grid_trainer_and_lm_cell_need_a_card_unless_the_grid_is_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: a cuda grid is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _grid((2, 2), "cuda")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -700,3 +943,64 @@ def test_cuda_trainer_steps_and_restart(cuda, tmp_path):
     assert start == 4
     for a, b in zip(tree_leaves((p2, o2)), tree_leaves((params, opt_state))):
         assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_lm_cell_train_step_matches_the_cpu(cuda):
+    """lm_cell's train step (fsdp, so the shmap MoE) on a (2, 2) grid of
+    the card against the same cell on a (2, 2) grid of the CPU, tiny MoE
+    with drops, f32, TF32 off: the loss and every updated leaf within 1e-4
+    of max."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch.specs import lm_cell
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = build_model(MOE_SMALL).init(torch.Generator().manual_seed(0),
+                                         device="cpu")
+    batch = {k: torch.from_numpy(v).long() for k, v in _tokens(3, b=8).items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        grid = _grid((2, 2), dev)
+        step, _, in_sh, _ = lm_cell(MOE_SMALL, ShapeSpec("t", 16, 8, "train"),
+                                    grid, strategy="fsdp")
+        p = tree_map(torch.clone, params)
+        out[str(dev)[:4]] = step(*place_tree(grid, in_sh, (
+            p, topt.adamw_init(p), batch)))
+    np.testing.assert_allclose(float(out["cuda"][2]["loss"]),
+                               float(out["cpu"][2]["loss"]), rtol=1e-4)
+    for a, b in zip(tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0])):
+        b = b.gather()
+        torch.testing.assert_close(a.gather().cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_combines_seq_blocks_as_one_cache(cuda):
+    """decode_attention over a KV cache split into 4 seq blocks on the
+    card: the new k/v land in the block holding the slot, and the
+    combined output equals attention over the whole cache within 1e-5 of
+    max, at every index up to 63 (empty blocks included)."""
+    from repro_torch.models.attention import KVCache, decode_attention
+
+    cfg = reduced_config(registry.get_config("qwen3-1.7b")).replace(
+        num_layers=1)
+    model = build_model(cfg)
+    p = tree_map(lambda t: t[0].to(cuda), model.init(
+        torch.Generator().manual_seed(0), device="cpu")["groups"][
+            "blocks"][0]["mixer"])
+    whole = model.init_caches(2, 64, device=cuda)[0]["kv"]
+    whole = KVCache(*(t[0] for t in whole))
+    blocks = [KVCache(*(t[..., i * 16:(i + 1) * 16, :] if t.ndim == 4
+                        else t[:, i * 16:(i + 1) * 16]
+                        for t in (c.clone() for c in whole)))
+              for i in range(4)]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for index in range(64):
+        x = torch.randn((2, 1, cfg.d_model), generator=gen, device=cuda)
+        y1, _ = decode_attention(p, x, cfg, whole, index)
+        y2, _ = decode_attention(p, x, cfg, blocks, index)
+        torch.testing.assert_close(y2, y1, rtol=0,
+                                   atol=1e-5 * float(y1.abs().max()))
+    for i, b in enumerate(blocks):
+        assert torch.equal(b.k, whole.k[:, :, i * 16:(i + 1) * 16])
