@@ -226,14 +226,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (NVIDIA), dense, at the 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12          # FMA counted as two operations
-SIMPLE_OPS_PER_S = F32_FLOP_PER_S / 2  # one f32/int instruction per lane
-BF16_FLOP_PER_S = 989e12        # tensor cores, dense
-TF32_FLOP_PER_S = 495e12        # tensor cores, dense
-
-
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -272,19 +264,25 @@ def max_abs(torch, a, rows: int = 4096) -> float:
                for r0 in range(0, a.shape[0], rows))
 
 
+def _costs():
+    """`repro_torch.launch.hlo_analysis`: the one definition of each
+    kernel's cost (operations, bytes) and of the card's data-sheet peaks
+    (H100 SXM, dense, 700 W), which the dry run also counts with. `src`
+    is on the path once `main` has checked the checkout."""
+    from repro_torch.launch import hlo_analysis
+
+    return hlo_analysis
+
+
 def distance_ops_ms(t, n, d, elt) -> float:
     # the cross term's 2 t n d operations at the card's peak for the
     # inputs' type: the tensor cores' TF32 rate for f32, bf16 for bf16
-    peak = BF16_FLOP_PER_S if elt == 2 else TF32_FLOP_PER_S
-    return 1e3 * 2.0 * t * n * d / peak
+    return 1e3 * _costs().distance_cost(t, n, d, elt).ops_s
 
 
 def distance_bound_ms(t, n, d, elt) -> tuple[float, str]:
     # x_test and x_train read once, the (t, n) output written once
-    by_bytes = ((t * d + n * d) * elt + t * n * 4) / HBM_BYTES_PER_S
-    by_ops = distance_ops_ms(t, n, d, elt) / 1e3
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
-        "operations"
+    return _costs().distance_cost(t, n, d, elt).bound_ms()
 
 
 def distance_other_bounds_ms(t, n, d, elt) -> str:
@@ -292,8 +290,9 @@ def distance_other_bounds_ms(t, n, d, elt) -> str:
     TF32 products, 3 x 2 t n d at the TF32 rate), the bytes with the norm
     pre-pass reading both inputs a second time, and the cross term on the
     CUDA cores at the f32 rate (the bound before the tensor-core kernel)."""
-    pre = ((t * d + n * d) * elt * 2 + t * n * 4) / HBM_BYTES_PER_S
-    cores = 2.0 * t * n * d / F32_FLOP_PER_S
+    ha = _costs()
+    pre = ((t * d + n * d) * elt * 2 + t * n * 4) / ha.HBM_BYTES_PER_S
+    cores = 2.0 * t * n * d / ha.F32_FLOP_PER_S
     floor = (f"3xTF32 floor {3 * distance_ops_ms(t, n, d, elt):.4f} ms, "
              if elt == 4 else "")
     return (f"{floor}bytes with the norm pre-pass {1e3 * pre:.4f} ms, f32 "
@@ -301,86 +300,45 @@ def distance_other_bounds_ms(t, n, d, elt) -> str:
 
 
 def fill_bound_ms(t, n) -> tuple[float, str]:
-    # acc read and written once, g and ranks read once. The increment is
-    # symmetric, so the function needs only the n(n+1)/2 pairs on and above
-    # the diagonal -- per test point one compare, one select and one add
-    # each -- and one add per element to mirror them into the other half
-    nbytes = 2 * n * n * 4 + 2 * t * n * 4
-    ops = 3.0 * t * n * (n + 1) / 2 + float(n) * n
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / SIMPLE_OPS_PER_S
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
-        "operations"
+    # acc read and written once, g and ranks read once; the pairs on and
+    # above the diagonal, then the mirror (`hlo_analysis.fill_cost`)
+    return _costs().fill_cost(t, n).bound_ms()
 
 
 def rect_fill_bound_ms(t, nr, n) -> tuple[float, str]:
     # the (nr, n) block read and written once, g and the rank table read
-    # once (the row table is a window of it). Outside the window's columns
-    # every element needs one compare, one select and one add per test
-    # point; the (nr, nr) block on the window's diagonal is symmetric, so
-    # it needs only its nr(nr+1)/2 pairs on and above the diagonal, and one
-    # add for each of the nr(nr-1)/2 below it to mirror them
-    nbytes = 2 * nr * n * 4 + 2 * t * n * 4
-    ops = (3.0 * t * (nr * (n - nr) + nr * (nr + 1) / 2)
-           + float(nr) * (nr - 1) / 2)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / SIMPLE_OPS_PER_S
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
-        "operations"
+    # once; the window's diagonal square mirrored (`rect_fill_cost`)
+    return _costs().rect_fill_cost(t, nr, n).bound_ms()
 
 
 def sti_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
-    # x_train, the batch and the labels read once, acc read and written
-    # once; the fill's operations (see fill_bound_ms) on the CUDA cores and
-    # the distance's 2 t n d on the tensor cores (see distance_ops_ms), two
-    # pipes that could overlap, so the larger of the two. The sort and the
-    # tables are O(t n) and left out (~0.01 ms here).
-    nbytes = 2 * n * n * 4 + (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
-    by_ops = max(distance_ops_ms(t, n, d, 4) / 1e3,
-                 (3.0 * t * n * (n + 1) / 2 + float(n) * n) / SIMPLE_OPS_PER_S)
-    by_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
-        "operations"
+    # the fill's operations on the CUDA cores and the distance's on the
+    # tensor cores, the larger of the two (`sti_megakernel_cost`)
+    return _costs().sti_megakernel_cost(t, n, d).bound_ms()
 
 
 def point_megakernel_bound_ms(t, n, d) -> tuple[float, str]:
     # x_train and the batch read once, vec read and written once; the
-    # distance's 2 t n d on the tensor cores (see distance_ops_ms)
-    nbytes = (n * d + t * d) * 4 + (n + t) * 4 + 2 * n * 4
-    by_ops, by_bytes = distance_ops_ms(t, n, d, 4) / 1e3, \
-        nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
-        "operations"
+    # distance's 2 t n d on the tensor cores (`point_megakernel_cost`)
+    return _costs().point_megakernel_cost(t, n, d).bound_ms()
 
 
 def sort_floor_ms(n, passes) -> float:
-    """The megakernel sort's own traffic over the card's memory rate: per
-    row, two prologue reads of the keys (the minimum and maximum, then the
-    digit histograms: 4 n bytes each), the first pass (keys read, keys and
-    indices written: 12 n) and each later pass (16 n), so 4 n + 16 n P
-    bytes for a row of P passes."""
-    return 1e3 * sum(4 * n + 16 * n * int(p) for p in passes) / \
-        HBM_BYTES_PER_S
+    """The megakernel sort's own traffic over the card's memory rate
+    (`hlo_analysis.sort_floor_ms`)."""
+    return _costs().sort_floor_ms(n, passes)
 
 
 def visible_pairs(s, sk, causal, window) -> int:
     """(query, key) pairs that the causal / window masks leave visible."""
-    total = 0
-    for q in range(s):
-        hi = min(sk - 1, q) if causal else sk - 1
-        lo = max(0, q - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
+    return _costs().visible_pairs(s, sk, causal, window)
 
 
 def flash_bound_ms(b, h, s, sk, d, causal, window, elt) -> tuple[float, str]:
     # q, k, v read once and out written once; two products of 2 d
-    # operations per visible pair, at the tensor cores' rate for bf16
-    # inputs (the data-sheet peak for their type) and the f32 rate for f32
-    nbytes = (2 * s + 2 * sk) * b * h * d * elt
-    ops = 4.0 * b * h * d * visible_pairs(s, sk, causal, window)
-    peak = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else \
-        "operations"
+    # operations per visible pair (`hlo_analysis.flash_cost`)
+    return _costs().flash_cost(b, h, s, sk, d, causal, window,
+                               elt).bound_ms()
 
 
 def bf16_ulp(torch, x):
@@ -3935,6 +3893,146 @@ def lm_grid_phase(torch, np, dev, c, refs) -> dict:
     return out
 
 
+def tooling_phase(torch, np, dev, c, smi: str) -> dict:
+    """[22]: the port's tooling on the card. [22a] `python -m
+    repro_torch.launch.lint --strict --device cuda` in a child (exit 0);
+    [22b] `check_contracts(device="cuda")` here (no finding), then the
+    fill registries and the megakernel contract again, each from zeroed
+    counts, held to the launches C101-C103 and C601 imply; [22c] the dry
+    run of qwen3-1.7b train_4k on the 16 x 16 production grid's meta cells
+    (`launch/dryrun.py`) at full width, 2 of its 28 layers (the whole
+    depth takes ~2 minutes of host time, the CLI's `--arch qwen3-1.7b
+    --shape train_4k`); [22d] [21b]'s mixtral cell (1 layer, fsdp, 2 x
+    1024) run on a (2, 2) meta grid and placed for real on the card's
+    (2, 2) grid: the fullest cell's argument bytes equal its placed
+    blocks' exactly, and one real step's peak is logged beside the meta
+    run's temp bytes (a comparison, not a limit)."""
+    from repro_torch.analysis import contracts as C
+    from repro_torch.configs.base import ShapeSpec, tree_leaves, tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import DeviceGrid, Sharded, tree_named
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.stream_kernels import (
+        accumulator_spec, stream_methods)
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import lm_cell
+
+    out, phase_s = {}, {}
+    t_all = t = time.perf_counter()
+    # [22a] the lint, both layers, strict, in a child
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lint", "--strict",
+         "--device", "cuda", "--json"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if p.returncode != 0:
+        fail(f"[22a] the lint exited {p.returncode}:\n{p.stdout[-3000:]}\n"
+             f"{p.stderr[-3000:]}")
+    out["lint"] = {k: len(v) for k, v in json.loads(p.stdout).items()}
+    phase_s["[22a]"] = time.perf_counter() - t
+    log(f"[22a] python -m repro_torch.launch.lint --strict --device cuda: "
+        f"exit 0, findings {out['lint']} in {phase_s['[22a]']:.1f} s ({smi})")
+
+    # [22b] the contract checker on the card, in this process
+    t = time.perf_counter()
+    c.zero_counts()
+    flash_attention_cuda.launches = 0
+    findings = C.check_contracts(device="cuda")
+    torch.cuda.synchronize()
+    if findings:
+        fail("[22b] check_contracts(device='cuda'): " + "; ".join(
+            f.render() for f in findings[:5]))
+    out["launches"] = dict(c.read_counts(),
+                           flash_attention=flash_attention_cuda.launches)
+    c.zero_counts()
+    C.check_fill_registries(device="cuda")
+    torch.cuda.synchronize()
+    c.expect("[22b] C101-C103", c.read_counts(), sti_fill_acc=2,
+             sti_fill_acc_rect=2)
+    methods = stream_methods()
+    inter = sum(accumulator_spec(m).kind == "interaction" for m in methods)
+    c.zero_counts()
+    C.check_megakernel_contract(device="cuda")
+    torch.cuda.synchronize()
+    c.expect("[22b] C601", c.read_counts(), sti_megakernel=2 * inter,
+             point_megakernel=2 * (len(methods) - inter))
+    phase_s["[22b]"] = time.perf_counter() - t
+    log(f"[22b] check_contracts(device='cuda') = [] at n = 64, tb = 8, d = "
+        f"8, k = 4; launches {out['launches']}; C101-C103 launched the fill "
+        f"2 and the rect fill 2, C601 the megakernels {2 * inter} + "
+        f"{2 * (len(methods) - inter)} and nothing else; "
+        f"{phase_s['[22b]']:.1f} s")
+
+    # [22c] the dry run of one production cell on meta
+    t = time.perf_counter()
+    rec = run_cell("qwen3-1.7b", "train_4k", multi_pod=False,
+                   cfg_overrides={"num_layers": 2}, verbose=False)
+    phase_s["[22c]"] = time.perf_counter() - t
+    out["dryrun_qwen3"] = rec
+    r = rec["roofline"]
+    log(f"[22c] dry run qwen3-1.7b (2 layers) x train_4k x {rec['mesh']} "
+        f"(meta, "
+        f"{rec['compile_s']} s): memory {rec['memory_analysis']}, "
+        f"collectives {rec['collectives']}, per device {r['flops_per_chip']:.4e}"
+        f" FLOP, {r['bytes_per_chip']:.4e} B; roofline compute "
+        f"{r['t_compute']:.4f} s, memory {r['t_memory']:.4f} s, collective "
+        f"{r['t_collective']:.4f} s -> {r['bottleneck']}, useful "
+        f"{r['useful_ratio']:.4f} (H100 data-sheet peaks; {smi})")
+
+    # [22d] the dry run's memory accounting against the card
+    t = time.perf_counter()
+    shape = ShapeSpec("t", 1024, 2, "train")
+    meta = run_cell("mixtral-8x7b", shape, strategy="fsdp",
+                    grid=DeviceGrid((torch.device("meta"),) * 4, (2, 2)),
+                    cfg_overrides={"num_layers": 1}, verbose=False)
+    cfg = get_config("mixtral-8x7b").replace(num_layers=1)
+    grid = grid_of(torch, dev)
+    step, args, in_specs, _ = lm_cell(cfg, shape, grid, strategy="fsdp")
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = tree_map(lambda pl, a: pl.place(torch.zeros(
+        a.shape, dtype=a.dtype, device=dev)), tree_named(grid, in_specs),
+        args)
+    cell = tuple(meta["fullest_cell"])
+    blocks = sum(s.block(*cell).numel() * s.block(*cell).element_size()
+                 for s in tree_leaves(placed, is_leaf=lambda v: isinstance(
+                     v, Sharded)))
+    arg = meta["memory_analysis"]["argument_bytes"]
+    if blocks != arg:
+        fail(f"[22d] the dry run's argument_bytes {arg} of cell {cell} != "
+             f"the {blocks} bytes of its blocks placed on the card")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = step(*placed)[2]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not np.isfinite(float(metrics["loss"])):
+        fail(f"[22d] the step on the placed zeros gave loss "
+             f"{float(metrics['loss'])}")
+    temp = meta["memory_analysis"]["temp_bytes"]
+    out["memory"] = dict(argument_bytes=arg, placed_block_bytes=blocks,
+                         cell=list(cell), temp_bytes=temp,
+                         cells_busy=meta["cells_busy"],
+                         card_step_peak_bytes=peak,
+                         meta=meta["memory_analysis"])
+    del placed, step, args
+    free_phase(torch, "[22d]")
+    phase_s["[22d]"] = time.perf_counter() - t
+    log(f"[22d] mixtral-8x7b 1 layer fsdp 2 x 1024 on (2, 2): argument_bytes "
+        f"of cell {cell} {arg} = its placed blocks' {blocks} (exact); "
+        f"temp_bytes {temp} a cell x {meta['cells_busy']} busy cells = "
+        f"{temp * meta['cells_busy'] / 2**30:.2f} GiB against the card's "
+        f"peak above the placed state over one real step, "
+        f"{peak / 2**30:.2f} GiB (a comparison, not a limit); "
+        f"{phase_s['[22d]']:.1f} s ({smi})")
+    phase_s["[22]"] = time.perf_counter() - t_all
+    if phase_s["[22]"] > 60:
+        fail(f"[22] took {phase_s['[22]']:.1f} s, more than its 60 s")
+    out["phase_s"] = phase_s
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4072,7 +4170,8 @@ def main() -> None:
     log(f"[2] distance ({tb}, {n_full}, {d_full}) f32: kernel "
         f"{dist_ms:.4f} ms, plain {dist_plain_ms:.4f} ms, torch.cdist "
         f"{cdist_ms:.4f} ms ({cdist_ms / dist_ms:.2f}x the kernel), bound "
-        f"{bound:.4f} ms ({by}; 2tnd at {TF32_FLOP_PER_S / 1e12:g} TFLOP/s "
+        f"{bound:.4f} ms ({by}; 2tnd at "
+        f"{_costs().TF32_FLOP_PER_S / 1e12:g} TFLOP/s "
         f"TF32 {distance_ops_ms(tb, n_full, d_full, 4):.4f} ms; "
         f"{distance_other_bounds_ms(tb, n_full, d_full, 4)})")
     # where a call's device time goes: the norm pre-pass and the main
@@ -5053,6 +5152,15 @@ def main() -> None:
     log("[21] phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in lm_grid["phase_s"].items()))
     refs.close()
+    # ---------- 22. the tooling: lint, contracts, the meta dry run
+    tooling = tooling_phase(torch, np, dev, ctx, smi)
+    log("[22] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in tooling["phase_s"].items()))
+    for name, entry in entries.items():
+        entry["tooling_launches"] = {"[22b]": tooling["launches"][name]}
+    entries["flash_attention"]["tooling_launches"][
+        "[22c] meta (abstract)"] = tooling["dryrun_qwen3"]["kernel_calls"].get(
+            "flash_attention", 0)
     entries["flash_attention"]["lm_grid_launches"] = {
         "[21b] prefill": lm_grid["qwen3_serve"]["prefill_launches"][
             "flash_attention"]}
@@ -5096,6 +5204,7 @@ def main() -> None:
                                        "families_launches",
                                        "audio_vlm_launches",
                                        "lm_grid_launches",
+                                       "tooling_launches",
                                        "whisper_shapes") if key in e},
                                    "distributed_training_launches":
                                        e["distributed_training_launches"]}
@@ -5127,6 +5236,7 @@ def main() -> None:
                       "vlm": vlm,
                       "family_training": fam_training,
                       "lm_grid": lm_grid,
+                      "tooling": tooling,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -415,7 +415,7 @@ class ResilientValuationSession:
             "ckpt_every": self.ckpt_every, "session_opts": opts,
         }
 
-    def _tree_like(self) -> dict:
+    def _tree_like(self) -> dict:  # sync-point: checkpoint-tree host staging
         # the structure of `_state_tree`; the leaves are placeholders
         return {
             "config": np.asarray(""),
@@ -423,7 +423,7 @@ class ResilientValuationSession:
             "state": {nm: np.float32(0) for nm in self._inner._spec.names},
         }
 
-    def _state_tree(self) -> dict:
+    def _state_tree(self) -> dict:  # sync-point: checkpoint snapshot
         # the checkpointer snapshots each leaf to an owned host copy
         # synchronously (recovery semantics); only the WRITE overlaps the
         # next step under async_checkpoint

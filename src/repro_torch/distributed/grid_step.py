@@ -38,11 +38,14 @@ the single-device semantics GSPMD keeps.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from repro_torch.configs.base import tree_leaves, tree_map, tree_unflatten
 from repro_torch.distributed.sharding import (
-    DeviceGrid, Sharded, assemble, data_size)
+    COLLECTIVES, DeviceGrid, Placement, Sharded, assemble, data_size)
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
@@ -55,6 +58,35 @@ def _replica_sets(tree) -> list:
     """For each index range of every `Sharded` leaf (leaves in tree
     order), the distinct blocks that hold it."""
     return [held for s in tree_leaves(tree) for held in s.replicas()]
+
+
+@functools.lru_cache(maxsize=1024)
+def _held_by_cell(placement: Placement, shape: tuple) -> dict:
+    return {cell: math.prod(len(range(*s.indices(n)))
+                            for s, n in zip(sl, shape))
+            for cell, sl in placement.indices(shape).items()}
+
+
+def _held(placement: Placement, shape: tuple, cell: tuple) -> int:
+    """Elements of a `shape` tensor that `cell` holds under `placement`."""
+    return _held_by_cell(placement, tuple(shape))[cell]
+
+
+def _count_gathers(leaves: list, rows: int, one_group: bool = False,
+                   dtype_of=None) -> None:
+    """Count, for each data row r < `rows`, the bytes of every `Sharded`
+    leaf that r's cell (r, 0) gathers and does not hold (one group's
+    slice when `one_group`) as all-gather bytes into (r, 0), in
+    `dtype_of(leaf)` (default the leaf's type)."""
+    for r in range(rows):
+        total = 0
+        for s in leaves:
+            missing = math.prod(s.shape) - _held(s.placement, s.shape, (r, 0))
+            if one_group:
+                missing //= s.shape[0]
+            dt = s.dtype if dtype_of is None else dtype_of(s)
+            total += missing * dt.itemsize
+        COLLECTIVES.add("all-gather", (r, 0), total)
 
 
 def range_grads(sets: list, grads) -> list:
@@ -129,6 +161,7 @@ class GridRun:
 
         def whole(tree):
             reads = read(tree)
+            _count_gathers(tree_leaves(tree), count)
             return per_row(lambda r: tree_unflatten(tree, [
                 assemble(parts, s.shape, devs[r]) for parts, s in
                 zip(reads[r], tree_leaves(tree))]), reads)
@@ -155,6 +188,9 @@ class GridRun:
                         [(sl[1:], views[id(blk)][gi]) for sl, blk in parts],
                         s.shape[1:], devs[r], dt))
                 return tree_unflatten(dec["groups"], leaves)
+            _count_gathers(groups, count, one_group=True, dtype_of=lambda s: (
+                cast if cast is not None and len(s.shape) >= 3 and
+                s.dtype == torch.float32 else s.dtype))
             return per_row(build, reads)
 
         m_size = grid.shape[1]
@@ -201,6 +237,8 @@ class GridRun:
                         k: v[m * mb:(m + 1) * mb] for k, v in batch.items()})
                     loss, metrics = self.model.loss_rows(
                         self.rows(len(part)), part)
+                    if len(part) > 1:
+                        self._count_grad_sums()
                     g = range_grads(sets, torch.autograd.grad(
                         loss, leaves, allow_unused=True))
                     grads = g if grads is None else [
@@ -214,6 +252,17 @@ class GridRun:
             return loss.detach(), metrics, grads
         return loss_sum / grad_accum, metrics, [g / grad_accum
                                                 for g in grads]
+
+    def _count_grad_sums(self) -> None:
+        """The gradients of several data rows summed into each cell's
+        ranges: every cell receives its ranges' f32 gradient as
+        all-reduce bytes (`COLLECTIVES`)."""
+        grid = self.grid
+        leaves = tree_leaves(self.params)
+        for i in range(grid.shape[0]):
+            for j in range(grid.shape[1]):
+                COLLECTIVES.add("all-reduce", (i, j), 4 * sum(
+                    _held(s.placement, s.shape, (i, j)) for s in leaves))
 
     @torch.no_grad()
     def prefill(self, batch: dict):
@@ -280,6 +329,14 @@ class GridRun:
                             seen.add(start)
                             blocks.append(type(c)(*(s.block(*cell)
                                                     for s in c)))
+                            if cell != (r, 0):
+                                # the block's attention partial (out, max,
+                                # sum in f32) goes to the row's cell
+                                g, hd = c.k.shape[0], c.k.shape[-1]
+                                COLLECTIVES.add(
+                                    "collective-permute", (r, 0),
+                                    4 * g * per * self.cfg.num_heads *
+                                    (hd + 2))
                     row[key] = blocks
                 else:
                     row[key] = tree_map(

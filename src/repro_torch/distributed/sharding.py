@@ -40,6 +40,7 @@ bit. Cells that share a device and an index range share one block, so a
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -59,6 +60,8 @@ __all__ = [
     "replicate",
     "gather_rows",
     "DeviceGrid",
+    "CollectiveCounter",
+    "COLLECTIVES",
     "data_axes",
     "data_size",
     "rules_for",
@@ -176,7 +179,10 @@ def gather_rows(parts: Sequence[torch.Tensor],
 
 def _indexed(device) -> torch.device:
     """`device` resolved (raising when a card is asked for and absent),
-    a CUDA device given its index, so that equal devices compare equal."""
+    a CUDA device given its index, so that equal devices compare equal.
+    "meta" stays as it is: a placeholder cell of a dry run."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -190,12 +196,18 @@ class DeviceGrid:
     row-major (device (i, j) is `devices[i * M + j]`); entries may repeat,
     so four cells of a (2, 2) grid can share one card. Cell (i, j) takes
     data shard i of what is sharded over "data" and owns block j of what
-    is sharded over "model"."""
+    is sharded over "model".
+
+    `pods` > 1 splits the D data rows into that many pods of D / pods
+    rows: the grid then has the axes ("pod", "data", "model") of the
+    reference's multi-pod mesh, row i being data shard i % (D / pods) of
+    pod i // (D / pods), and the data axes ("pod", "data") still number
+    the rows 0..D-1 in order. Devices may be "meta": the placeholder cells
+    of a dry run."""
 
     devices: tuple[torch.device, ...]
     shape: tuple[int, int]
-
-    axis_names = ("data", "model")
+    pods: int = 1
 
     def __post_init__(self):
         devs = tuple(_indexed(d) for d in self.devices)
@@ -206,13 +218,32 @@ class DeviceGrid:
         if len(devs) != shape[0] * shape[1]:
             raise ValueError(f"{len(devs)} devices do not fill a "
                              f"{shape[0]} x {shape[1]} grid")
+        if self.pods < 1 or shape[0] % self.pods:
+            raise ValueError(f"{shape[0]} data rows do not split into "
+                             f"{self.pods} pods")
         object.__setattr__(self, "devices", devs)
         object.__setattr__(self, "shape", shape)
 
     @property
+    def axis_names(self) -> tuple:
+        """("data", "model"), or ("pod", "data", "model") with pods."""
+        return (("pod",) if self.pods > 1 else ()) + ("data", "model")
+
+    @property
     def axis_sizes(self) -> dict:
-        """{"data": D, "model": M}, as `dict(mesh.shape)` reads."""
-        return dict(zip(self.axis_names, self.shape))
+        """{"data": D, "model": M} ({"pod": P, "data": D / P, "model": M}
+        with pods), as `dict(mesh.shape)` reads."""
+        d, m = self.shape
+        if self.pods > 1:
+            return {"pod": self.pods, "data": d // self.pods, "model": m}
+        return {"data": d, "model": m}
+
+    def coords(self, i: int, j: int) -> dict:
+        """Cell (i, j)'s index on each axis."""
+        if self.pods > 1:
+            per = self.shape[0] // self.pods
+            return {"pod": i // per, "data": i % per, "model": j}
+        return {"data": i, "model": j}
 
     def device(self, i: int, j: int) -> torch.device:
         """The device of cell (i, j): data shard i, model shard j."""
@@ -226,16 +257,52 @@ class DeviceGrid:
         distinct tensors are summed in data order, in place into
         parts[0][j]. Cells that share a device may share one accumulator:
         a tensor that appears again in a later data row already holds that
-        row's partial and is not added twice."""
+        row's partial and is not added twice. Each row's partial past row 0
+        counts as all-reduce bytes into cell (0, j) (`COLLECTIVES`), shared
+        or not."""
         out = []
         for j in range(len(parts[0])):
             total, seen = parts[0][j], {id(parts[0][j])}
             for row in parts[1:]:
+                COLLECTIVES.add("all-reduce", (0, j),
+                                row[j].numel() * row[j].element_size())
                 if id(row[j]) not in seen:
                     seen.add(id(row[j]))
                     total.add_(row[j].to(total.device))
             out.append(total)
         return out
+
+
+class CollectiveCounter:
+    """Bytes moved between the cells of a grid, by kind and by the cell
+    that receives them: "all-gather" (weights gathered onto a data row's
+    cell), "all-reduce" (replica gradient sums, `psum_data`) and
+    "collective-permute" (decode's attention partials sent to the row's
+    cell). Keyed by cell, not device: every cell counts as a device of its
+    own, as on a grid of distinct cards, so a meta grid (every cell one
+    device) counts what a real one would move. The dry run reads it
+    (`hlo_analysis.collective_bytes`)."""
+
+    def __init__(self):
+        self.by_cell: dict = {}
+
+    def reset(self) -> None:
+        self.by_cell = {}
+
+    def add(self, kind: str, cell: tuple, nbytes) -> None:
+        if nbytes:
+            kinds = self.by_cell.setdefault(tuple(cell), {})
+            kinds[kind] = kinds.get(kind, 0) + int(nbytes)
+
+    def fullest(self) -> dict:
+        """{kind: bytes} of the cell that receives the most."""
+        if not self.by_cell:
+            return {}
+        return dict(max(self.by_cell.values(),
+                        key=lambda kinds: sum(kinds.values())))
+
+
+COLLECTIVES = CollectiveCounter()
 
 
 # ------------------------------------------------------------ the LM half
@@ -366,6 +433,16 @@ class Placement:
     grid: DeviceGrid
     spec: tuple
 
+    def __post_init__(self):
+        named = [a for k in range(len(self.spec)) for a in self._axes(k)]
+        for a in named:
+            if a not in self.grid.axis_names:
+                raise ValueError(
+                    f"spec {self.spec} names axis {a!r}, which the grid "
+                    f"{self.grid.axis_names} lacks")
+        if len(set(named)) != len(named):
+            raise ValueError(f"spec {self.spec} names a grid axis twice")
+
     def _axes(self, k: int) -> tuple:
         e = self.spec[k] if k < len(self.spec) else None
         return () if e is None else (e,) if isinstance(e, str) else e
@@ -374,7 +451,10 @@ class Placement:
         """{(i, j): cell (i, j)'s index ranges, one slice per dimension}:
         `NamedSharding.devices_indices_map(shape)`, keyed by cell. Raises
         ValueError where a split dimension does not divide evenly, as JAX
-        does."""
+        does. Cached per (placement, shape): do not mutate the result."""
+        return _indices(self, tuple(shape))
+
+    def _indices(self, shape: tuple) -> dict:
         sizes = self.grid.axis_sizes
         parts = []
         for k, n in enumerate(shape):
@@ -389,7 +469,7 @@ class Placement:
         d_size, m_size = self.grid.shape
         for i in range(d_size):
             for j in range(m_size):
-                at = {"data": i, "model": j}
+                at = self.grid.coords(i, j)
                 sl = []
                 for axes, count, size in parts:
                     if count == 1:
@@ -442,6 +522,11 @@ class Placement:
         device = self.grid.device(0, 0) if device is None else device
         return assemble(self.ranges(blocks, shape, device, row), shape,
                         device, dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def _indices(placement: Placement, shape: tuple) -> dict:
+    return placement._indices(shape)
 
 
 def assemble(parts, shape, device, dtype=None) -> torch.Tensor:

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.sti_knn import pairwise_sq_dists
 from repro_torch.kernels.build import library
+from repro_torch.launch.hlo_analysis import KERNELS, distance_cost
 
 __all__ = ["distance_plain", "distance_cuda", "tma_operands",
            "candidate_sq_dists"]
@@ -103,13 +104,19 @@ def distance_cuda(x_test: torch.Tensor, x_train: torch.Tensor
     """(t, d), (n, d) -> (t, n) f32 squared distances.
 
     CPU tensors take `distance_plain`; CUDA tensors launch the kernel
-    (or raise). `distance_cuda.launches` counts kernel launches."""
+    (or raise). Meta tensors in the dry run (`KERNELS.counting()`) give
+    a meta result and add the kernel's cost to `hlo_analysis.KERNELS`.
+    `distance_cuda.launches` counts kernel launches."""
     if x_test.device.type == "cpu" and x_train.device.type == "cpu":
         return distance_plain(x_test, x_train)
     _check(x_test, x_train)
     t, n = x_test.shape[0], x_train.shape[0]
     dev = x_test.device
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    if dev.type == "meta" and KERNELS.active:
+        KERNELS.add("distance", distance_cost(t, n, x_test.shape[1],
+                                              x_test.element_size()))
+        return out
     if t == 0 or n == 0:
         return out
     if x_test.shape[1] == 0:  # no features: every distance is 0

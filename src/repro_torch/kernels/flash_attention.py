@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import library
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.launch.hlo_analysis import KERNELS, flash_cost
 
 __all__ = ["flash_attention_plain", "flash_attention_cuda"]
 
@@ -85,8 +86,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Key j is visible to query i when j <= i (causal) and j > i - window
     (window). CPU tensors take `flash_attention_plain`; CUDA tensors launch
-    the kernel (or raise). `flash_attention_cuda.launches` counts kernel
-    launches."""
+    the kernel (or raise). Meta tensors in the dry run
+    (`KERNELS.counting()`) give a meta result and add the kernel's cost
+    to `hlo_analysis.KERNELS`.
+    `flash_attention_cuda.launches` counts kernel launches."""
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -95,6 +98,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[2]
     if q.numel() == 0 or sk == 0:
         return torch.zeros_like(q)
+    if q.device.type == "meta" and KERNELS.active:
+        KERNELS.add("flash_attention", flash_cost(
+            b, h, s, sk, d, causal, window, q.element_size()))
+        return torch.empty_like(q)
     scale = 1.0 / math.sqrt(d)
     dk = d
     if q.dtype == torch.bfloat16 and d % 8:

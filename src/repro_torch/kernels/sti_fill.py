@@ -33,6 +33,8 @@ import math
 import torch
 
 from repro_torch.kernels.build import library
+from repro_torch.launch.hlo_analysis import (
+    KERNELS, fill_cost, rect_fill_cost)
 
 __all__ = [
     "TILE",
@@ -127,12 +129,17 @@ def sti_fill_acc_cuda(acc: torch.Tensor, g: torch.Tensor,
     """acc[a, b] += sum_p g[p, max(ranks[p, a], ranks[p, b])] in place;
     returns `acc`. CPU tensors take `sti_fill_acc_plain`; CUDA tensors
     launch the kernel (or raise). The kernel reads int64 ranks, as torch's
-    gather and scatter make them, in place (other types are cast).
+    gather and scatter make them, in place (other types are cast). Meta
+    tensors in the dry run (`KERNELS.counting()`) add the kernel's cost
+    to `hlo_analysis.KERNELS` and return `acc`.
     `sti_fill_acc_cuda.launches` counts kernel launches."""
     if all(x.device.type == "cpu" for x in (acc, g, ranks)):
         return sti_fill_acc_plain(acc, g, ranks)
     _check(acc, g, ranks)
     t, n = g.shape
+    if acc.device.type == "meta" and KERNELS.active:
+        KERNELS.add("sti_fill_acc", fill_cost(t, n))
+        return acc
     if t == 0 or n == 0:
         return acc
     r64 = ranks.to(torch.int64).contiguous()
@@ -308,12 +315,17 @@ def sti_fill_acc_rect_cuda(acc: torch.Tensor, g: torch.Tensor,
     copy) is read from the column table at its offset, and the kernel
     mirrors the window's diagonal square; otherwise g is gathered for
     each side on its own. The kernel reads int64 tables, as torch's
-    gather and scatter make them, in place (other types are cast).
+    gather and scatter make them, in place (other types are cast). Meta
+    tensors in the dry run (`KERNELS.counting()`) add the kernel's cost
+    to `hlo_analysis.KERNELS` and return `acc`.
     `sti_fill_acc_rect_cuda.launches` counts kernel launches."""
     if all(x.device.type == "cpu" for x in (acc, g, ranks_rows, ranks_cols)):
         return sti_fill_acc_rect_plain(acc, g, ranks_rows, ranks_cols)
     _check_rect(acc, g, ranks_rows, ranks_cols)
     (t, n), nr, nc = g.shape, ranks_rows.shape[1], ranks_cols.shape[1]
+    if acc.device.type == "meta" and KERNELS.active:
+        KERNELS.add("sti_fill_acc_rect", rect_fill_cost(t, nr, nc))
+        return acc
     if t == 0 or nr == 0 or nc == 0:
         return acc
     off = row_window(ranks_rows, ranks_cols)

@@ -43,6 +43,8 @@ from repro_torch.kernels.build import library
 from repro_torch.kernels.distance import tma_operands
 from repro_torch.kernels.sti_fill import add_tile_sum
 from repro_torch.kernels.stream_kernels import make_megakernel_tables
+from repro_torch.launch.hlo_analysis import (
+    KERNELS, point_megakernel_cost, sti_megakernel_cost)
 
 __all__ = [
     "MEGAKERNEL_FILL",
@@ -348,6 +350,22 @@ def _launch(fn_name: str, argtypes: list, *args, dev) -> None:
         )
 
 
+def _abstract_step(name, acc, vec, xb, yb, mask, x_train, y_train,
+                   row_offset) -> None:
+    """The meta path of a step: the launch's checks, then its cost (the
+    formula of the square step, `hlo_analysis`) added to `KERNELS`."""
+    xb, yb, mask, x_train, y_train = _operands(xb, yb, mask, x_train,
+                                               y_train)
+    (tb, d), n, nr = xb.shape, x_train.shape[0], vec.shape[0]
+    _state(vec, (nr,), "diag/vec")
+    if acc is not None:
+        _state(acc, (nr, n), "acc")
+    _row_offset(row_offset, nr, n)
+    cost = (sti_megakernel_cost if acc is not None
+            else point_megakernel_cost)(tb, n, d)
+    KERNELS.add(name, cost)
+
+
 _STEP_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
     ctypes.c_void_p]
 
@@ -387,7 +405,9 @@ def sti_megakernel_cuda(acc, diag, xb, yb, mask, x_train, y_train, *, k,
                         mode="sti", row_offset=None, compute_dtype="float32"):
     """One fused interaction step in place on (acc, diag); returns them.
     CPU tensors take `sti_megakernel_plain`; CUDA tensors launch the
-    kernel once (or raise). `sti_megakernel_cuda.launches` counts
+    kernel once (or raise). Meta tensors in the dry run
+    (`KERNELS.counting()`) add the kernel's cost to
+    `hlo_analysis.KERNELS`. `sti_megakernel_cuda.launches` counts
     launches."""
     if _on_cpu(acc, diag, xb, yb, mask, x_train, y_train):
         return sti_megakernel_plain(
@@ -395,6 +415,10 @@ def sti_megakernel_cuda(acc, diag, xb, yb, mask, x_train, y_train, *, k,
             row_offset=row_offset, compute_dtype=compute_dtype)
     if mode not in _INTERACTION_KINDS:
         raise ValueError(f"unknown interaction mode {mode!r}")
+    if acc.device.type == "meta" and KERNELS.active:
+        _abstract_step("sti_megakernel", acc, diag, xb, yb, mask, x_train,
+                       y_train, row_offset)
+        return acc, diag
     if _step_cuda(acc, diag, xb, yb, mask, x_train, y_train, k=k,
                   kind=_INTERACTION_KINDS[mode], row_offset=row_offset,
                   compute_dtype=compute_dtype):
@@ -411,12 +435,18 @@ def point_megakernel_cuda(vec, xb, yb, mask, x_train, y_train, *, method, k,
     """One fused point-value step ("knn_shapley", "wknn" with its `opts`
     weight kind, "loo") in place on vec; returns vec. CPU tensors take
     `point_megakernel_plain`; CUDA tensors launch the kernel once (or
-    raise). `point_megakernel_cuda.launches` counts launches."""
+    raise). Meta tensors in the dry run (`KERNELS.counting()`) add the
+    kernel's cost to `hlo_analysis.KERNELS`.
+    `point_megakernel_cuda.launches` counts launches."""
     if _on_cpu(vec, xb, yb, mask, x_train, y_train):
         return point_megakernel_plain(
             vec, xb, yb, mask, x_train, y_train, method=method, k=k,
             opts=opts, row_offset=row_offset, compute_dtype=compute_dtype)
     kind = _point_kind(method, opts)
+    if vec.device.type == "meta" and KERNELS.active:
+        _abstract_step("point_megakernel", None, vec, xb, yb, mask, x_train,
+                       y_train, row_offset)
+        return vec
     if _step_cuda(None, vec, xb, yb, mask, x_train, y_train, k=k, kind=kind,
                   row_offset=row_offset, compute_dtype=compute_dtype):
         point_megakernel_cuda.launches += 1

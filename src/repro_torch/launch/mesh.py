@@ -1,18 +1,44 @@
 """Device grids of the port: counterpart of `repro.launch.mesh`.
 
-A function, never a module-level constant, so importing this module
-touches no device. `make_production_mesh` (the TPU pod's 16 x 16 layout)
-waits for the tooling slice (ROADMAP.md queue A 4).
+Functions, never module-level constants, so importing this module touches
+no device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import DeviceGrid
 
-__all__ = ["make_local_mesh"]
+__all__ = ["make_production_mesh", "make_local_mesh"]
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices=None) -> DeviceGrid:
+    """The reference's production layout: a (16, 16) ("data", "model")
+    grid of 256 cells, or with `multi_pod` (2, 16, 16) ("pod", "data",
+    "model"), 512 cells (the pod axis splits the 32 data rows into two
+    pods: `DeviceGrid.pods`). With no `devices` every cell is
+    `torch.device("meta")`, the placeholder grid of the dry run
+    (`launch/dryrun.py`). A given list must fill every cell, one device a
+    cell, row-major; otherwise this raises rather than share a card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    cells = math.prod(shape)
+    if devices is None:
+        devices = (torch.device("meta"),) * cells
+    devices = tuple(devices)
+    if len(devices) != cells:
+        raise ValueError(
+            f"the production grid {'x'.join(map(str, shape))} needs "
+            f"{cells} devices, one a cell; got {len(devices)}")
+    if len(set(devices)) != cells and torch.device("meta") not in devices:
+        raise ValueError("the production grid takes one distinct device a "
+                         "cell; a device listed twice would share a card")
+    return DeviceGrid(devices, (cells // shape[-1], shape[-1]),
+                      pods=2 if multi_pod else 1)
 
 
 def make_local_mesh(device="cuda") -> DeviceGrid:

@@ -10,9 +10,9 @@ On the CPU, reduced dims:
 
 The `Trainer` runs on `make_local_mesh(--device)`, as the reference's
 on its local mesh: every local card as an (n_cards, 1) grid, a named card
-or the CPU as (1, 1), laid out by `strategy_for`. The reference's
-`--production-mesh` (a TPU pod's 16 x 16 layout) waits for the tooling
-slice (ROADMAP.md queue A 4).
+or the CPU as (1, 1), laid out by `strategy_for`. `--production-mesh`
+lays it over the reference's 16 x 16 production grid instead, one local
+card a cell, and raises with fewer than 256 (`make_production_mesh`).
 `reduced_config` is also what the serve launcher and the tests use.
 """
 
@@ -75,7 +75,7 @@ def main(argv=None):
     """Parse the CLI, restore from --ckpt-dir if it holds a checkpoint,
     and train on `synthetic_batch`es."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -90,8 +90,16 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--reduced", action="store_true",
                     help="shrink to ~100M params for a local run")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="use the 16x16 production grid (needs 256 devices)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.production_mesh:
+        local = make_local_mesh(args.device)
+        mesh = make_production_mesh(devices=tuple(dict.fromkeys(
+            local.devices)))
+    else:
+        mesh = make_local_mesh(args.device)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -102,7 +110,6 @@ def main(argv=None):
         opt=AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
                         total_steps=args.steps),
     )
-    mesh = make_local_mesh(args.device)
     tr = Trainer(cfg, tcfg, mesh=mesh)
     params, opt_state = tr.init_state(seed=0)
     params, opt_state, start = tr.maybe_restore(params, opt_state)

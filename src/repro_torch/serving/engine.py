@@ -69,6 +69,7 @@ class Engine:
 
     # ------------------------------------------------------------ public
     def submit(self, prompt_tokens) -> int:
+        # sync-point: prompt staging copies the client's tokens once
         prompt = np.asarray(prompt_tokens, np.int64)
         if prompt.ndim != 1 or not 0 < len(prompt) <= self.scfg.max_len:
             raise ValueError(f"a prompt is 1 to {self.scfg.max_len} tokens, "
@@ -137,7 +138,9 @@ class Engine:
             self.params, {"tokens": torch.from_numpy(tokens).to(self.device),
                           "caches": self.caches,
                           "index": int(self.pos.max())})
-        nxt = self._sample(logits[:, 0]).cpu().numpy()  # one sync per step
+        # sync-point: the sampled tokens feed the host's slot bookkeeping,
+        # one sync per decode step
+        nxt = self._sample(logits[:, 0]).cpu().numpy()
         for i, s in enumerate(self.slots):
             if s.done:
                 continue

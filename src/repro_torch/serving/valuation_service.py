@@ -65,7 +65,7 @@ from repro_torch.kernels.sti_pipeline import prepare_refold_step
 __all__ = ["Request", "Response", "AdmissionController", "ValuationService"]
 
 
-def _host(x, dtype) -> np.ndarray:
+def _host(x, dtype) -> np.ndarray:  # sync-point: client arrays staged
     """An owned host numpy copy of a client array (numpy or tensor)."""
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
@@ -596,6 +596,8 @@ class ValuationService:
             # distance (the CUDA kernel on a card), so they hold the bits
             # a fresh ranking gives them, then a stable re-sort of each
             # cached row (host-resident)
+            # sync-point: none on the device; `slots` is a host list and
+            # the features are host ground truth
             xa = self._dev(self._x[np.asarray(slots)])
             for rec in self._log:
                 if rec.d2 is None:

@@ -350,7 +350,10 @@ def test_import_leaves_no_jax_or_repro_module():
         "repro_torch.configs.phi35_moe, repro_torch.configs.xlstm_1_3b, "
         "repro_torch.configs.jamba_v01, repro_torch.models.whisper, "
         "repro_torch.configs.whisper_small, repro_torch.configs.internvl2_2b, "
-        "repro_torch.configs.shapes, repro_torch.configs.registry\n"
+        "repro_torch.configs.shapes, repro_torch.configs.registry, "
+        "repro_torch.analysis, repro_torch.analysis.contracts, "
+        "repro_torch.analysis.rules, repro_torch.launch.lint, "
+        "repro_torch.launch.hlo_analysis, repro_torch.launch.dryrun\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
