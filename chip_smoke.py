@@ -199,6 +199,23 @@ and then the LM on a (data 2, model 2) `DeviceGrid` of the one card
       qwen3-1.7b, fsdp) restored onto (1, 1) and (4, 1) grids bit for
       bit.
 
+and then the port's tooling and its last entry points:
+
+  [22] the lint child and the contract checker on the card; the dry run
+      of qwen3-1.7b train_4k on the production grid's meta cells (2 of
+      28 layers); [22d] [21b]'s mixtral cell on a (2, 2) meta grid and on
+      the card: argument bytes equal to the placed blocks exactly, and
+      temp_bytes x busy cells within `TEMP_BYTES_BOUND` of one real
+      step's peak above the placed state;
+  [23] `launch/valuate.py` in process at n = 65536, t = 512: wknn with
+      each `--weights` kind streamed and as the megakernel, `--stream`
+      for sti (as is, sharded on four shards of the card, megakernel)
+      and knn_shapley, and `--stream --engine approx` for both, against
+      the one-shot runs; `kernels.ops`' `pairwise_distance` and
+      `sti_fill` bit-equal to their kernels at the main path's shapes;
+      the four `examples/*_torch.py` in process with `--device cuda` at
+      their default sizes, each with its kernels' launches; at most 90 s.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
 of JAX or of the JAX package. The line before the last is one JSON object
@@ -210,12 +227,15 @@ version, kernel / plain / bound / library times); the last line is
 from __future__ import annotations
 
 import atexit
+import contextlib
 import ctypes
 import faulthandler
 import gc
+import io
 import json
 import os
 import re
+import runpy
 import shutil
 import subprocess
 import sys
@@ -225,6 +245,15 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+# [22d]: the dry run's temp_bytes x cells_busy over the card's peak above
+# the placed state in one real step of the same cell. Both count the
+# storages the step allocates and frees eagerly, so they should agree up
+# to the allocator's 512-byte rounding and what the meta device cannot
+# see (cuBLAS workspaces, the kernels' own scratch), a few percent at
+# this cell's 9 GiB; the CPU tests hold the same bound against
+# torch.profiler's allocator peak.
+TEMP_BYTES_BOUND = (0.8, 1.25)
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -3905,8 +3934,8 @@ def tooling_phase(torch, np, dev, c, smi: str) -> dict:
     --shape train_4k`); [22d] [21b]'s mixtral cell (1 layer, fsdp, 2 x
     1024) run on a (2, 2) meta grid and placed for real on the card's
     (2, 2) grid: the fullest cell's argument bytes equal its placed
-    blocks' exactly, and one real step's peak is logged beside the meta
-    run's temp bytes (a comparison, not a limit)."""
+    blocks' exactly, and the meta run's temp bytes x busy cells lie within
+    `TEMP_BYTES_BOUND` of one real step's peak above the placed state."""
     from repro_torch.analysis import contracts as C
     from repro_torch.configs.base import ShapeSpec, tree_leaves, tree_map
     from repro_torch.configs.registry import get_config
@@ -4011,25 +4040,313 @@ def tooling_phase(torch, np, dev, c, smi: str) -> dict:
         fail(f"[22d] the step on the placed zeros gave loss "
              f"{float(metrics['loss'])}")
     temp = meta["memory_analysis"]["temp_bytes"]
+    ratio = temp * meta["cells_busy"] / peak
     out["memory"] = dict(argument_bytes=arg, placed_block_bytes=blocks,
                          cell=list(cell), temp_bytes=temp,
                          cells_busy=meta["cells_busy"],
-                         card_step_peak_bytes=peak,
+                         card_step_peak_bytes=peak, ratio=ratio,
                          meta=meta["memory_analysis"])
     del placed, step, args
     free_phase(torch, "[22d]")
     phase_s["[22d]"] = time.perf_counter() - t
+    lo, hi = TEMP_BYTES_BOUND
     log(f"[22d] mixtral-8x7b 1 layer fsdp 2 x 1024 on (2, 2): argument_bytes "
         f"of cell {cell} {arg} = its placed blocks' {blocks} (exact); "
         f"temp_bytes {temp} a cell x {meta['cells_busy']} busy cells = "
-        f"{temp * meta['cells_busy'] / 2**30:.2f} GiB against the card's "
+        f"{temp * meta['cells_busy'] / 2**30:.4f} GiB against the card's "
         f"peak above the placed state over one real step, "
-        f"{peak / 2**30:.2f} GiB (a comparison, not a limit); "
+        f"{peak / 2**30:.4f} GiB: {ratio:.4f}x (bound {lo}-{hi}x); "
         f"{phase_s['[22d]']:.1f} s ({smi})")
+    if not lo <= ratio <= hi:
+        fail(f"[22d] the dry run's temp_bytes x cells_busy is {ratio:.4f}x "
+             f"the card's step peak, outside {lo}-{hi}x")
     phase_s["[22]"] = time.perf_counter() - t_all
     if phase_s["[22]"] > 60:
         fail(f"[22] took {phase_s['[22]']:.1f} s, more than its 60 s")
     out["phase_s"] = phase_s
+    return out
+
+
+# the examples of the port that [23d] runs: the line that ends the output
+# of each when it passes, and the kernels its path must launch
+EXAMPLES = (("quickstart_torch", "wknn vs knn_shapley rank agreement",
+             ("distance", "sti_fill_acc")),
+            ("end_to_end_valuation_torch", "[ok] end-to-end pipeline complete",
+             ("distance", "sti_fill_acc")),
+            ("distributed_valuation_torch",
+             "[ok] sharded streaming engine matches the single-host "
+             "algorithm", ("distance", "sti_fill_acc_rect")),
+            ("serve_lm_torch", "[ok] all requests served",
+             ("flash_attention",)))
+
+
+def entry_points_phase(torch, np, dev, c, smi: str) -> dict:
+    """[23]: the last entry points of the port on the card. [23a]
+    `launch/valuate.py` in this process, wknn at n = 65536, t = 512 with
+    each `--weights` kind, on the streamed engine and with `--fill
+    megakernel`, the two within 1e-5 of max |value|; the launcher's
+    first test batch through the megakernel session against the eager
+    point step on the distance kernel's distances (the circles are
+    continuous: plain distances reorder near-tied ranks, so this one is
+    held on the kernel's f32 distances, which the megakernel shares bit
+    for bit), and a batch of integer-valued features, where no distance
+    rounds, through the megakernel session against the eager step on the
+    plain distances, both at 1e-5; [23b] `--stream` for sti as is, with
+    `--engine sharded --shards 4 --devices cuda` and with `--fill
+    megakernel`, knn_shapley with `--stream`, and knn_shapley and sti
+    with `--stream --engine approx --top-m 64`, each against the one-shot
+    run of the same invocation (without `--stream`) at 1e-6 of max |ref|
+    ([4]/[7]'s tolerance; the same kernels in the same order), the
+    megakernel's one-shot phi beside the three-stage one's logged, each
+    16 GiB result freed once held; [23c] `ops.pairwise_distance` at
+    (256, 65536, 768) and `ops.sti_fill` at t = 256, n = 65536,
+    bit-equal to `distance_cuda` / `sti_fill_cuda`; [23d] the four
+    `examples/*_torch.py` in this process, one after another, with
+    `--device cuda` at their default sizes, each ending with its closing
+    line and launching the kernels `EXAMPLES` names for it. Each path's
+    counts are zeroed just before it and read just after; [23] takes at
+    most 90 s."""
+    from repro_torch import ValuationSession, get_method
+    from repro_torch.data import flip_labels, make_circles
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.distance import distance_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.sti_fill import sti_fill_cuda
+    from repro_torch.launch import valuate
+
+    n, t, tb, k = 65536, 512, 256, 5
+    base = ["--n", str(n), "--t", str(t), "--test-batch", str(tb)]
+    out = {"launches": {}, "errors": {}}
+    phase_s = {}
+    t_all = time.perf_counter()
+
+    def launch(label, argv, must, never):
+        """valuate.main(argv) from zeroed counts: the kernels in `must`
+        launched, those in `never` not; returns the result."""
+        c.zero_counts()
+        t0 = time.perf_counter()
+        res = valuate.main(base + argv)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        got = c.read_counts()
+        out["launches"][label] = got
+        log(f"{label}: valuate {' '.join(argv)}: {s:.2f} s, launches {got}")
+        for name in must:
+            if not got[name]:
+                fail(f"{label}: {name} was not launched: {got}")
+        for name in never:
+            if got[name]:
+                fail(f"{label}: {name} was launched: {got}")
+        return res
+
+    def hold(label, got, want, rel):
+        err = max_abs_diff(torch, got.reshape(got.shape[0], -1),
+                           want.reshape(want.shape[0], -1))
+        scale = max_abs(torch, want.reshape(want.shape[0], -1))
+        same = bool(torch.equal(got, want))
+        out["errors"][label] = {"max_abs_err": err, "max_ref": scale,
+                                "bit_equal": same}
+        log(f"{label}: max_abs_err {err:.3e} (max |ref| "
+            f"{scale:.3e}, tol {rel:g} of it), bit-equal {same}")
+        if not err <= rel * scale:
+            fail(f"{label} disagrees: {err} > {rel} * {scale}")
+
+    # [23a] wknn with each weight kind, streamed and megakernel
+    t0 = time.perf_counter()
+    x, y_clean = make_circles(n // 2, noise=0.08, seed=0)
+    y, _ = flip_labels(y_clean, 0.1, 2, seed=1)
+    xt, yt = make_circles(t // 2, noise=0.08, seed=2)
+    x, y, xb, yb = x.to(dev), y.to(dev), xt[:tb].to(dev), yt[:tb].to(dev)
+    points = ("distance", "point_megakernel")
+    # integer-valued features in [-128, 128]: every squared distance is an
+    # integer below 2^18, exact in f32 on both the kernel and plain paths
+    rng = np.random.default_rng(23)
+    xi, xqi = (torch.from_numpy(rng.integers(-128, 129, (m, 2)).astype(
+        np.float32)).to(dev) for m in (n, tb))
+    yi, yqi = (torch.from_numpy(rng.integers(0, 2, m).astype(
+        np.int32)).to(dev) for m in (n, tb))
+    for w in ("rbf", "inverse", "uniform"):
+        wk = ["--method", "wknn", "--weights", w]
+        streamed = launch(f"[23a] wknn {w} streamed",
+                          wk + ["--engine", "streamed"], ("distance",),
+                          ("point_megakernel", "sti_megakernel",
+                           "sti_fill_acc", "sti_fill_acc_rect"))
+        mega = launch(f"[23a] wknn {w} megakernel",
+                      wk + ["--fill", "megakernel"], points,
+                      ("sti_megakernel", "sti_fill_acc",
+                       "sti_fill_acc_rect"))
+        hold(f"[23a] wknn {w}: megakernel vs streamed", mega.point_values,
+             streamed.point_values, 1e-5)
+        c.zero_counts()
+        first = ValuationSession(
+            x, y, k=k, mode="wknn", test_batch=tb, fill="megakernel",
+            method_opts={"weights": w}, device=dev).update(xb, yb).finalize()
+        torch.cuda.synchronize()
+        c.expect(f"[23a] wknn {w} first batch", c.read_counts(),
+                 point_megakernel=1)
+        plain = get_method("wknn")(x, y, xb, yb, k=k, engine="eager",
+                                   weights=w, distance="cuda", device=dev)
+        hold(f"[23a] wknn {w} first batch: megakernel vs the eager step "
+             f"on the distance kernel's distances", first.point_values,
+             plain.point_values, 1e-5)
+        c.zero_counts()
+        first = ValuationSession(
+            xi, yi, k=k, mode="wknn", test_batch=tb, fill="megakernel",
+            method_opts={"weights": w}, device=dev).update(
+                xqi, yqi).finalize()
+        torch.cuda.synchronize()
+        c.expect(f"[23a] wknn {w} integer batch", c.read_counts(),
+                 point_megakernel=1)
+        plain = get_method("wknn")(xi, yi, xqi, yqi, k=k, engine="eager",
+                                   weights=w, distance="plain", device=dev)
+        hold(f"[23a] wknn {w} integer batch: megakernel vs the plain step",
+             first.point_values, plain.point_values, 1e-5)
+        del streamed, mega, first, plain
+    phase_s["[23a]"] = time.perf_counter() - t0
+    log(f"[23a] {phase_s['[23a]']:.1f} s ({smi})")
+
+    # [23b] --stream against the one-shot run of the same invocation
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fills = ("sti_fill_acc", "sti_fill_acc_rect", "sti_megakernel",
+             "point_megakernel")
+
+    def sti(label, extra, kernel):
+        return launch(f"[23b] sti {label}", ["--method", "sti"] + extra,
+                      (kernel,), tuple(f for f in fills if f != kernel))
+
+    three = sti("one-shot", [], "sti_fill_acc")
+    res = sti("--stream", ["--stream"], "sti_fill_acc")
+    hold("[23b] sti --stream vs one-shot", res.phi, three.phi, 1e-6)
+    del res
+    mk = ["--fill", "megakernel"]
+    mega = sti("--fill megakernel one-shot", mk, "sti_megakernel")
+    # the two step forms on the launcher's data, logged: [5] holds them
+    # at 1e-6 of max on its blob data
+    diff = (mega.phi - three.phi).abs_()
+    at = divmod(int(diff.argmax()), n)
+    out["errors"]["[23b] sti megakernel vs three-stage one-shot"] = {
+        "max_abs_err": float(diff[at]), "at": list(at),
+        "three_stage": float(three.phi[at]), "megakernel": float(
+            mega.phi[at]), "max_ref": max_abs(torch, three.phi),
+        "diagonal_max_abs_err": float(diff.diagonal().max())}
+    log(f"[23b] sti megakernel vs three-stage one-shot (logged): "
+        f"{out['errors']['[23b] sti megakernel vs three-stage one-shot']}")
+    del diff, three
+    free_phase(torch, "[23b] sti three-stage")
+    res = sti("--stream --fill megakernel", ["--stream"] + mk,
+              "sti_megakernel")
+    hold("[23b] sti --stream --fill megakernel vs its one-shot", res.phi,
+         mega.phi, 1e-6)
+    del res, mega
+    free_phase(torch, "[23b] sti megakernel")
+    sh = ["--engine", "sharded", "--shards", "4", "--devices", "cuda"]
+    sharded = sti("--engine sharded one-shot", sh, "sti_fill_acc_rect")
+    res = sti("--stream --engine sharded", ["--stream"] + sh,
+              "sti_fill_acc_rect")
+    hold("[23b] sti --stream --engine sharded vs its one-shot", res.phi,
+         sharded.phi, 1e-6)
+    del res, sharded
+    free_phase(torch, "[23b] sti sharded")
+    ks = ["--method", "knn_shapley"]
+    oneshot = launch("[23b] knn_shapley one-shot", ks, ("distance",), fills)
+    res = launch("[23b] knn_shapley stream", ks + ["--stream"],
+                 ("distance",), fills)
+    hold("[23b] knn_shapley stream vs one-shot", res.point_values,
+         oneshot.point_values, 1e-6)
+    del oneshot, res
+    ap = ["--engine", "approx", "--top-m", "64"]
+    for method, field in (("knn_shapley", "point_values"), ("sti", "phi")):
+        oneshot = launch(f"[23b] {method} --engine approx one-shot",
+                         ["--method", method] + ap, ("distance",), fills)
+        res = launch(f"[23b] {method} --stream --engine approx",
+                     ["--method", method, "--stream"] + ap, ("distance",),
+                     fills)
+        if res.meta["approx_exact"] or res.meta["top_m"] != 64:
+            fail(f"[23b] {method} --stream --engine approx did not "
+                 f"preselect 64 candidates: {res.meta}")
+        hold(f"[23b] {method} --stream --engine approx vs one-shot",
+             getattr(res, field), getattr(oneshot, field), 1e-6)
+        del oneshot, res
+        free_phase(torch, f"[23b] {method} approx")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    phase_s["[23b]"] = time.perf_counter() - t0
+    log(f"[23b] {phase_s['[23b]']:.1f} s, peak {out['peak_gib']:.2f} GiB "
+        f"({smi})")
+
+    # [23c] kernels.ops at the main path's shapes
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    xq = torch.randn((tb, 768), generator=gen, device=dev)
+    xn = torch.randn((n, 768), generator=gen, device=dev)
+    g = torch.randn((tb, n), generator=gen, device=dev)
+    ranks = torch.argsort(torch.rand((tb, n), generator=gen, device=dev),
+                          dim=1)
+    c.zero_counts()
+    d2 = ops.pairwise_distance(xq, xn)
+    fill = ops.sti_fill(g, ranks)
+    torch.cuda.synchronize()
+    got = c.read_counts()
+    out["launches"]["[23c] ops"] = got
+    c.expect("[23c] ops.pairwise_distance + ops.sti_fill", got, distance=1,
+             sti_fill_acc=1)
+    if not torch.equal(d2, distance_cuda(xq, xn)):
+        fail("[23c] ops.pairwise_distance is not bit-equal to distance_cuda")
+    want = sti_fill_cuda(g, ranks)
+    if not torch.equal(fill, want):
+        fail("[23c] ops.sti_fill is not bit-equal to sti_fill_cuda")
+    del xq, xn, g, ranks, d2, fill, want
+    free_phase(torch, "[23c]")
+    phase_s["[23c]"] = time.perf_counter() - t0
+    log(f"[23c] ops.pairwise_distance ({tb}, {n}, 768) and ops.sti_fill "
+        f"(t={tb}, n={n}): one launch each ({got}), bit-equal to "
+        f"distance_cuda / sti_fill_cuda; {phase_s['[23c]']:.1f} s ({smi})")
+
+    # [23d] the port's examples, default sizes, in this process
+    t0 = time.perf_counter()
+    out["examples_s"] = {}
+    for name, last, must in EXAMPLES:
+        path = ROOT / "examples" / f"{name}.py"
+        label = f"[23d] examples/{name}.py"
+        buf, argv = io.StringIO(), sys.argv
+        c.zero_counts()
+        flash_attention_cuda.launches = 0
+        t1 = time.perf_counter()
+        try:
+            sys.argv = [str(path), "--device", "cuda"]
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(path), run_name="__main__")
+            torch.cuda.synchronize()
+        except (Exception, SystemExit) as e:
+            fail(f"{label} --device cuda raised {e!r}:\n"
+                 f"{buf.getvalue()[-2000:]}")
+        finally:
+            sys.argv = argv
+        out["examples_s"][name] = time.perf_counter() - t1
+        got = dict(c.read_counts(),
+                   flash_attention=flash_attention_cuda.launches)
+        out["launches"][label] = got
+        text = buf.getvalue()
+        if last not in text:
+            fail(f"{label} --device cuda ended without {last!r}:\n"
+                 f"{text[-2000:]}")
+        missing = [kernel for kernel in must if not got[kernel]]
+        if missing:
+            fail(f"{label}: {missing} not launched: {got}")
+        log(f"{label} --device cuda: {out['examples_s'][name]:.1f} s, "
+            f"launches {got}; its last line: {text.strip().splitlines()[-1]}")
+        free_phase(torch, label)
+    phase_s["[23d]"] = time.perf_counter() - t0
+    log(f"[23d] the four examples one after another in "
+        f"{phase_s['[23d]']:.1f} s "
+        f"({smi})")
+    phase_s["[23]"] = time.perf_counter() - t_all
+    out["phase_s"] = phase_s
+    if phase_s["[23]"] > 90:
+        fail(f"[23] took {phase_s['[23]']:.1f} s, more than its 90 s")
     return out
 
 
@@ -5185,6 +5502,22 @@ def main() -> None:
     entries["flash_attention"]["whisper_shapes"] = audio["flash"]
     log(f"[18]-[20] flash_attention launches by path: "
         f"{entries['flash_attention']['audio_vlm_launches']}")
+    # ---------- 23. the last entry points: valuate's flags, ops, examples
+    gc.collect()
+    log(f"[23] device memory held before: {device_gib(torch)}")
+    entry_points = entry_points_phase(torch, np, dev, ctx, smi)
+    log("[23] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in entry_points["phase_s"].items()))
+    for name, entry in entries.items():
+        by_path = {label: counts[name]
+                   for label, counts in entry_points["launches"].items()
+                   if counts.get(name)}
+        if by_path:
+            entry["entry_point_launches"] = by_path
+    log("[23] launches by path: " + ", ".join(
+        f"{name} {entry['entry_point_launches']}"
+        for name, entry in entries.items()
+        if "entry_point_launches" in entry))
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -5205,6 +5538,7 @@ def main() -> None:
                                        "audio_vlm_launches",
                                        "lm_grid_launches",
                                        "tooling_launches",
+                                       "entry_point_launches",
                                        "whisper_shapes") if key in e},
                                    "distributed_training_launches":
                                        e["distributed_training_launches"]}
@@ -5237,6 +5571,7 @@ def main() -> None:
                       "family_training": fam_training,
                       "lm_grid": lm_grid,
                       "tooling": tooling,
+                      "entry_points": entry_points,
                       "power": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,11 @@ grid of placeholder cells (`make_production_mesh()`: every cell
     step updates in place (the inputs that come back as outputs: params
     and both moments in training, the KV caches in decode), `temp_bytes`
     the peak of live intermediates over the whole run (storages the run
-    allocates, freed when their last tensor dies) divided by the cells
-    that share the compute.
+    allocates, freed when their last tensor dies; a view of an argument
+    or an in-place update of one allocates nothing) divided by the cells
+    that share the compute. On a card that runs the step eagerly this is
+    the caching allocator's peak above the placed state (chip_smoke.py
+    [22d] holds the two within 0.8-1.25x).
 
 Per device is the fullest cell's share: an LM step computes each data
 row whole on the row's cell (`distributed/grid_step.py`), so the counts
@@ -62,7 +65,7 @@ from repro_torch.launch.hlo_analysis import (
     KERNELS, collective_bytes, model_flops, roofline, sti_model_flops)
 from repro_torch.launch.mesh import make_production_mesh
 
-__all__ = ["run_cell", "all_cells", "main", "cell_memory"]
+__all__ = ["run_cell", "all_cells", "main", "cell_memory", "count_step"]
 
 # ops that move no data: an uninitialized allocation
 _NO_ACCESS = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -75,7 +78,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class _Accesses(TorchDispatchMode):
     """Sums each op's input and output bytes, and tracks the live bytes
-    of the storages the run allocates (their peak)."""
+    of the storages the run allocates (their peak): an op allocates its
+    outputs unless its schema returns an alias of an input (a view, an
+    in-place or an out= op), so the placed arguments that the step reads
+    through views or updates in place never count, as the caching
+    allocator never sees them again."""
 
     def __init__(self):
         super().__init__()
@@ -97,6 +104,8 @@ class _Accesses(TorchDispatchMode):
         else:
             self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
             self.bytes += sum(_nbytes(t) for t in _tensors(out))
+        if any(r.alias_info is not None for r in func._schema.returns):
+            return out
         for t in _tensors(out):
             st = t.untyped_storage()
             key = st._cdata
@@ -106,6 +115,18 @@ class _Accesses(TorchDispatchMode):
                 self.peak = max(self.peak, self.live)
                 weakref.finalize(st, self._freed, key, st.nbytes())
         return out
+
+
+def count_step(step, args) -> tuple:
+    """(outs, {"flops", "bytes", "peak_bytes"}) of one `step(*args)`: its
+    FLOPs and bytes with the kernels' own, and the peak of the live bytes
+    of the storages it allocates (the arguments' excluded)."""
+    acc = _Accesses()
+    with KERNELS.counting(), acc, FlopCounterMode(display=False) as fc:
+        outs = step(*args)
+    return outs, {"flops": fc.get_total_flops() + KERNELS.ops,
+                  "bytes": acc.bytes + KERNELS.bytes,
+                  "peak_bytes": acc.peak}
 
 
 # --------------------------------------------------------------- memory
@@ -218,15 +239,13 @@ def run_cell(arch: str, shape_name, multi_pod: bool = False,
         mflops = model_flops(cfg, shape)
         step, args, busy, held = _lm_cell(cfg, shape, grid, strategy,
                                           grad_accum)
-    acc = _Accesses()
-    with KERNELS.counting(), acc, FlopCounterMode(display=False) as fc:
-        outs = step(*args)
+    outs, count = count_step(step, args)
     t_run = time.time() - t0
-    flops = (fc.get_total_flops() + KERNELS.ops) / busy
-    nbytes = (acc.bytes + KERNELS.bytes) / busy
+    flops = count["flops"] / busy
+    nbytes = count["bytes"] / busy
     coll = collective_bytes()
     cell, mem = cell_memory(grid, *held(args, outs))
-    mem["temp_bytes"] = acc.peak // busy
+    mem["temp_bytes"] = count["peak_bytes"] // busy
     terms = roofline(flops, nbytes, coll["total"], n_chips, mflops,
                      peak_memory=float(mem["temp_bytes"]
                                        + mem["argument_bytes"]

@@ -16,14 +16,25 @@ end-to-end on a CUDA card (or, when asked, the CPU).
   PYTHONPATH=src python -m repro_torch.launch.valuate --device cpu \
       --resilient --ckpt-dir /tmp/ck --ckpt-every 2 --n 64 --t 32 \
       --test-batch 8
+  PYTHONPATH=src python -m repro_torch.launch.valuate --method wknn \
+      --weights inverse --stream --test-batch 256
 
 Pipeline: synthetic circles (10% of train labels flipped) -> a method from
 the registry ("sti"/"sii" on the `fused` or `scan` engine, or a per-point
 method "knn_shapley"/"wknn"/"loo" on its `streamed` session; any method
 on the `sharded` engine) -> efficiency check and mislabel detection.
+`--mode` is an alias of `--method`; `--weights rbf|inverse|uniform` is
+wknn's weight kind, on every path (other methods take no weights).
 `--fill megakernel` runs every streaming step as one launch of the fused
-kernel (for the point methods through a session). `--engine sharded`
-splits the state into `--shards` row blocks over `--devices`, a comma-
+kernel (for the point methods through a session). `--stream` drives any
+method with a streaming kernel through a session fed in `--test-batch`
+slices: a `ValuationSession`, a `ShardedValuationSession` under
+`--engine sharded` (`--shards`, `--devices` as below), an
+`ApproxValuationSession` under `--engine approx`; the other engines are
+ignored with a note. It takes the distance the one-shot run of the same
+invocation takes (`--distance`), so both resolve the same kernel.
+`--engine sharded` splits the state into `--shards` row blocks over
+`--devices`, a comma-
 separated list with one device per shard (a single name is repeated
 `--shards` times); without `--devices` the shards go one per local card,
 so a one-card host runs several shards only through `--devices`.
@@ -39,13 +50,15 @@ It takes none of the fused pipeline's knobs (`--fill`, `--distance`,
 clamped to [k+1, n]; `--top-m` >= n is bit for bit the exact engine;
 `--recall-target` records whether the measured recall met it) and prints
 its certified error bound. `--autotune` tunes what "auto" finds missing
-from the tuning cache first. `--resilient` drives a
+from the tuning cache first. `--resilient` (implies `--stream`) drives a
 `ResilientValuationSession` (any method; sharded with --engine sharded):
 guarded retries, a checkpoint every `--ckpt-every` batches into
 `--ckpt-dir` (a fresh temporary directory by default), NaN rollback; a
 directory that already holds a checkpoint of either package RESUMES it,
 the replayed batches skipped exactly once. `--save` writes the result in
-the format both packages read (npz + JSON).
+the format both packages read (npz + JSON). For sti and sii it also
+prints the correlation of the phi aggregate with `knn_shapley_values`
+and the range of `loo_values`.
 """
 
 from __future__ import annotations
@@ -55,11 +68,15 @@ import time
 
 import numpy as np
 
+from repro_torch.core.analysis import knn_test_accuracy
 from repro_torch.core.methods import ENGINES, get_method
 from repro_torch.core.session import (
-    ShardedValuationSession, ValuationSession)
-from repro_torch.core.sti_baseline import sorted_orders
+    ApproxValuationSession, ShardedValuationSession, ValuationSession)
+from repro_torch.core.wknn import WEIGHT_KINDS
 from repro_torch.data import flip_labels, make_circles
+
+# the engines a session folds under --stream; the others are ignored
+_STREAM_ENGINES = ("fused", "streamed", "sharded", "approx")
 
 
 def _shard_options(args) -> dict:
@@ -117,6 +134,22 @@ def _tune_option(args) -> dict:
     return {"autotune": True} if args.autotune else {}
 
 
+def _method_opts(args) -> dict:
+    """The method's own options from the CLI: wknn's weight kind; no
+    other method takes one (the JAX launcher's option filter)."""
+    return {"weights": args.weights} if args.method == "wknn" else {}
+
+
+def _session_kw(args, fill) -> dict:
+    """The keyword options every session of this launcher takes."""
+    kw = dict(k=args.k, mode=args.method, test_batch=args.test_batch,
+              fill=fill, distance=args.distance, autotune=args.autotune,
+              device=args.device)
+    if _method_opts(args):
+        kw["method_opts"] = _method_opts(args)
+    return kw
+
+
 def _point_values(args, x, y, xt, yt):
     """A point method's result: through the registry, or -- for
     `--fill megakernel`, which the registry's point engines do not take --
@@ -129,13 +162,29 @@ def _point_values(args, x, y, xt, yt):
             x, y, xt, yt, k=args.k, engine=engine, distance=args.distance,
             test_batch=args.test_batch, device=args.device,
             **_approx_options(args), **_tune_option(args),
+            **_method_opts(args),
             **{nm: v for nm, v in shard_kw.items() if v is not None})
-    kw = dict(k=args.k, mode=args.method, test_batch=args.test_batch,
-              fill="megakernel", distance=args.distance, device=args.device,
-              autotune=args.autotune)
+    kw = _session_kw(args, "megakernel")
     sess = (ShardedValuationSession(x, y, **shard_kw, **kw) if shard_kw
             else ValuationSession(x, y, **kw))
     return sess.update(xt, yt).finalize()
+
+
+def _stream_values(args, x, y, xt, yt):
+    """The result of a session over the test stream in slices of
+    --test-batch: sharded under --engine sharded, approximate under
+    --engine approx, else a `ValuationSession`."""
+    kw = _session_kw(args, args.fill)
+    if args.engine == "sharded":
+        sess = ShardedValuationSession(x, y, **_shard_options(args), **kw)
+    elif args.engine == "approx":
+        sess = ApproxValuationSession(x, y, **_approx_options(args), **kw)
+    else:
+        sess = ValuationSession(x, y, **kw)
+    for start in range(0, int(xt.shape[0]), args.test_batch):
+        sess.update(xt[start:start + args.test_batch],
+                    yt[start:start + args.test_batch])
+    return sess.finalize()
 
 
 def _resilient_values(args, x, y, xt, yt):
@@ -157,14 +206,10 @@ def _resilient_values(args, x, y, xt, yt):
             ckpt_dir, x, y, device=args.device, **shard_kw)
         print(f"resuming from {ckpt_dir} at batch {sess.batches_folded}")
     else:
-        kw = dict(k=args.k, mode=args.method, test_batch=args.test_batch,
-                  fill=args.fill, distance=args.distance,
-                  autotune=args.autotune, device=args.device)
-        if args.method == "wknn":
-            kw["method_opts"] = {"weights": "rbf"}
         sess = ResilientValuationSession(
             x, y, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
-            sharded=args.engine == "sharded", **shard_kw, **kw)
+            sharded=args.engine == "sharded", **shard_kw,
+            **_session_kw(args, args.fill))
     for start in range(0, int(xt.shape[0]), args.test_batch):
         sess.update(xt[start:start + args.test_batch],
                     yt[start:start + args.test_batch])
@@ -177,14 +222,16 @@ def _resilient_values(args, x, y, xt, yt):
     return result
 
 
-def main():
-    """Parse CLI args, run the requested method/engine, print analytics."""
+def main(argv=None):
+    """Parse CLI args (`argv`, default sys.argv), run the requested
+    method/engine, print analytics; returns the `ValuationResult`."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--t", type=int, default=128)
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--noise-frac", type=float, default=0.1)
-    ap.add_argument("--method", default="sti", choices=sorted(ENGINES))
+    ap.add_argument("--method", "--mode", dest="method", default="sti",
+                    choices=sorted(ENGINES))
     ap.add_argument("--engine", default="fused",
                     choices=sorted({e for es in ENGINES.values() for e in es}),
                     help="an engine of --method; a point method given an "
@@ -193,6 +240,8 @@ def main():
                     help="fill registry entry: auto|cuda|chunked|onehot|xla, "
                          "or megakernel (the fused one-launch step)")
     ap.add_argument("--distance", default="auto", help="auto|cuda|plain")
+    ap.add_argument("--weights", default="rbf", choices=WEIGHT_KINDS,
+                    help="wknn's weight kind (other methods take none)")
     ap.add_argument("--test-batch", type=int, default=256)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--shards", type=int, default=None,
@@ -219,10 +268,14 @@ def main():
     ap.add_argument("--autotune", action="store_true",
                     help="tune what 'auto' finds missing from the tuning "
                          "cache first ($REPRO_TORCH_AUTOTUNE_CACHE)")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive the method through a session fed in "
+                         "--test-batch slices (sharded under --engine "
+                         "sharded, approximate under --engine approx)")
     ap.add_argument("--resilient", action="store_true",
                     help="run through the fault-tolerant session (guarded "
                          "retries, periodic atomic checkpoints, NaN "
-                         "rollback)")
+                         "rollback); implies --stream")
     ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
                     help="checkpoint directory for --resilient (default: a "
                          "fresh temporary directory); a directory holding "
@@ -232,9 +285,11 @@ def main():
                          "(0 disables checkpointing and rollback)")
     ap.add_argument("--save", default=None, metavar="PATH",
                     help="persist the ValuationResult to PATH.npz + PATH.json")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.distributed:
         args.engine = "distributed"
+    if args.resilient:
+        args.stream = True
 
     x, y_clean = make_circles(args.n // 2, noise=0.08, seed=0)
     y, flipped = flip_labels(y_clean, args.noise_frac, 2, seed=1)
@@ -253,7 +308,12 @@ def main():
         ap.error("--devices needs --engine sharded or distributed")
     if args.mesh_shape is not None and args.engine != "distributed":
         ap.error("--mesh-shape needs --engine distributed")
-    grid = args.engine == "distributed" and args.method in ("sti", "sii")
+    # every method of ENGINES has a streaming kernel
+    if args.stream and args.engine not in _STREAM_ENGINES:
+        print(f"note: --stream folds the session step; "
+              f"--engine {args.engine} ignored")
+    grid = (args.engine == "distributed" and args.method in ("sti", "sii")
+            and not args.stream)
     if grid and (args.fill != "auto" or args.distance != "auto"
                  or args.test_batch != 256 or args.autotune):
         ap.error("--engine distributed takes none of --fill, --distance, "
@@ -265,6 +325,8 @@ def main():
                  "streamed or sharded")
     if args.resilient:
         result = _resilient_values(args, x, y, xt, yt)
+    elif args.stream:
+        result = _stream_values(args, x, y, xt, yt)
     elif grid:
         result = get_method(args.method)(
             x, y, xt, yt, k=args.k, engine="distributed", device=args.device,
@@ -298,11 +360,7 @@ def main():
                  if "recall_target_met" in meta else ""))
 
     # efficiency axiom (v(N) is the likelihood valuation, paper's v)
-    orders = sorted_orders(x.numpy(), xt.numpy())
-    kk = min(args.k, n)
-    y_np = y.numpy()
-    v_n = np.mean([np.sum(y_np[orders[p, :kk]] == int(yt[p])) / args.k
-                   for p in range(t)])
+    v_n = knn_test_accuracy(x, y, xt, yt, args.k, device=args.device)
     if result.phi is not None:
         print(f"efficiency gap |sum(phi)-v(N)| = "
               f"{float(result.efficiency_gap(v_n)):.2e}")
@@ -318,9 +376,25 @@ def main():
     print(f"mislabel detection: {hits}/{n_flip} flipped points in "
           f"top-{n_flip} (precision {hits / n_flip:.2f})")
 
+    if result.phi is not None:
+        from repro_torch.core import knn_shapley_values, loo_values
+
+        sv = knn_shapley_values(x, y, xt, yt, args.k,
+                                distance=args.distance, device=args.device)
+        lv = loo_values(x, y, xt, yt, args.k, distance=args.distance,
+                        device=args.device)
+        # per-point aggregate of the interaction matrix (the order-2
+        # Shapley-Taylor decomposition of the Shapley value)
+        agg = result.values().cpu().numpy()
+        print(f"KNN-Shapley corr with phi aggregate: "
+              f"{np.corrcoef(sv.cpu().numpy(), agg)[0, 1]:.3f}")
+        print(f"LOO values range: "
+              f"[{float(lv.min()):.4f}, {float(lv.max()):.4f}]")
+
     if args.save:
         p = result.save(args.save)
         print(f"saved {p} (+ .json metadata)")
+    return result
 
 
 if __name__ == "__main__":

@@ -241,6 +241,95 @@ def test_argument_bytes_are_the_placed_blocks():
     assert mem["argument_bytes"] == blocks
 
 
+MIB = 1 << 20
+
+
+def _chain(x, w):
+    """A step whose peak is known by hand: x (1 MiB f32) is updated in
+    place and read through a view (no allocation), then two 1 MiB
+    temporaries are live at once, then one and a 4-byte sum."""
+    x.mul_(2.0)
+    a = x.view(-1) + 1.0
+    b = a * w.view(-1)
+    del a
+    return b.sum()
+
+
+def _tanh_chain(x):
+    """Ten tanh ops on a 1 MiB leaf under autograd, then backward. The
+    ten outputs are saved for backward (10 MiB) with the 4-byte sum and
+    its 4-byte seed gradient; the peak comes at the second step back:
+    the first gradient (1 MiB) is live while the second (1 MiB) is made,
+    and the last output is still held by `y`: 12 MiB + 8 bytes."""
+    x = x.detach().requires_grad_(True)
+    y = x
+    for _ in range(10):
+        y = torch.tanh(y)
+    y.sum().backward()
+    return x.grad
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("case,want", [("chain", 2 * MIB),
+                                       ("tanh", 12 * MIB + 8)])
+def test_count_step_peak_is_known_by_hand(case, want, device):
+    """The dry run's peak of live bytes is exact for steps whose peak is
+    counted by hand, on meta and on real CPU tensors alike; an argument
+    updated in place or read through a view is not counted."""
+    from repro_torch.launch.dryrun import count_step
+
+    x = torch.zeros(MIB // 4, device=device)
+    if case == "chain":
+        step, args = _chain, (x, torch.ones(MIB // 4, device=device))
+    else:
+        step, args = _tanh_chain, (x,)
+    _, count = count_step(step, args)
+    assert count["peak_bytes"] == want
+
+
+def _cpu_profiler_peak(step, args) -> int:
+    """The CPU allocator's peak above what was allocated before `step`,
+    from torch.profiler's memory events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        out = step(*args)
+        del out
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "[memory]"), key=lambda e: e.start_ns())
+    live = peak = 0
+    for e in events:
+        live += e.nbytes()
+        peak = max(peak, live)
+    return peak
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "tp_dp"])
+def test_meta_temp_bytes_track_the_cpu_allocator(strategy):
+    """A reduced qwen3 train cell on a (2, 2) grid: the meta count's
+    temp_bytes x cells_busy lies within chip_smoke.py [22d]'s bound of the
+    CPU allocator's peak over the same step on placed zeros."""
+    from repro_torch.configs.base import ShapeSpec, tree_map
+    from repro_torch.launch import specs as SPEC
+
+    over = dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+                head_dim=64, d_ff=512, vocab_size=1024)
+    shape = ShapeSpec("t", 64, 2, "train")
+    rec = run_cell("qwen3-1.7b", shape, strategy=strategy,
+                   grid=_small_grid(), cfg_overrides=over, verbose=False)
+    cfg = registry.get_config("qwen3-1.7b").replace(**over)
+    grid = SH.DeviceGrid(("cpu",) * 4, (2, 2))
+    step, args, in_specs, _ = SPEC.lm_cell(cfg, shape, grid,
+                                           strategy=strategy)
+    placed = tree_map(lambda pl, a: pl.place(torch.zeros(
+        a.shape, dtype=a.dtype)), SH.tree_named(grid, in_specs), args)
+    peak = _cpu_profiler_peak(step, placed)
+    meta = rec["memory_analysis"]["temp_bytes"] * rec["cells_busy"]
+    lo, hi = _chip_smoke().TEMP_BYTES_BOUND
+    assert lo <= meta / peak <= hi, (meta, peak)
+
+
 # ------------------------------------------- the wrappers' meta path
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device=META)

@@ -296,6 +296,48 @@ def test_efficiency_gap_blocks_rows(monkeypatch):
         want, rel=1e-12)
 
 
+def test_mislabel_scores_block_rows(monkeypatch):
+    """Row blocks of any size give the whole-matrix expression's scores,
+    bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    phi = torch.randn(10, 10, generator=gen)
+    labels = torch.randint(0, 3, (10,), generator=gen)
+    onehot = torch.nn.functional.one_hot(labels, 3).float()
+    off = phi - torch.diag(torch.diag(phi))
+    same_all = onehot @ onehot.T
+    same = same_all - torch.diag(torch.diag(same_all))
+    other = (1.0 - same_all) * (1.0 - torch.eye(10))
+    want = ((off * same).sum(-1) / torch.clamp_min(same.sum(-1), 1)
+            - (off * other).sum(-1) / torch.clamp_min(other.sum(-1), 1)
+            - torch.diag(phi))
+    for rows in (3, 4, 10, 4096):
+        monkeypatch.setattr(tanalysis, "_GAP_ROWS", rows)
+        assert torch.equal(tanalysis.mislabel_scores(phi, labels, 3), want)
+
+
+@pytest.mark.parametrize("features", ["circles", "integer"])
+def test_knn_test_accuracy_matches_the_reference_host_count(features,
+                                                           monkeypatch):
+    """v(N) on the device equals the reference quickstart's host count
+    over `sti_baseline.sorted_orders` (stable: ties to the lower index),
+    in test-row blocks of any size and on integer features full of ties."""
+    from repro.core.sti_baseline import sorted_orders
+
+    if features == "circles":
+        x, y = tsyn.make_circles(40, noise=0.08, seed=0)
+        xt, yt = tsyn.make_circles(9, noise=0.08, seed=1)
+    else:
+        x, y, xt, yt = (torch.from_numpy(a)
+                        for a in _problem(80, 18, 2, 41, integer=True))
+    orders = sorted_orders(x.numpy(), xt.numpy())
+    want = np.mean([np.sum(y.numpy()[orders[p, :5]] == int(yt[p])) / 5
+                    for p in range(len(yt))])
+    for rows in (8, 4096):
+        monkeypatch.setattr(tanalysis, "_GAP_ROWS", rows)
+        got = tanalysis.knn_test_accuracy(x, y, xt, yt, 5, device="cpu")
+        assert got == pytest.approx(want, abs=1e-12)
+
+
 def test_result_files_cross_load(tmp_path):
     x, y, xt, yt = _problem(16, 4, 2, 37)
     ours = get_method("sti")(x, y, xt, yt, k=3, device="cpu")
@@ -366,6 +408,9 @@ def test_import_leaves_no_jax_or_repro_module():
 def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
+    assert len(examples) == 4
+    files += examples
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
