@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.core.results import ValuationResult
 from repro_torch.device import resolve_device, to_device
+from repro_torch.tracing import span
 
 __all__ = ["ValuationSession", "ShardedValuationSession",
            "ApproxValuationSession"]
@@ -152,25 +153,27 @@ class ValuationSession:
         Returns self (chainable)."""
         from repro_torch.kernels.sti_pipeline import pad_test_batch
 
-        xb = to_device(x_test_batch, self.device)
-        yb = to_device(y_test_batch, self.device)
-        if xb.ndim == 1:
-            xb, yb = xb[None, :], yb.reshape(1)
-        xb = self._embed(xb).to(self._fdt)
-        if xb.ndim != 2 or xb.shape[1] != self.x_train.shape[1]:
-            raise ValueError(
-                f"test batch must be (b, {self.x_train.shape[1]}), "
-                f"got {tuple(xb.shape)}"
-            )
-        b = xb.shape[0]
-        for start in range(0, b, self.test_batch):
-            xs, ys, mask = pad_test_batch(
-                xb[start:start + self.test_batch].contiguous(),
-                yb[start:start + self.test_batch], self.test_batch)
-            self._state = self._step(self._state,
-                                     *self._place_batch(xs, ys, mask),
-                                     *self._train_args())
-        self._t += b
+        with span("session.update"):
+            xb = to_device(x_test_batch, self.device)
+            yb = to_device(y_test_batch, self.device)
+            if xb.ndim == 1:
+                xb, yb = xb[None, :], yb.reshape(1)
+            xb = self._embed(xb).to(self._fdt)
+            if xb.ndim != 2 or xb.shape[1] != self.x_train.shape[1]:
+                raise ValueError(
+                    f"test batch must be (b, {self.x_train.shape[1]}), "
+                    f"got {tuple(xb.shape)}"
+                )
+            b = xb.shape[0]
+            for start in range(0, b, self.test_batch):
+                with span("session.pad"):
+                    xs, ys, mask = pad_test_batch(
+                        xb[start:start + self.test_batch].contiguous(),
+                        yb[start:start + self.test_batch], self.test_batch)
+                self._state = self._step(self._state,
+                                         *self._place_batch(xs, ys, mask),
+                                         *self._train_args())
+            self._t += b
         return self
 
     def _place_batch(self, xs, ys, mask) -> tuple:

@@ -9,7 +9,9 @@ state IN PLACE -- the JAX step donates it instead: "sti"/"sii" update an
 (n, n) accumulator and (n,) diagonal through the fill registry,
 "knn_shapley"/"wknn"/"loo" a single (n,) vector. A ragged trailing batch
 is padded to the batch shape by `pad_test_batch`; the mask zeroes its
-contribution exactly.
+contribution exactly. Each stage runs inside a named span of
+`repro_torch.tracing` (`step.distance`, `step.rank`, `step.contrib`,
+`step.g`, `step.update`), which a profiler's trace reads.
 
 `fill="megakernel"` swaps the whole step for ONE launch of the fused
 kernel (`repro_torch.kernels.sti_megakernel`): distance, stable sort,
@@ -64,6 +66,7 @@ from repro_torch.kernels.stream_kernels import (
     make_refold_kernel,
     make_update_kernel,
 )
+from repro_torch.tracing import span
 
 __all__ = [
     "fused_sti_knn_interactions",
@@ -161,13 +164,18 @@ def _prologue(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
     contribution (mask folded in) -> optional `superdiagonal_g`."""
 
     def prologue(xb, yb, mask, x_train, y_train):
-        d2 = dist_fn(xb, x_train)                                # (tb, n)
-        order = torch.sort(d2, dim=-1, stable=True).indices      # int64
-        ranks = ranks_from_order(order)
-        match = (y_train[order] == yb[:, None]).to(torch.float32)
-        u = kernel.contrib(d2, order, match, mask)
-        g = (superdiagonal_g(u, k, mode=kernel.g_mode)
-             if kernel.needs_g else None)
+        with span("step.distance"):
+            d2 = dist_fn(xb, x_train)                            # (tb, n)
+        with span("step.rank"):
+            order = torch.sort(d2, dim=-1, stable=True).indices  # int64
+            ranks = ranks_from_order(order)
+        with span("step.contrib"):
+            match = (y_train[order] == yb[:, None]).to(torch.float32)
+            u = kernel.contrib(d2, order, match, mask)
+        if not kernel.needs_g:
+            return u, None, ranks
+        with span("step.g"):
+            g = superdiagonal_g(u, k, mode=kernel.g_mode)
         return u, g, ranks
 
     return prologue
@@ -187,13 +195,15 @@ def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable,
 
     def body(state, xb, yb, mask, x_train, y_train):
         u, g, ranks = prologue(xb, yb, mask, x_train, y_train)
-        return kernel.update(state, u, g, ranks, mask)
+        with span("step.update"):
+            return kernel.update(state, u, g, ranks, mask)
 
     def sharded_body(state, xb, yb, mask, x_train, y_train):
         heads = [prologue(*args)
                  for args in zip(xb, yb, mask, x_train, y_train)]
         u, g, ranks = (list(col) for col in zip(*heads))
-        return kernel.update(state, u, g, ranks, mask)
+        with span("step.update"):
+            return kernel.update(state, u, g, ranks, mask)
 
     return sharded_body if sharded else body
 
