@@ -12,7 +12,7 @@ n = 65536, d = 768, k = 5) with t = 384 test points (one full batch of
 256 and one ragged batch padded to 256):
 
   [4] `get_method("sti")` on the fused engine: the three-stage step, the
-      distance and fill kernels;
+      distance, rank sort and fill kernels, one launch of each a step;
   [5] the same with `fill="megakernel"`: one launch of the fused
       megakernel per step, its phi held against [4]'s;
   [6] `ValuationSession(mode=m, fill="megakernel")` for each per-point
@@ -98,11 +98,12 @@ and then the "distributed" engine and the LM training path:
       configuration's full width on [4]'s data, on a (data 2, model 2)
       `DeviceGrid` of the one card: phi and its diagonal within 1e-6 of
       max |ref| of [4]'s phi (the same call recomputed), phi exactly
-      symmetric, exactly 4 distance and 4 rect fill launches and no
-      other; its time (CUDA events, then again with the allocator warm),
+      symmetric, exactly 4 distance, 4 rank sort and 4 rect fill
+      launches and no other; its time (CUDA events, then again with the allocator warm),
       one cell's rect fill alone and peak memory; sii on a (2, 2) grid at
       n = 8192 against the fused engine; `make_sti_step_fn` at full width
-      (one distance, one square fill launch) against [4]'s sums;
+      (one distance, one rank sort, one square fill launch) against [4]'s
+      sums;
   [14] training qwen3-1.7b: the loss and every gradient leaf on the card
       against the CPU at full width with 2 layers (f32, TF32 off, 1 x 256
       tokens; the CPU side in a process of its own, MKL in its
@@ -214,7 +215,16 @@ and then the port's tooling and its last entry points:
       the one-shot runs; `kernels.ops`' `pairwise_distance` and
       `sti_fill` bit-equal to their kernels at the main path's shapes;
       the four `examples/*_torch.py` in process with `--device cuda` at
-      their default sizes, each with its kernels' launches; at most 90 s.
+      their default sizes, each with its kernels' launches; at most 90 s;
+  [24] the rank stage's kernel (`kernels/rank_sort.py`) at the two
+      benchmark cells' shapes, 256 x 92,160 and 256 x 1,281,167 distances
+      of blob features at d = 768: order and ranks bit-equal to its plain
+      version (`torch.sort` + `ranks_from_order`), the passes each row
+      took, its time, the plain version's and `torch.sort`'s alone by
+      CUDA events beside its bound (the stage's floor: keys read, order
+      and ranks written once) and the radix passes' own traffic, its peak
+      memory, and its runtime launches and memsets in one call (a
+      torch.profiler trace).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
@@ -792,7 +802,7 @@ def approx_phase(torch, dev, c) -> dict:
         f"error_bound {res_c.meta['error_bound']}, bit-identical to [4]'s "
         f"exact phi {full_equal}")
     c.expect("[9c] sti top_m=n", info["launches"], distance=c.n_steps,
-             sti_fill_acc=c.n_steps)
+             rank_sort=c.n_steps, sti_fill_acc=c.n_steps)
     if not (full_equal and res_c.meta["approx_exact"] is True
             and res_c.meta["error_bound"] == 0.0):
         fail("[9c] sti at top_m=n is not the exact engine bit for bit")
@@ -917,7 +927,8 @@ def approx_scale_phase(torch, dev, c) -> dict:
         log(f"[9f] knn_shapley {engine} n={n} d={d} t={t}: "
             f"{info['total_s']:.3f} s, peak {info['peak_gib']:.2f} GiB, "
             f"launches {info['launches']}")
-        c.expect(f"[9f] {engine}", info["launches"], distance=c.n_steps)
+        c.expect(f"[9f] {engine}", info["launches"], distance=c.n_steps,
+                 rank_sort=c.n_steps if engine == "streamed" else 0)
     ap, ex = results["approx"], results["streamed"]
     err = float((ap.point_values - ex.point_values).abs().max())
     bound = ap.meta["error_bound"]
@@ -1081,7 +1092,8 @@ def tuner_phase(torch, dev, c) -> dict:
     # fill="auto" runs what the cache names
     want_sti = ({"sti_megakernel": c.n_steps}
                 if won["megastep_sti"][0] == "megakernel" else
-                {"distance": c.n_steps, "sti_fill_acc": c.n_steps})
+                {"distance": c.n_steps, "rank_sort": c.n_steps,
+                 "sti_fill_acc": c.n_steps})
     c.zero_counts()
     res = get_method("sti")(c.x_train, c.y_train, c.x_test, c.y_test, k=k,
                             engine="fused", test_batch=tb, device=dev)
@@ -1095,7 +1107,7 @@ def tuner_phase(torch, dev, c) -> dict:
     torch.cuda.empty_cache()
     want_pt = ({"point_megakernel": c.n_steps}
                if won["megastep_knn_shapley"][0] == "megakernel" else
-               {"distance": c.n_steps})
+               {"distance": c.n_steps, "rank_sort": c.n_steps})
     c.zero_counts()
     sess = ValuationSession(c.x_train, c.y_train, k=k, mode="knn_shapley",
                             test_batch=tb, device=dev)
@@ -1253,7 +1265,8 @@ def resilient_phase(torch, np, dev, c) -> dict:
         if res["rollbacks"] != 1 or res["nan_detected"] != 1:
             fail(f"[11] expected one NaN rollback, got {res}")
         # folds run: 0, 1, 2, 3 (poisoned), then the replay of 2 and 3
-        c.expect("[11] resilient folds", first, distance=6, sti_fill_acc=6)
+        c.expect("[11] resilient folds", first, distance=6, rank_sort=6,
+                 sti_fill_acc=6)
         out["first_run"] = dict(
             update_s=fold_s, launches=first, resilience=res,
             snapshot_s=timings(ev, "_snapshot"),
@@ -1290,7 +1303,8 @@ def resilient_phase(torch, np, dev, c) -> dict:
             f"{res2['replayed_skipped']}, launches {second}")
         if res2["replayed_skipped"] != 2:
             fail(f"[11] replayed_skipped {res2['replayed_skipped']} != 2")
-        c.expect("[11] restored folds", second, distance=2, sti_fill_acc=2)
+        c.expect("[11] restored folds", second, distance=2, rank_sort=2,
+                 sti_fill_acc=2)
         phi_r = result.phi
         del resumed, result
         torch.cuda.empty_cache()
@@ -1307,7 +1321,7 @@ def resilient_phase(torch, np, dev, c) -> dict:
         torch.cuda.synchronize()
         log(f"[11] device memory after the bare finalize: {device_gib(torch)}")
         c.expect("[11] bare session", c.read_counts(), distance=4,
-                 sti_fill_acc=4)
+                 rank_sort=4, sti_fill_acc=4)
         same = all(bool(torch.equal(phi_r[r0:r0 + 4096], phi_b[r0:r0 + 4096]))
                    for r0 in range(0, n, 4096))
         same_diag = bool(torch.equal(phi_r.diagonal(), phi_b.diagonal()))
@@ -1951,7 +1965,7 @@ def distributed_phase(torch, np, dev, c) -> dict:
     wall_s = time.perf_counter() - t0
     got = c.read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    c.expect("[13] sti distributed (2, 2)", got, distance=4,
+    c.expect("[13] sti distributed (2, 2)", got, distance=4, rank_sort=4,
              sti_fill_acc_rect=4)
     phi = res.phi
     if tuple(phi.shape) != (n, n) or res.meta["mesh"] != {"data": 2,
@@ -2018,7 +2032,7 @@ def distributed_phase(torch, np, dev, c) -> dict:
                             c.y_test, k=k, engine="distributed", mesh=grid)
     torch.cuda.synchronize()
     got = c.read_counts()
-    c.expect("[13] sii distributed (2, 2)", got, distance=4,
+    c.expect("[13] sii distributed (2, 2)", got, distance=4, rank_sort=4,
              sti_fill_acc_rect=4)
     want = get_method("sii")(c.x_train[:ns], c.y_train[:ns], c.x_test,
                              c.y_test, k=k, engine="fused", test_batch=c.tb,
@@ -2034,8 +2048,8 @@ def distributed_phase(torch, np, dev, c) -> dict:
         fail(f"[13] distributed sii disagrees with fused: {serr}")
     del sii, want
 
-    # make_sti_step_fn at full width: one distance and one square fill
-    # launch over all t test points, against [4]'s phi x t
+    # make_sti_step_fn at full width: one distance, one rank sort and one
+    # square fill launch over all t test points, against [4]'s phi x t
     c.zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2045,7 +2059,8 @@ def distributed_phase(torch, np, dev, c) -> dict:
     ev1.record()
     torch.cuda.synchronize()
     got = c.read_counts()
-    c.expect("[13] make_sti_step_fn", got, distance=1, sti_fill_acc=1)
+    c.expect("[13] make_sti_step_fn", got, distance=1, rank_sort=1,
+             sti_fill_acc=1)
     phi_sum.div_(t)
     err, scale = blocks_err(torch, phi_sum, ref, got_diag=diag_sum / t)
     del phi_sum
@@ -4350,6 +4365,86 @@ def entry_points_phase(torch, np, dev, c, smi: str) -> dict:
     return out
 
 
+def rank_sort_phase(torch, dev, smi: str) -> dict:
+    """[24]: the rank stage's kernel against its plain version at the two
+    cells' shapes (module doc). Returns the kernel table's figures: those
+    of the larger shape, the knn cell's, and each shape's under
+    `shapes`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.distance import distance_cuda
+    from repro_torch.kernels.rank_sort import (
+        rank_order_cuda, rank_order_plain, sort_passes)
+
+    ha = _costs()
+    out = {"max_abs_err": 0.0, "shapes": {}}
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for tb, n in ((256, 92160), (256, 1281167)):
+        x = torch.randn((n, 768), device=dev, generator=gen) * 3.44
+        xb = torch.randn((tb, 768), device=dev, generator=gen) * 3.44
+        d2 = distance_cuda(xb, x)
+        del x, xb
+        passes = torch.zeros((tb,), dtype=torch.int32, device=dev)
+        before = rank_order_cuda.launches
+        order, ranks = rank_order_cuda(d2, passes=passes)
+        want_o, want_r = rank_order_plain(d2)
+        torch.cuda.synchronize()
+        if rank_order_cuda.launches != before + 1:
+            fail(f"[24] rank_order_cuda launched "
+                 f"{rank_order_cuda.launches - before} times, not once")
+        if not (torch.equal(order, want_o) and torch.equal(ranks, want_r)):
+            fail(f"[24] rank sort at ({tb}, {n}) differs from torch.sort + "
+                 f"ranks_from_order")
+        if not torch.equal(passes, sort_passes(d2)):
+            fail(f"[24] the kernel's passes at ({tb}, {n}) are not "
+                 f"sort_passes'")
+        del order, ranks, want_o, want_r
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rank_order_cuda(d2)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rank_order_cuda(d2)
+            torch.cuda.synchronize()
+        calls = sorted(e.name for e in prof.events()
+                       if e.name.startswith(("cudaLaunchKernel",
+                                             "cudaMemset", "cuLaunchKernel")))
+        ms = cuda_ms(torch, lambda: rank_order_cuda(d2), reps=10)
+        plain_ms = cuda_ms(torch, lambda: rank_order_plain(d2), reps=3)
+        lib_ms = cuda_ms(torch, lambda: torch.sort(d2, dim=-1, stable=True),
+                         reps=3)
+        bound, by = ha.rank_sort_cost(tb, n).bound_ms()
+        traffic_ms = 1e3 * ha.sort_traffic(n, passes.tolist(), ranks=True) \
+            / ha.HBM_BYTES_PER_S
+        rows = {int(p): int(c) for p, c in zip(*torch.unique(
+            passes, return_counts=True))}
+        log(f"[24] rank sort ({tb}, {n}): bit-equal to torch.sort + "
+            f"ranks_from_order; rows by passes {rows}; {ms:.3f} ms (the "
+            f"stage's floor {bound:.3f} ms by {by}, {100 * bound / ms:.1f} "
+            f"%; the radix passes' own traffic {traffic_ms:.3f} ms, "
+            f"{100 * traffic_ms / ms:.1f} %), plain {plain_ms:.3f} ms, "
+            f"torch.sort alone {lib_ms:.3f} ms; peak +{peak:.3f} GiB; "
+            f"runtime launches and memsets in one call: {len(calls)} "
+            f"({smi})")
+        if len(calls) > 8:
+            fail(f"[24] one rank sort made {len(calls)} runtime launches: "
+                 f"{calls}")
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=lib_ms, shape=f"t={tb} n={n} f32")
+        out["shapes"][f"{tb}x{n}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "traffic_ms": traffic_ms,
+            "rows_by_passes": rows, "peak_gib": peak,
+            "runtime_launches": len(calls)}
+        del d2, passes
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4385,6 +4480,7 @@ def main() -> None:
     from repro_torch.data import flip_labels, make_gaussian_blobs
     from repro_torch.kernels import build
     from repro_torch.kernels.distance import distance_cuda, distance_plain
+    from repro_torch.kernels.rank_sort import rank_order_cuda
     from repro_torch.kernels.sti_fill import TILE as FILL_TILE
     from repro_torch.kernels.sti_fill import (
         fill_tile_walk, rect_row_view, sti_fill_acc_cuda, sti_fill_acc_plain,
@@ -4966,6 +5062,7 @@ def main() -> None:
     y_train, _ = flip_labels(y_train, 0.1, 2, seed=1)
     del x_all, y_all
     distance_cuda.launches = sti_fill_acc_cuda.launches = 0
+    rank_order_cuda.launches = 0
     torch.cuda.synchronize()
     held_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
@@ -4978,6 +5075,7 @@ def main() -> None:
     total_s = time.perf_counter() - t0
     main_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {"distance": distance_cuda.launches,
+                "rank_sort": rank_order_cuda.launches,
                 "sti_fill_acc": sti_fill_acc_cuda.launches}
     log(f"[4] {CONFIG.mode} fused n={n_full} d={d_full} k={k} t={t_full} "
         f"(test_batch {tb}): {total_s:.3f} s total, resolved "
@@ -4985,11 +5083,17 @@ def main() -> None:
         f"launches {launches}, peak device memory {main_peak_gib:.2f} GiB "
         f"({held_gib:.2f} GiB held before by this script)")
     n_steps = -(-t_full // tb)
+    # the rank stage's entry: [24] measures the kernel at the cells' shapes
+    entries["rank_sort"] = dict(
+        name="rank_sort", route="cuda",
+        source="src/repro_torch/csrc/rank_sort.cu",
+        replaces="no TPU kernel (jnp.argsort + ranks_from_order)")
     for name, count in launches.items():
         if count == 0:
             fail(f"kernel {name} was not launched on the main path")
         entries[name]["launches"] = count
-    if launches != {"distance": n_steps, "sti_fill_acc": n_steps}:
+    if launches != {"distance": n_steps, "rank_sort": n_steps,
+                    "sti_fill_acc": n_steps}:
         fail(f"expected {n_steps} launches of each kernel, got {launches}")
     phi = result.phi
     if phi.shape != (n_full, n_full) or phi.device.type != "cuda":
@@ -5172,7 +5276,8 @@ def main() -> None:
 
     # ---------------- 7. the sharded engine at full width, 4 shards, 1 card
     devs = [dev] * shards
-    counted = {"distance": distance_cuda, "sti_fill_acc": sti_fill_acc_cuda,
+    counted = {"distance": distance_cuda, "rank_sort": rank_order_cuda,
+               "sti_fill_acc": sti_fill_acc_cuda,
                "sti_fill_acc_rect": sti_fill_acc_rect_cuda,
                "sti_megakernel": sti_megakernel_cuda,
                "point_megakernel": point_megakernel_cuda}
@@ -5221,6 +5326,7 @@ def main() -> None:
                    sti_megakernel=steps_x_shards)
         else:
             expect("sti three-stage", got, distance=steps_x_shards,
+                   rank_sort=steps_x_shards,
                    sti_fill_acc_rect=steps_x_shards)
             entries["sti_fill_acc_rect"]["launches"] = got["sti_fill_acc_rect"]
         log(f"[7] {CONFIG.mode} sharded fill={fill} on {shards} shards of one "
@@ -5283,7 +5389,8 @@ def main() -> None:
             expect("knn_shapley fill=megakernel", got,
                    point_megakernel=steps_x_shards)
         else:
-            expect("knn_shapley three-stage", got, distance=steps_x_shards)
+            expect("knn_shapley three-stage", got, distance=steps_x_shards,
+                   rank_sort=steps_x_shards)
         if vals.shape != (n_full,) or not bool(torch.isfinite(vals).all()):
             fail(f"[7] knn_shapley values: shape {tuple(vals.shape)} or "
                  f"non-finite")
@@ -5342,8 +5449,7 @@ def main() -> None:
     marks[0].record()
     d2 = distance_cuda(xb, xtr)
     marks[1].record()
-    order = torch.sort(d2, dim=-1, stable=True).indices
-    ranks = ranks_from_order(order)
+    order, ranks = rank_order_cuda(d2)
     marks[2].record()
     u = (ytr[order] == yb[:, None]).float() * (mask / k)[:, None]
     g = superdiagonal_g(u, k, mode=CONFIG.mode)
@@ -5399,7 +5505,8 @@ def main() -> None:
     service["phase_s"] = time.perf_counter() - t12
     log(f"[12] phase {service['phase_s']:.1f} s")
     shutil.rmtree(tune_dir, ignore_errors=True)
-    for name in ("distance", "sti_fill_acc", "sti_fill_acc_rect"):
+    for name in ("distance", "rank_sort", "sti_fill_acc",
+                 "sti_fill_acc_rect"):
         entries[name]["resilient_service_launches"] = {
             "[11]": resilient["launches"][name],
             "[12a]": service["sti"]["launches"][name],
@@ -5407,8 +5514,10 @@ def main() -> None:
             "[12c]": service["chaos"]["launches"][name]}
     log("[11]-[12] launches by path: " + ", ".join(
         f"{name} {entries[name]['resilient_service_launches']}"
-        for name in ("distance", "sti_fill_acc", "sti_fill_acc_rect")))
-    for name, want in (("distance", "[12a]"), ("sti_fill_acc", "[12a]"),
+        for name in ("distance", "rank_sort", "sti_fill_acc",
+                     "sti_fill_acc_rect")))
+    for name, want in (("distance", "[12a]"), ("rank_sort", "[12a]"),
+                       ("sti_fill_acc", "[12a]"),
                        ("sti_fill_acc_rect", "[12c]")):
         if not entries[name]["resilient_service_launches"][want]:
             fail(f"{name} was not launched on {want}'s path")
@@ -5440,7 +5549,7 @@ def main() -> None:
     log("[13]-[14] launches by path: " + ", ".join(
         f"{name} {entry['distributed_training_launches']}"
         for name, entry in entries.items()))
-    for name in ("distance", "sti_fill_acc_rect"):
+    for name in ("distance", "rank_sort", "sti_fill_acc_rect"):
         if not entries[name]["distributed_training_launches"]["[13]"]:
             fail(f"{name} was not launched on [13]'s path")
 
@@ -5518,6 +5627,10 @@ def main() -> None:
         f"{name} {entry['entry_point_launches']}"
         for name, entry in entries.items()
         if "entry_point_launches" in entry))
+    # ---------- 24. the rank stage's kernel at the cells' shapes
+    gc.collect()
+    rank_sort = rank_sort_phase(torch, dev, smi)
+    entries["rank_sort"].update(rank_sort)
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
@@ -5539,7 +5652,8 @@ def main() -> None:
                                        "lm_grid_launches",
                                        "tooling_launches",
                                        "entry_point_launches",
-                                       "whisper_shapes") if key in e},
+                                       "whisper_shapes", "shapes")
+                                      if key in e},
                                    "distributed_training_launches":
                                        e["distributed_training_launches"]}
                                   for e in entries.values()],

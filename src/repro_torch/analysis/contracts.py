@@ -81,6 +81,8 @@ ENTRIES = {
                        "sti_megakernel_cuda", "sti_megakernel_plain"),
     "point_megakernel": ("repro_torch.kernels.sti_megakernel",
                          "point_megakernel_cuda", "point_megakernel_plain"),
+    "rank_sort": ("repro_torch.kernels.rank_sort", "rank_order_cuda",
+                  "rank_order_plain"),
 }
 
 # the implementations the steps are prepared with: the registered kernels

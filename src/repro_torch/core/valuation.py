@@ -164,19 +164,20 @@ class DataValuator:
 
 def _sti_step_local(x_train, y_train, x_test, y_test, k: int, mode: str):
     """One fully batched STI-KNN accumulation step, no streaming: the
-    distance kernel, a stable sort, ranks, u and g, then the square fill
-    kernel on a zeroed (n, n) accumulator (the reference takes a vmap over
-    a (t, n, n) gather). Tensors on one device.
+    distance kernel, the rank stage's kernel (a stable sort and its
+    ranks), u and g, then the square fill kernel on a zeroed (n, n)
+    accumulator (the reference takes a vmap over a (t, n, n) gather).
+    Tensors on one device.
 
     Returns (phi_sum (n, n) f32, diag_sum (n,) f32), NOT yet divided by t,
     so partial results from test shards combine by addition."""
-    from repro_torch.core.sti_knn import ranks_from_order, superdiagonal_g
+    from repro_torch.core.sti_knn import superdiagonal_g
     from repro_torch.kernels.distance import distance_cuda
+    from repro_torch.kernels.rank_sort import rank_order_cuda
     from repro_torch.kernels.sti_fill import sti_fill_acc_cuda
 
     d2 = distance_cuda(x_test, x_train)
-    order = torch.sort(d2, dim=-1, stable=True).indices
-    ranks = ranks_from_order(order)
+    order, ranks = rank_order_cuda(d2)
     u = (y_train[order] == y_test[:, None]).to(torch.float32) / k
     g = superdiagonal_g(u, k, mode=mode)
     n = x_train.shape[0]

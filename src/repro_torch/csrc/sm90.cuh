@@ -2,9 +2,9 @@
 // memory addresses, mbarriers, TMA loads and stores, cp.async, the
 // 128-byte-swizzled wgmma matrix descriptor, the wgmma fence / commit /
 // wait, and the host side's tensor-map encoder. `flash_attention.cu`,
-// `distance.cu`, `sti_fill.cu` (through `fill_tile.cuh`) and
-// `sti_megakernel.cu` include it; each is its own library, so everything
-// here is internal to the including file.
+// `distance.cu`, `sti_fill.cu` (through `fill_tile.cuh`),
+// `sti_megakernel.cu` and `rank_sort.cu` include it; each is its own
+// library, so everything here is internal to the including file.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)

@@ -87,11 +87,16 @@
 
 #include "distance_tile.cuh"
 #include "fill_tile.cuh"
+#include "radix.cuh"
 #include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using radix::block_exclusive_scan;
+using radix::head_of;
+using radix::stage_words;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -207,44 +212,6 @@ constexpr int DIST_BYTES = 2 * dist_tile::STAGE_BYTES;
 constexpr size_t SMEM_BYTES =
     (DIST_BYTES > sizeof(Smem) ? DIST_BYTES : sizeof(Smem)) + 1024;
 
-// Exclusive prefix sum of one value a thread, in thread order. Holds one
-// barrier; `wsum` must not be written again before the next barrier.
-__device__ __forceinline__ unsigned int block_exclusive_scan(
-    unsigned int v, unsigned int* wsum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) wsum[warp] = x;
-  __syncthreads();
-  unsigned int before = 0;
-  for (int w = 0; w < warp; ++w) before += wsum[w];
-  return before + x - v;
-}
-
-// the word offset of `p` within its 16-byte chunk
-__device__ __forceinline__ int head_of(const void* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3u);
-}
-
-// Stage words [j0, j0 + m) of `src` into `buf` by the block: the 16-byte
-// chunks that hold them, so word j0 lands at buf[head_of(src + j0)]. A
-// chunk that holds a word of an array lies inside that array's
-// allocation (device allocations start 256-byte aligned and span whole
-// 16-byte chunks), so reading up to 12 bytes past either end is safe; the
-// words outside [j0, j0 + m) are never used.
-__device__ __forceinline__ void stage_words(uint32_t* buf, const void* src,
-                                            int j0, int m) {
-  const uint32_t* p = static_cast<const uint32_t*>(src) + j0;
-  const char* a = reinterpret_cast<const char*>(p) - 4 * head_of(p);
-  const int chunks = (head_of(p) + m + 3) >> 2;
-  for (int c = threadIdx.x; c < chunks; c += THREADS)
-    sm90::cp_async16(sm90::smem_u32(buf + 4 * c), a + 16 * c);
-}
-
 // f(valid, j, x) for every word x = a[j] of the n-word array a, read as
 // aligned 16-byte chunks, LOAD of them a thread in flight. Every lane
 // makes the same calls (f may hold warp collectives); `valid` is false
@@ -304,8 +271,8 @@ __device__ void radix_pass(const uint32_t* keys, const uint2* src,
   const int tiles = (n + TILE - 1) / TILE;
   auto stage = [&](int t) {
     const int j0 = t * TILE, m = min(TILE, n - j0);
-    if (FIRST) stage_words(s.stage[t & 1].w, keys, j0, m);
-    else stage_words(s.stage[t & 1].w, src, 2 * j0, 2 * m);
+    if (FIRST) stage_words<THREADS>(s.stage[t & 1].w, keys, j0, m);
+    else stage_words<THREADS>(s.stage[t & 1].w, src, 2 * j0, 2 * m);
     sm90::cp_async_commit();
   };
   stage(0);
@@ -637,9 +604,11 @@ __device__ void tables_row(const Params& P, int p, const uint32_t* keys,
   auto stage = [&](int c_hi, int b) {
     int nq, lo, j0, j1;
     span(c_hi, nq, lo, j0, j1);
-    stage_words(reinterpret_cast<uint32_t*>(s.ord[b]), ord, j0, j1 - j0);
-    stage_words(reinterpret_cast<uint32_t*>(s.coef[b]), P.coef, j0, j1 - j0);
-    if (weighted) stage_words(s.key[b], keys, j0, j1 - j0);
+    stage_words<THREADS>(reinterpret_cast<uint32_t*>(s.ord[b]), ord, j0,
+                         j1 - j0);
+    stage_words<THREADS>(reinterpret_cast<uint32_t*>(s.coef[b]), P.coef, j0,
+                         j1 - j0);
+    if (weighted) stage_words<THREADS>(s.key[b], keys, j0, j1 - j0);
     sm90::cp_async_commit();
   };
   constexpr int PER = (TILE + 2 + THREADS - 1) / THREADS;  // u a thread

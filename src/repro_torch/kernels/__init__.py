@@ -7,6 +7,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.rank_sort import rank_order_cuda, rank_order_plain
 from repro_torch.kernels.sti_fill import (
     rect_row_view,
     sti_fill_acc_cuda,
@@ -53,6 +54,8 @@ __all__ = [
     "distance_plain",
     "flash_attention_cuda",
     "flash_attention_plain",
+    "rank_order_cuda",
+    "rank_order_plain",
     "sti_fill_cuda",
     "sti_fill_acc_cuda",
     "sti_fill_plain",

@@ -2,9 +2,11 @@
 
 Counterpart of `repro.kernels.sti_pipeline` (the single-device engines).
 Per test batch, `_stream_body` runs the distance (the CUDA kernel on a
-card, the plain expansion on the CPU), a stable sort, the rank inversion,
-the method's masked contribution, `superdiagonal_g` for the interaction
-methods, and the method's update kernel, which folds the batch into the
+card, the plain expansion on the CPU), the rank stage (the stable sort and
+its inverse permutation: `kernels/rank_sort.py`'s kernel on a card,
+`torch.sort` and the rank scatter on the CPU), the method's masked
+contribution, `superdiagonal_g` for the interaction methods, and the
+method's update kernel, which folds the batch into the
 state IN PLACE -- the JAX step donates it instead: "sti"/"sii" update an
 (n, n) accumulator and (n,) diagonal through the fill registry,
 "knn_shapley"/"wknn"/"loo" a single (n,) vector. A ragged trailing batch
@@ -52,12 +54,12 @@ import torch
 from repro_torch.core.sti_knn import (
     InteractionMode,
     pairwise_sq_dists,
-    ranks_from_order,
     resolve_fill,
     resolve_rect_fill,
     superdiagonal_g,
 )
 from repro_torch.device import resolve_device, to_device
+from repro_torch.kernels.rank_sort import rank_order_cuda
 from repro_torch.kernels.stream_kernels import (
     INTERACTION_STATE,
     AccumulatorSpec,
@@ -167,8 +169,7 @@ def _prologue(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
         with span("step.distance"):
             d2 = dist_fn(xb, x_train)                            # (tb, n)
         with span("step.rank"):
-            order = torch.sort(d2, dim=-1, stable=True).indices  # int64
-            ranks = ranks_from_order(order)
+            order, ranks = rank_order_cuda(d2)                   # int64
         with span("step.contrib"):
             match = (y_train[order] == yb[:, None]).to(torch.float32)
             u = kernel.contrib(d2, order, match, mask)

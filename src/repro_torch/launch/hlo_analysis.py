@@ -33,7 +33,8 @@ __all__ = ["HW", "RooflineTerms", "KernelCost", "KERNELS", "roofline",
            "collective_bytes", "model_flops", "sti_model_flops",
            "distance_cost", "fill_cost", "rect_fill_cost",
            "sti_megakernel_cost", "point_megakernel_cost", "flash_cost",
-           "visible_pairs", "sort_floor_ms"]
+           "visible_pairs", "sort_traffic", "sort_floor_ms",
+           "rank_sort_cost"]
 
 # H100 SXM5 data-sheet peaks (NVIDIA), dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -142,14 +143,33 @@ def flash_cost(b, h, s, sk, d, causal, window, elt) -> KernelCost:
     return KernelCost(ops, (2 * s + 2 * sk) * b * h * d * elt, ops / peak)
 
 
+def sort_traffic(n, passes, ranks: bool = False) -> float:
+    """The bytes a stable LSD radix sort of rows of `n` f32 keys moves,
+    the port's two sorts' own traffic: per row, two prologue reads of the
+    keys (the minimum and maximum, then the digit histograms: 4 n bytes
+    each), the first pass (keys read, (key, index) pairs written: 12 n)
+    and each later pass (16 n), so 4 n + 16 n P bytes for a row of P
+    passes (`passes` holds each row's). `ranks` adds the int64 inverse
+    permutation that `csrc/rank_sort.cu`'s last pass writes beside the
+    order (8 n a row); the megakernel's sort writes none."""
+    per_key = [4 + 16 * int(p) + (8 if ranks else 0) for p in passes]
+    return float(n * sum(per_key))
+
+
 def sort_floor_ms(n, passes) -> float:
-    """The megakernel sort's own traffic over the card's memory rate: per
-    row, two prologue reads of the keys (the minimum and maximum, then the
-    digit histograms: 4 n bytes each), the first pass (keys read, keys and
-    indices written: 12 n) and each later pass (16 n), so 4 n + 16 n P
-    bytes for a row of P passes."""
-    return 1e3 * sum(4 * n + 16 * n * int(p) for p in passes) / \
-        HBM_BYTES_PER_S
+    """The megakernel sort's own traffic (`sort_traffic`) over the card's
+    memory rate."""
+    return 1e3 * sort_traffic(n, passes) / HBM_BYTES_PER_S
+
+
+def rank_sort_cost(t, n) -> KernelCost:
+    """The rank stage on (t, n) f32 keys at its floor: the keys read once
+    (4 bytes a key) and the int64 `order` and `ranks` written once (16).
+    The sort's own traffic at P passes, `sort_traffic(n, passes,
+    ranks=True)` (12 + 16 P bytes a key), is how far `csrc/rank_sort.cu`'s
+    radix design stands above it. No operation is counted: the sort
+    moves keys and compares none."""
+    return KernelCost(0.0, 20.0 * t * n, 0.0)
 
 
 class _KernelCounts:

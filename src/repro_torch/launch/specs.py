@@ -12,11 +12,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, tree_map
-from repro_torch.core.sti_knn import ranks_from_order, superdiagonal_g
+from repro_torch.core.sti_knn import superdiagonal_g
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.grid_step import GridRun, update
 from repro_torch.distributed.sharding import DeviceGrid, Sharded
 from repro_torch.kernels.distance import distance_cuda
+from repro_torch.kernels.rank_sort import rank_order_cuda
 from repro_torch.kernels.sti_fill import rect_row_view, sti_fill_acc_rect_cuda
 from repro_torch.models import build_model
 from repro_torch.training.optimizer import AdamState, AdamWConfig
@@ -160,8 +161,9 @@ def sti_cell(scfg, grid: DeviceGrid):
     block j:
       1. distances of its (tc/D, d) test shard to the (n, d) train set,
          through the distance kernel;
-      2. a stable sort per test point -> ranks; u = match / k and g by the
-         reverse-cumsum recurrence;
+      2. a stable sort per test point and its ranks, through the rank
+         stage's kernel; u = match / k and g by the reverse-cumsum
+         recurrence;
       3. the fill phi_cols[a, jb] += g[max(rank[a], rank_cols[jb])]. phi is
          symmetric, so column block j is the transpose of the (n/M, n) row
          block j, and the cell fills that row block with the rect fill
@@ -223,8 +225,7 @@ def sti_cell(scfg, grid: DeviceGrid):
                     dev, torch.float32).contiguous()
                 yt = y_test[i * tc_local:(i + 1) * tc_local].to(dev)
                 d2 = distance_cuda(xt, xtr)
-                order = torch.sort(d2, dim=-1, stable=True).indices
-                ranks = ranks_from_order(order)
+                order, ranks = rank_order_cuda(d2)
                 u = (ytr[order] == yt[:, None]).to(torch.float32) / k
                 g = superdiagonal_g(u, k, mode=mode)
                 if dev not in shared:

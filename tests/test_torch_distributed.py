@@ -38,6 +38,7 @@ from repro_torch.core.valuation import (
     distributed_sti_step, make_sti_step_fn)
 from repro_torch.distributed.sharding import DeviceGrid
 from repro_torch.kernels.distance import distance_cuda
+from repro_torch.kernels.rank_sort import rank_order_cuda
 from repro_torch.kernels.sti_fill import (
     sti_fill_acc_cuda, sti_fill_acc_rect_cuda)
 from repro_torch.launch.mesh import make_local_mesh
@@ -375,8 +376,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["sti", "sii"])
 def test_cuda_distributed_engine_on_a_grid_of_one_card(cuda, mode):
-    """[13] at small size: a (2, 2) grid on one card launches one distance
-    and one rect fill per cell and no square fill; phi within 1e-6 of max
+    """[13] at small size: a (2, 2) grid on one card launches one distance,
+    one rank sort and one rect fill per cell and no square fill; phi
+    within 1e-6 of max
     |ref| of the fused engine on the card, and of the same grid on the
     CPU. Integer features: the ranks agree on every side."""
     rng = np.random.default_rng(5)
@@ -384,14 +386,15 @@ def test_cuda_distributed_engine_on_a_grid_of_one_card(cuda, mode):
     xt = rng.integers(-8, 9, (64, 16)).astype(np.float32)
     y, yt = rng.integers(0, 3, 1024), rng.integers(0, 3, 64)
     grid = DeviceGrid((cuda,) * 4, (2, 2))
-    before = (distance_cuda.launches, sti_fill_acc_rect_cuda.launches,
-              sti_fill_acc_cuda.launches)
+    before = (distance_cuda.launches, rank_order_cuda.launches,
+              sti_fill_acc_rect_cuda.launches, sti_fill_acc_cuda.launches)
     got = get_method(mode)(x, y, xt, yt, k=5, engine="distributed",
                            mesh=grid).phi
     torch.cuda.synchronize()
     assert (distance_cuda.launches - before[0],
-            sti_fill_acc_rect_cuda.launches - before[1],
-            sti_fill_acc_cuda.launches - before[2]) == (4, 4, 0)
+            rank_order_cuda.launches - before[1],
+            sti_fill_acc_rect_cuda.launches - before[2],
+            sti_fill_acc_cuda.launches - before[3]) == (4, 4, 4, 0)
     want = get_method(mode)(x, y, xt, yt, k=5, engine="fused",
                             device=cuda).phi
     plain = get_method(mode)(x, y, xt, yt, k=5, engine="distributed",
@@ -419,16 +422,18 @@ def test_cuda_default_grid_and_device_agree(cuda, moons):
 
 @pytest.mark.cuda
 def test_cuda_step_fn_matches_the_cpu(cuda):
-    """make_sti_step_fn on the card (distance kernel, square fill kernel)
-    within 1e-6 of max |ref| of the same step on the CPU."""
+    """make_sti_step_fn on the card (distance kernel, rank sort kernel,
+    square fill kernel) within 1e-6 of max |ref| of the same step on the
+    CPU."""
     rng = np.random.default_rng(6)
     x = rng.integers(-8, 9, (512, 8)).astype(np.float32)
     xt = rng.integers(-8, 9, (48, 8)).astype(np.float32)
     y, yt = rng.integers(0, 2, 512), rng.integers(0, 2, 48)
-    before = sti_fill_acc_cuda.launches
+    before = (rank_order_cuda.launches, sti_fill_acc_cuda.launches)
     phi, diag = make_sti_step_fn(5, device=cuda)(x, y, xt, yt)
     torch.cuda.synchronize()
-    assert sti_fill_acc_cuda.launches == before + 1
+    assert (rank_order_cuda.launches, sti_fill_acc_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
     want, wdiag = make_sti_step_fn(5, device="cpu")(x, y, xt, yt)
     tol = 1e-6 * float(want.abs().max())
     torch.testing.assert_close(phi.cpu(), want, rtol=0, atol=tol)

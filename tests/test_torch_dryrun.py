@@ -206,7 +206,7 @@ def test_meta_cell_records_the_reference_keys(arch, shape, tmp_path):
         assert mem["alias_bytes"] > 0      # the KV caches, in place
     if arch == "sti-knn-paper":
         n = registry.PAPER_WORKLOAD.n_train
-        assert rec["kernel_calls"] == {"distance": 4,
+        assert rec["kernel_calls"] == {"distance": 4, "rank_sort": 4,
                                        "sti_fill_acc_rect": 4}
         # psum over data: row 1's (n/2, n) partial into cell (0, j), and
         # its (n,) diagonal into cell (0, 0)
