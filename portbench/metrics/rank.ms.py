@@ -1,9 +1,9 @@
-"""rank.ms: device milliseconds a step of the kernels launched from
-inside `aten::sort` and `aten::scatter_` (the stable sort of the
-distances and `ranks_from_order`), from the trace."""
+"""rank.ms: device milliseconds a step of the ops launched under the
+program's span `step.rank` (the rank stage: `csrc/rank_sort.cu` on a
+card), from the trace; None where no such span ran."""
+
+from portbench.spans import reading
 
 
 def read(records):
-    if not records.get("rank_s") or not records.get("steps"):
-        return None
-    return 1e3 * records["rank_s"] / records["steps"]
+    return reading(records, "rank.ms")

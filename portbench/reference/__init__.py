@@ -221,5 +221,3 @@ class KnnShapleyReference:
     def result(self) -> dict:
         return {"values": self.vec / float(self.t), "t": self.t}
 
-
-REFERENCES = {"sti": StiReference, "knn_shapley": KnnShapleyReference}

@@ -6,10 +6,12 @@ gaps and the host's waits go, span by span.
 
 Sets the cell up as `run.py` does, runs its window once under the
 profiler with the benchmark's spans on (as `--trace 1` does), and prints
-one JSON line. It runs no check and no metric of `BENCHMARK.json` reads
-it. It needs a card (exit 2 without one).
+one JSON line: every span's milliseconds a step. It runs no check. It
+needs a card (exit 2 without one).
 
-`reduce(xs)` takes the profiler's events as `trace._event` gives them.
+`reduce(xs)` takes the profiler's events as `trace._event` gives them;
+`trace.read` puts its spans in every traced run's records, and the span
+metrics' readers take them through `reading`.
 The program opens its spans (`repro_torch.tracing.SPANS`) as
 function-scope ranges, which `trace._event` files as host ops, so
 `reduce` reads them by name. For each span open in the window, the
@@ -19,12 +21,12 @@ returns:
   * `count` instances; `host_s`, their summed durations; `self_s`,
     `host_s` less the parts their child spans cover;
   * `device_s`: device seconds of the window's kernels, copies and sets
-    whose launch (the runtime call with the same correlation id, the
-    rule `rank_s` follows) falls inside the span as the innermost span
-    open then; `ops` splits it by device op;
+    whose launch (the runtime call with the same correlation id) falls
+    inside the span as the innermost span open then; `ops` splits it by
+    device op;
   * `idle_s`: the window's idle seconds (no kernel, copy or set on the
     card) whose gap has its midpoint inside the span as the innermost
-    span open there, the rule `trace.reduce` names its gaps by;
+    span open there;
   * `blocking`: {runtime call: [count, seconds]} of the host runtime
     calls inside the span, as the innermost span, that wait on the card
     or the allocator: cudaDeviceSynchronize, cudaStreamSynchronize,
@@ -35,7 +37,8 @@ Beside them: `unattributed`, [count, seconds] of the window's device ops
 launched in no span, and `idle_gaps`, the ten longest gaps named by the
 innermost span open at their midpoint, the program's spans included.
 `per_step` turns the spans into milliseconds a step and shares of the
-window (`PERF.md` names what each number is for).
+window, the numbers of the span metrics (`PERF.md` names what each is
+for).
 """
 
 from __future__ import annotations
@@ -169,48 +172,62 @@ def reduce(xs: list) -> dict:
 
 def per_step(spans: dict, steps: int, window_s: float) -> dict:
     """The spans of `reduce` in milliseconds a step and % of the traced
-    window `window_s`:
+    window `window_s`, each None where none of its spans ran:
 
       * `session.enqueue_ms`: host time of `session.update`;
       * `session.blocking_ms`: the blocking runtime calls' time inside
         the program's spans;
       * `device.idle.program`: % of the window idle under the program's
         spans;
+      * `rank.ms`: device time of `step.rank`;
       * `contrib.ms`: device time of `step.contrib` and `step.g`;
       * `point_update.ms`: device time of `step.update`.
     """
     from repro_torch.tracing import SPANS
 
-    def get(name: str, key: str) -> float:
-        return spans[name][key] if name in spans else 0.0
+    def ms(names: tuple, key: str):
+        got = [spans[nm][key] for nm in names if nm in spans]
+        return 1e3 * sum(got) / steps if got else None
 
     mine = [spans[nm] for nm in SPANS if nm in spans]
-    block = sum(c[1] for r in mine for c in r["blocking"].values())
     return {
-        "session.enqueue_ms": 1e3 * get("session.update", "host_s") / steps,
-        "session.blocking_ms": 1e3 * block / steps,
+        "session.enqueue_ms": ms(("session.update",), "host_s"),
+        "session.blocking_ms":
+            (1e3 * sum(c[1] for r in mine for c in r["blocking"].values())
+             / steps if mine else None),
         "device.idle.program":
-            100.0 * sum(r["idle_s"] for r in mine) / window_s,
-        "contrib.ms": 1e3 * (get("step.contrib", "device_s")
-                             + get("step.g", "device_s")) / steps,
-        "point_update.ms": 1e3 * get("step.update", "device_s") / steps,
+            (100.0 * sum(r["idle_s"] for r in mine) / window_s
+             if mine else None),
+        "rank.ms": ms(("step.rank",), "device_s"),
+        "contrib.ms": ms(("step.contrib", "step.g"), "device_s"),
+        "point_update.ms": ms(("step.update",), "device_s"),
     }
+
+
+def reading(records: dict, name: str):
+    """`per_step`'s `name` from a traced run's records, or None."""
+    if not records.get("spans") or not records.get("steps") \
+            or not records.get("trace_window_s"):
+        return None
+    return per_step(records["spans"], records["steps"],
+                    records["trace_window_s"])[name]
 
 
 def traced_window(cell: dict, seed: int, seconds: float,
                   device="cuda") -> tuple:
     """Set `cell` (as `harness.resolve` returns it) up as
-    `harness.run_cell` does, and run its window once under the profiler
-    with the benchmark's spans on. Returns the window's record and the
-    profiler's events as `trace._event` gives them."""
+    `harness.run_cell` does, through its configuration's kind, and run
+    its window once under the profiler with the benchmark's spans on.
+    Returns the window's record and the profiler's events as
+    `trace._event` gives them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from portbench import harness, trace
-    from portbench.traffic import Blobs
 
     dev = torch.device(device)
     cfg = cell["config"]
+    cell_kind = harness.kind(cfg, cell.get("root", harness.ROOT))
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -220,15 +237,12 @@ def traced_window(cell: dict, seed: int, seconds: float,
             # "auto" resolves as on a fresh install: an empty tuning cache
             os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
                 work, "autotune.json")
-            blobs = Blobs(cfg, seed, dev)
-            x, y = blobs.train(int(cfg["n"]))
-            loop = harness.SessionLoop(cfg, cell["mix"], blobs, x, y, dev)
-            del x, y
+            driver = cell_kind.build(cfg, cell["mix"], seed, dev)
             with profile(activities=acts) as prof:
-                rec = loop.window(seconds, trace.Spans(True))
+                rec = driver.window(seconds, trace.Spans(True))
             events = [trace._event(e)
                       for e in prof.profiler.kineto_results.events()]
-            del loop, prof
+            del driver, prof
     finally:
         if cache is None:
             os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
@@ -260,7 +274,7 @@ def summary(rec: dict, events: list) -> dict:
     return {
         "steps": steps, "window_s": rec["window_s"],
         "trace_window_s": base["trace_window_s"],
-        "busy_s": base["busy_s"], "rank_s": base["rank_s"],
+        "busy_s": base["busy_s"],
         "idle_pct": 100.0 * (1.0 - base["busy_s"] / base["trace_window_s"]),
         "accepted_unchanged": base == without,
         "per_step": per_step(sp["spans"], steps, base["trace_window_s"]),

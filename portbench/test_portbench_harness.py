@@ -94,6 +94,8 @@ def test_every_cell_resolves_and_reports_what_it_must(cell):
         assert m["moves"] in e2e
     assert r["mix"]["test_batch"] > 0 and r["mix"]["in_flight"] >= 1
     assert set(r["limits"]["limits"]) >= {"fold_gap"}
+    kind = harness.kind(r["config"], ROOT)
+    assert callable(kind.build) and callable(kind.check)
 
 
 def test_a_new_cell_needs_only_new_files(tmp_path):
@@ -128,6 +130,161 @@ def test_a_new_cell_needs_only_new_files(tmp_path):
     assert set(out["line"]["metrics"]) == {"valuation_rate", "setup_s"}
 
 
+TOY_KIND = '''"""A model-fed kind at toy size: token sequences drawn from
+the seed, embedded by a seeded table and a mean over each sequence's own
+length, valued by knn_shapley through `ValuationSession.update`, and checked
+against `KnnShapleyReference` on the reference's own embedding."""
+
+import time
+
+import torch
+
+from portbench.reference import KnnShapleyReference
+from portbench.traffic import generator
+
+TABLE, TRAIN, TEST0 = 0, 1, 1 << 20
+
+
+def tokens(cfg, seed, stream, rows):
+    gen = generator(seed, stream, "cpu")
+    ids = torch.randint(0, cfg["vocab"], (rows, cfg["seq"]), generator=gen)
+    lengths = torch.randint(1, cfg["seq"] + 1, (rows,), generator=gen)
+    labels = torch.randint(0, cfg["classes"], (rows,), generator=gen,
+                           dtype=torch.int32)
+    return ids, lengths, labels
+
+
+def table(cfg, seed):
+    return torch.randn((cfg["vocab"], cfg["d"]),
+                       generator=generator(seed, TABLE, "cpu"))
+
+
+def program_embed(tab, ids, lengths):
+    """The program's side: a masked mean over the padded batch."""
+    mask = torch.arange(ids.shape[1])[None, :] < lengths[:, None]
+    return (tab[ids] * mask[..., None]).sum(1) / lengths[:, None]
+
+
+def reference_embed(tab, ids, lengths):
+    """The reference's own: each sequence's tokens averaged in f64."""
+    return torch.stack([tab[ids[r, :lengths[r]]].double().mean(0)
+                        for r in range(ids.shape[0])]).float()
+
+
+class Driver:
+    def __init__(self, cfg, mix, seed, dev):
+        from repro_torch import ValuationSession
+
+        self.cfg, self.seed, self.tb = cfg, seed, int(mix["test_batch"])
+        self.records = {"n": cfg["n"], "d": cfg["d"], "config": cfg,
+                        "mix": mix}
+        t0 = time.perf_counter()
+        self.tab = table(cfg, seed)
+        ids, lengths, y = tokens(cfg, seed, TRAIN, cfg["n"])
+        self.sess = ValuationSession(
+            program_embed(self.tab, ids, lengths), y, k=cfg["k"],
+            mode="knn_shapley", test_batch=self.tb, device=dev)
+        t1 = time.perf_counter()
+        self.batches = 0
+        self.fold()
+        self.phases = {"session": t1 - t0, "warm": time.perf_counter() - t1}
+
+    def fold(self):
+        ids, lengths, y = tokens(self.cfg, self.seed, TEST0 + self.batches,
+                                 self.tb)
+        self.sess.update(program_embed(self.tab, ids, lengths), y)
+        self.batches += 1
+
+    def window(self, seconds, span):
+        start, t0 = self.batches, time.perf_counter()
+        with span("window"):
+            while time.perf_counter() - t0 < seconds:
+                with span("update"):
+                    self.fold()
+        steps = self.batches - start
+        return {"window_s": time.perf_counter() - t0, "steps": steps,
+                "points": steps * self.tb, "attempted": steps, "failed": 0,
+                "rows_per_step": self.tb}
+
+
+def build(cfg, mix, seed, dev):
+    return Driver(cfg, mix, seed, dev)
+
+
+def check(cfg, limits, seed, driver, control=False):
+    res = driver.sess.finalize()
+    got, t = res.point_values.double(), int(res.meta["t"])
+    del driver.sess, res
+    tab = table(cfg, seed)
+    ids, lengths, y = tokens(cfg, seed, TRAIN, cfg["n"])
+    x = reference_embed(tab, ids, lengths)
+    refs = {p: KnnShapleyReference(x, y, cfg["k"], precision=p)
+            for p in (("f64", "tf32") if control else ("f64",))}
+    for i in range(driver.batches):
+        ids, lengths, yb = tokens(cfg, seed, TEST0 + i, driver.tb)
+        xb = reference_embed(tab, ids, lengths)
+        for r in refs.values():
+            r.add(xb, yb)
+    want = refs["f64"].result()
+
+    def gap(a):
+        return float((a - want["values"]).norm() / want["values"].norm())
+
+    numbers = {"values": gap(got),
+               "fold_gap": float(abs(t - driver.batches * driver.tb)
+                                 + abs(t - want["t"]))}
+    ctl = ({"values": gap(refs["tf32"].result()["values"])}
+           if control else None)
+    return numbers, ctl
+'''
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["sound", "flipped"])
+def test_a_new_kind_needs_only_new_files(tmp_path, monkeypatch, fault):
+    """A later change adds a kind of configuration (here a toy model-fed
+    one: tokens from the seed, a seeded embedding table, a length-masked
+    mean, knn_shapley through `ValuationSession.update`), a configuration
+    of that kind, a mix, its limits and the entries; the harness runs
+    the cell with no edit to any file it has. One token flipped in the
+    program's input, and not in the reference's, fails the check."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "portbench", root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    pb = root / "portbench"
+    (pb / "kinds" / "toy_tokens.py").write_text(TOY_KIND)
+    cfg = {"name": "toy-tokens", "kind": "toy_tokens", "source": "a toy",
+           "n": 256, "d": 16, "vocab": 1000, "seq": 16, "classes": 3, "k": 5,
+           "reduced": []}
+    (pb / "configs" / "toy-tokens.json").write_text(json.dumps(cfg))
+    (pb / "traffic" / "batch16.json").write_text(
+        json.dumps({"test_batch": 16}))
+    (pb / "limits" / "toy-tokens.batch16.json").write_text(
+        json.dumps({"limits": {"values": 2.5e-3, "fold_gap": 0}}))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append({"name": "toy-tokens", "source": "a toy",
+                            "file": "portbench/configs/toy-tokens.json",
+                            "reduced": [], "why": "tokens embedded"})
+    spec["workloads"].append({"name": "toy-tokens.batch16",
+                              "config": "toy-tokens", "traffic": "batch16",
+                              "chips": 1, "why": "16-sequence batches"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    r = harness.resolve(harness.load_spec(root), "toy-tokens.batch16", root)
+    kind = harness.kind(r["config"], root)
+    assert kind.__file__ == str(pb / "kinds" / "toy_tokens.py")
+    if fault:
+        def flipped(tab, ids, lengths, embed=kind.program_embed):
+            ids = ids.clone()
+            ids[0, 0] = (ids[0, 0] + 1) % tab.shape[0]
+            return embed(tab, ids, lengths)
+        monkeypatch.setattr(kind, "program_embed", flipped)
+    out = harness.run_cell(r, 3_000_000_019, 0.2, False, device="cpu")
+    line = out["line"]
+    assert line["correct"] is (not fault), line["checks"]
+    assert line["attempted"] > 0 and list(line)[-1] == "checks"
+    assert set(line["metrics"]) == {"valuation_rate", "setup_s"}
+    assert out["records"]["rows_per_step"] == 16
+
+
 def test_run_refuses_without_a_card_and_prints_no_result(tmp_path):
     """Without a card, and in a directory that holds only the benchmark's
     own files, a run exits non-zero with no result line."""
@@ -151,8 +308,10 @@ def test_run_refuses_without_a_card_and_prints_no_result(tmp_path):
 
 
 def test_trace_reduction_on_a_known_timeline():
-    """Two kernels in a 100 us window, one launched from inside
-    `aten::sort`; the card's mirror of a span is not device work."""
+    """Two kernels in a 100 us window, both launched inside the harness's
+    `update`, one of them from inside `aten::sort`; the card's mirror of
+    a span is not device work. The records put both kernels' time under
+    `update`."""
     from torch.autograd import DeviceType
 
     from portbench import trace
@@ -184,11 +343,15 @@ def test_trace_reduction_on_a_known_timeline():
               Ev("cudaLaunchKernel", cpu, 30, 1, 78),
               Ev("other_kernel", gpu, 50, 20, 78),
               Ev("update", gpu, 10, 60)]
-    r = trace.reduce([trace._event(e) for e in events])
+    r = trace.read([trace._event(e) for e in events])
     assert r["busy_s"] == pytest.approx(30e-6)
     assert r["trace_window_s"] == pytest.approx(100e-6)
-    assert r["rank_s"] == pytest.approx(10e-6)
+    assert set(r["spans"]) == {"window", "update"}
+    assert r["spans"]["update"]["device_s"] == pytest.approx(30e-6)
     assert r["kernels"] == {"sort_kernel": [1, pytest.approx(1e-5)],
                             "other_kernel": [1, pytest.approx(2e-5)]}
-    assert r["breakdown"]["idle_gaps"][0] == ["window", pytest.approx(3e-5)]
-    assert [g[0] for g in r["breakdown"]["idle_gaps"][1:]] == ["update"] * 2
+    # gaps 70-100 in the window alone, 0-20 in `update`, and 30-50, whose
+    # middle is where `update` closes, in the window again
+    assert r["breakdown"]["idle_gaps"] == [
+        ["window", pytest.approx(3e-5)], ["update", pytest.approx(2e-5)],
+        ["window", pytest.approx(2e-5)]]

@@ -1,6 +1,7 @@
-"""No module of the benchmark imports JAX, Flax or the JAX package, and
-the reference imports nothing of the program. Top-level names are
-compared whole: `repro_torch` is the program, `repro` the JAX package."""
+"""No module of the benchmark, the kinds among them, imports JAX, Flax
+or the JAX package, and the reference imports nothing of the program.
+Top-level names are compared whole: `repro_torch` is the program, `repro`
+the JAX package."""
 
 import ast
 from pathlib import Path
@@ -39,6 +40,13 @@ def test_the_reference_imports_nothing_of_the_program(path):
     names = _top_names(path)
     assert "repro_torch" not in names
     assert names <= {"__future__", "torch", "numpy", "math"}
+
+
+def test_the_guard_covers_every_kind():
+    """Kinds may import the program; the guard reads each of them."""
+    kinds = sorted((PB / "kinds").glob("*.py"))
+    assert PB / "kinds" / "blobs.py" in kinds
+    assert set(kinds) <= set(FILES)
 
 
 def test_the_guard_sees_a_banned_import(tmp_path):

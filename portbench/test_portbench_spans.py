@@ -1,9 +1,11 @@
 """The program's spans in a traced window (`portbench/spans.py`): on a
 known timeline, the benchmark's own reduction is the same with and
-without the program's span events, and `spans.reduce` puts each device
-op, idle gap and blocking call under the innermost span; on a tiny CPU
-window, every step opens its spans; on the card (marked `cuda`), each
-cell at its own size puts every kernel under one span."""
+without the program's span events, `spans.reduce` puts each device op,
+idle gap and blocking call under the innermost span, the records
+(`trace.read`) carry the spans, and each span metric's reader gives
+`spans.per_step`'s number; on a tiny CPU window, every step opens its
+spans; on the card (marked `cuda`), each cell at its own size puts every
+kernel under one span."""
 
 from pathlib import Path
 
@@ -73,19 +75,25 @@ def _events(timeline):
 
 def test_the_program_spans_leave_the_benchmark_s_reduction_as_it_was():
     """The program's spans are function-scope ranges: host events with no
-    mirror on the card. `trace.reduce` gives the same records with and
-    without them, its gaps named by the benchmark's spans alone."""
+    mirror on the card. `trace.reduce` gives the same kernels, busy time
+    and device ops with and without them; the records (`trace.read`) add
+    the spans and name each idle gap by the innermost span, the
+    program's among them."""
     with_spans = trace.reduce(_events(TIMELINE))
     without = trace.reduce(_events(
         [e for e in TIMELINE if e.name() not in PROGRAM]))
     assert with_spans == without
     assert with_spans["busy_s"] == pytest.approx(85e-6)
-    assert with_spans["rank_s"] == pytest.approx(30e-6)
     assert set(with_spans["kernels"]) == {
         "sq_dist_kernel", "sort_kernel", "gather_kernel", "fill_acc_kernel",
         "stray_kernel"}
-    assert [g[0] for g in with_spans["breakdown"]["idle_gaps"]] == [
-        "update", "sync", "update", "sync"]
+    full = trace.read(_events(TIMELINE))
+    assert {k: v for k, v in full.items() if k != "spans"} == dict(
+        with_spans, breakdown=dict(with_spans["breakdown"],
+                                   idle_gaps=full["breakdown"]["idle_gaps"]))
+    assert [g[0] for g in full["breakdown"]["idle_gaps"]] == [
+        "step.distance", "sync", "step.update", "sync"]
+    assert full["spans"]["step.rank"]["device_s"] == pytest.approx(30e-6)
 
 
 def test_a_span_mirrored_on_the_card_is_no_device_work_to_spans_reduce():
@@ -155,10 +163,45 @@ def test_per_step_on_hand_built_spans():
     got = spans.per_step(sp, steps=2, window_s=10.0)
     assert got == pytest.approx({
         "session.enqueue_ms": 400.0, "session.blocking_ms": 200.0,
-        "device.idle.program": 7.5, "contrib.ms": 200.0,
+        "device.idle.program": 7.5, "rank.ms": 250.0, "contrib.ms": 200.0,
         "point_update.ms": 300.0})
     knn = {k: v for k, v in sp.items() if k != "step.g"}
     assert spans.per_step(knn, 2, 10.0)["contrib.ms"] == pytest.approx(150.0)
+    # a reading none of whose spans ran is None, not 0
+    assert spans.per_step({"update": sp["update"]}, 2, 10.0) == dict.fromkeys(
+        got)
+
+
+READERS = ("rank.ms", "session.enqueue_ms", "session.blocking_ms",
+           "device.idle.program", "contrib.ms", "point_update.ms")
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_each_span_reader_reads_per_step_from_the_records(name):
+    """On the known timeline's records (two steps), each span metric's
+    reader gives `per_step`'s number; with no spans in the records, or
+    no step, it gives None."""
+    full = trace.read(_events(TIMELINE))
+    records = dict(full, steps=2)
+    want = spans.per_step(full["spans"], 2, full["trace_window_s"])[name]
+    read = harness.reader(name, ROOT)
+    assert want is not None and read(records) == want
+    assert read(dict(records, spans={})) is None
+    assert read(dict(records, steps=0)) is None
+    assert read({}) is None
+
+
+def test_rank_ms_is_step_rank_s_device_time_a_step():
+    """`rank.ms` reads the device time of the ops launched under
+    `step.rank` a step (the 30 us sort kernel over two steps), and None
+    where no `step.rank` span ran."""
+    read = harness.reader("rank.ms", ROOT)
+    full = trace.read(_events(TIMELINE))
+    assert read(dict(full, steps=2)) == pytest.approx(1e3 * 30e-6 / 2)
+    without = trace.read(_events([e for e in TIMELINE
+                                  if e.name() != "step.rank"]))
+    assert "step.rank" not in without["spans"]
+    assert read(dict(without, steps=2)) is None
 
 
 def _tiny(cell: str) -> dict:
@@ -193,10 +236,10 @@ def test_a_traced_window_on_the_cpu_opens_every_span_each_step(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_every_kernel_on_the_card_falls_under_one_span(cell, cuda_device):
     """Each cell at its own size, a 2 s traced window: every device op of
-    the window is launched inside a span and counted once; the kernels
-    `rank_s` reads are all under `step.rank`; the distance kernel
-    launches only under `step.distance` and the fill only under
-    `step.update`."""
+    the window is launched inside a span and counted once; the rank
+    stage's kernels (`csrc/rank_sort.cu`) launch only under `step.rank`,
+    the distance kernel only under `step.distance` and the fill only
+    under `step.update`."""
     import torch
 
     r = harness.resolve(SPEC, cell, ROOT)
@@ -212,22 +255,14 @@ def test_every_kernel_on_the_card_falls_under_one_span(cell, cuda_device):
     assert sum(x["device_s"] for x in sp.values()) == pytest.approx(total)
     assert sum(x["idle_s"] for x in sp.values()) == pytest.approx(
         base["trace_window_s"] - base["busy_s"])
-    # the kernels launched inside aten::sort and aten::scatter_
-    rank = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e["cat"] == "cpu_op" and e["name"] in trace.RANK_OPS)
-    named = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e["name"] in set(trace.SPANS) | set(PROGRAM)
-                    and e["cat"] in spans.HOST_CATS),
-                   key=lambda s: (s[0], -s[1]))
-    nest = spans._Nest(named)
-    for lo, hi in rank:
-        for e in events:
-            if e["cat"] == "cuda_runtime" and lo <= e["ts"] <= hi:
-                assert named[nest.owner(e["ts"])][2] == "step.rank"
-    assert sp["step.rank"]["device_s"] >= base["rank_s"] * (1 - 1e-9)
     for kernel, home in (("sq_dist_kernel", "step.distance"),
+                         ("minmax_kernel", "step.rank"),
+                         ("pass_kernel", "step.rank"),
+                         ("invert_kernel", "step.rank"),
                          ("fill_acc_kernel", "step.update")):
         where = {nm for nm, x in sp.items()
                  if any(kernel in op for op in x["ops"])}
         assert where <= {home}, (kernel, where)
-    assert any("sq_dist_kernel" in op for op in sp["step.distance"]["ops"])
+    for kernel, home in (("sq_dist_kernel", "step.distance"),
+                         ("pass_kernel", "step.rank")):
+        assert any(kernel in op for op in sp[home]["ops"]), kernel

@@ -2,30 +2,30 @@
 
 Spans are `torch.profiler.record_function` ranges that the benchmark
 opens around its calls into the program (`SPANS`: `window`, `generate`,
-`update`, `sync`); with tracing off they cost nothing.
+`update`, `sync`); with tracing off they cost nothing. The program opens
+its own (`repro_torch.tracing.SPANS`) while the profiler records.
 With it on, `torch.profiler` (CPU and CUDA activities) records the
 window; its events are read in memory (nothing is written to disk) and
-reduced to what the per-layer readers take:
+reduced (`read`) to what the per-layer readers take:
 
   * `kernels`: {device op name: [count, seconds]} inside the window;
   * `busy_s`: the union of the device's kernel, copy and set intervals
     inside the `window` span, and `trace_window_s` that span's length;
-  * `rank_s`: device seconds of the kernels launched from inside
-    `aten::sort` or `aten::scatter_` (the stable sort and the rank
-    inversion);
+  * `spans`: {span name: `count`, `host_s`, `self_s`, `device_s`,
+    `idle_s`, `blocking`, `ops`} for each span, the benchmark's and the
+    program's, open in the window (`portbench.spans.reduce`);
   * `breakdown`: the ten device ops that took most time, and the ten
-    longest idle gaps named by the innermost span open at their middle.
+    longest idle gaps named by the innermost span open at their middle,
+    the program's among them.
 """
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-RANK_OPS = ("aten::sort", "aten::scatter_")
 SPANS = ("window", "generate", "update", "sync")
 
 
@@ -44,7 +44,7 @@ class Spans:
 @contextlib.contextmanager
 def profiled(on: bool, device: torch.device):
     """Profile the block when `on`; yields a dict that holds, after the
-    block, the reduced trace (`reduce`) or nothing."""
+    block, the reduced trace (`read`) or nothing."""
     out: dict = {}
     if not on:
         yield out
@@ -56,8 +56,8 @@ def profiled(on: bool, device: torch.device):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         yield out
-    out.update(reduce([_event(e) for e in
-                       prof.profiler.kineto_results.events()]))
+    out.update(read([_event(e) for e in
+                     prof.profiler.kineto_results.events()]))
 
 
 def _event(e) -> dict:
@@ -90,15 +90,11 @@ def _merge(intervals: list) -> list:
     return merged
 
 
-def _inside(merged: list, starts: list, ts: float) -> bool:
-    i = bisect.bisect_right(starts, ts) - 1
-    return i >= 0 and ts <= merged[i][1]
-
-
 def reduce(xs: list) -> dict:
     """Profiler events ({"cat", "name", "ts", "dur" in microseconds,
-    "corr": the launch's correlation id}) -> the records described in the
-    module doc, in seconds."""
+    "corr": the launch's correlation id}) -> `kernels`, `busy_s`,
+    `trace_window_s` and the breakdown's `device_ops`, in seconds; {}
+    without a `window` span."""
     win = [e for e in xs if e.get("cat") == "user_annotation"
            and e.get("name") == "window"]
     if not win:
@@ -115,42 +111,25 @@ def reduce(xs: list) -> dict:
     busy = _merge([(max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
                    for e in dev])
     busy_us = sum(hi - lo for lo, hi in busy)
-
-    rank_iv = _merge([(e["ts"], e["ts"] + e["dur"]) for e in xs
-                      if e.get("cat") == "cpu_op"
-                      and e.get("name") in RANK_OPS])
-    rank_starts = [lo for lo, _ in rank_iv]
-    launch_ts = {e["corr"]: e["ts"] for e in xs
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")}
-    rank_us = 0.0
-    for e in dev:
-        ts = launch_ts.get(e["corr"])
-        if ts is not None and _inside(rank_iv, rank_starts, ts):
-            rank_us += e["dur"]
-
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in xs
-                   if e.get("cat") == "user_annotation"
-                   and e.get("name") != "window")
-    edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    gaps = sorted(((hi - lo, lo, hi) for lo, hi in
-                   zip(edges[0::2], edges[1::2]) if hi > lo), reverse=True)
-    named = []
-    for us, lo, hi in gaps[:10]:
-        mid, name = 0.5 * (lo + hi), "window"
-        for s0, s1, nm in spans:  # innermost: the last to open
-            if s0 > mid:
-                break
-            if s1 >= mid:
-                name = nm
-        named.append([name, us / 1e6])
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
     return {
         "kernels": kernels,
         "busy_s": busy_us / 1e6,
         "trace_window_s": (w1 - w0) / 1e6,
-        "rank_s": rank_us / 1e6,
-        "breakdown": {
-            "device_ops": [[nm[:160], c[1]] for nm, c in top],
-            "idle_gaps": named,
-        },
+        "breakdown": {"device_ops": [[nm[:160], c[1]] for nm, c in top]},
     }
+
+
+def read(xs: list) -> dict:
+    """Profiler events -> the records of the module doc: `reduce`'s, and
+    the spans and the breakdown's `idle_gaps` of `portbench.spans.reduce`
+    (each gap named by the innermost span open at its middle, the
+    program's among them)."""
+    out = reduce(xs)
+    if out:
+        from portbench import spans
+
+        sp = spans.reduce(xs)
+        out["spans"] = sp["spans"]
+        out["breakdown"]["idle_gaps"] = sp["idle_gaps"]
+    return out
