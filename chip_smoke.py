@@ -136,9 +136,10 @@ mode, started before [13]):
       48 blocks (f32 params, bf16 activations) serving 4 requests of
       960-1024 tokens (no flash launch), the sLSTM's share of a prefill;
   [17] jamba-v0.1-52b: [17a] one Mamba mixer, f32, 1100 tokens and 8
-      decode steps card vs CPU; [17b] one group (8 of 32 layers, bf16)
-      serving 4 requests of 1985-2039 tokens (4 launches), the Mamba
-      layers' share of a prefill.
+      decode steps card vs CPU (one launch of the fused scan); [17b] one
+      group (8 of 32 layers, bf16) serving 4 requests of 1985-2039 tokens
+      (4 flash launches; 42 of the scan, 7 a prefill), the Mamba layers'
+      share of a prefill.
 
   Each served phase reports prefill ms per request, decode ms per step,
   tokens/s, peak memory and the device busy share with its top kernels
@@ -224,7 +225,15 @@ and then the port's tooling and its last entry points:
       CUDA events beside its bound (the stage's floor: keys read, order
       and ranks written once) and the radix passes' own traffic, its peak
       memory, and its runtime launches and memsets in one call (a
-      torch.profiler trace).
+      torch.profiler trace);
+  [25] Mamba's fused selective scan (`kernels/selective_scan.py`) at the
+      AI21-Jamba2-Mini cell's shapes: 32 rows of the cell's first batch
+      of lengths (one set to the mix's clip, 1536), bf16, d_inner 8192,
+      z read in place from a (b, s, 2 d_inner) tensor, against its plain
+      version (the recurrence position by position) on the same tensors,
+      its time beside `portbench/costs_jamba.py`'s bound at the real
+      tokens; then its launches counted from zero on jamba2-mini's embed
+      path (one period, 7 a `Model.embed`) and a prefill (7).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
@@ -2853,14 +2862,19 @@ def families_phase(torch, np, dev, c, refs) -> dict:
     del host
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
+    c.zero_counts()
     got = mamba_case_run(torch, cfg, params, x, xs)
+    torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    # the forward of 1100 positions through the fused scan; the decode
+    # steps (s = 1) through the chunked path's one step
+    c.expect("[17a]", c.read_counts(), selective_scan=1)
     del params
     ref = refs.get(torch, "mamba")
     errs = {k: rel_err(torch, got[k], ref[k])
             for k in ("y", "decode", "conv", "ssm")}
     out["mamba_card_vs_cpu"] = dict(rel_errs=errs, cpu_s=ref["seconds"],
-                                    forward_peak_gib=peak)
+                                    forward_peak_gib=peak, scan_launches=1)
     log(f"[17a] Mamba mixer at jamba-v0.1-52b width, f32, 1 x 1100 "
         f"(chunks 512, 512, 76), then 8 decode steps: max_abs_err / "
         f"max |CPU| {errs} (tol 1e-4); peak {peak:.2f} GiB above the "
@@ -2873,9 +2887,17 @@ def families_phase(torch, np, dev, c, refs) -> dict:
 
     # [17b] jamba served at full width, one group of 8 of 32 layers, bf16
     t = time.perf_counter()
+    c.zero_counts()
     out["jamba"] = serve_family(
         torch, np, dev, "[17b]", "jamba-v0.1-52b", 8, 2112, 4, 1985, 2039, 17,
         torch.bfloat16, want_flash=1 * 4, share_kind="mamba")
+    torch.cuda.synchronize()
+    # 7 Mamba layers of the 8 in each prefill: the 4 requests', the busy
+    # share's and the mixer share's (the decode steps scan no kernel)
+    scans = c.read_counts()["selective_scan"]
+    out["jamba"]["scan_launches"] = scans
+    log(f"[17b] selective_scan launches {scans}")
+    c.expect("[17b]", c.read_counts(), selective_scan=7 * (4 + 1 + 1))
     free_phase(torch, "[17b]")
     phase_s["[17b]"] = time.perf_counter() - t
     out["phase_s"] = phase_s
@@ -4445,6 +4467,120 @@ def rank_sort_phase(torch, dev, smi: str) -> dict:
     return out
 
 
+def selective_scan_phase(torch, dev, smi: str) -> dict:
+    """[25]: Mamba's fused selective scan (`kernels/selective_scan.py`)
+    at the Jamba cell's shapes against its plain version, then counted
+    on the embed and prefill paths of jamba2-mini's period (module doc).
+    Returns the kernel table's figures."""
+    from portbench.costs_jamba import PERIOD, scan_cost
+    from portbench.kinds.lm_embed import Reviews
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_cuda, selective_scan_plain)
+    from repro_torch.models.transformer import layer_schedule
+
+    mix = json.loads((ROOT / "portbench" / "traffic" /
+                      "reviews32.json").read_text())
+    reviews = Reviews(mix, {"vocab": 65536}, 5, 25, dev)
+    lens = reviews.host(0)[0]
+    lens[int(torch.argmin(lens))] = int(mix["length_max"])
+    b, s, di, ds = len(lens), int(lens.max()), PERIOD["di"], PERIOD["ds"]
+    gen = torch.Generator(device=dev).manual_seed(25)
+    # x contiguous as the conv leaves it; z the gate half of in_proj's
+    # (b, s, 2 di) output, read in place with its row stride; dt before
+    # the softplus near Mamba's initial dt (log-uniform in [1e-3, 1e-1]);
+    # A = -(1..16) (S4D-real); B and C at the unit RMS of their norms
+    x = torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16)
+    z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(
+        torch.bfloat16)[..., di:]
+    dt = (0.5 * torch.randn((b, s, di), generator=gen, device=dev)
+          - 4.6).to(torch.bfloat16)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(
+        di, ds).contiguous()
+    B, C = (torch.randn((b, s, ds), generator=gen, device=dev)
+            for _ in range(2))
+    D = torch.randn((di,), generator=gen, device=dev)
+    lengths = lens.to(dev)
+    before = selective_scan_cuda.launches
+    y, h = selective_scan_cuda(x, z, dt, A, B, C, D, None, lengths)
+    yw, hw = selective_scan_plain(x, z, dt, A, B, C, D, None, lengths)
+    torch.cuda.synchronize()
+    if selective_scan_cuda.launches != before + 1:
+        fail(f"[25] selective_scan_cuda launched "
+             f"{selective_scan_cuda.launches - before} times, not once")
+    # both write y in bf16: past one unit in the last place of the plain
+    # y, the kernel may differ by its f32 sums' order, 1e-3 of the
+    # largest |y|; the state is f32 throughout, 1e-4 of its largest
+    top, htop = max_abs(torch, yw.reshape(-1, di)), max_abs(torch, hw)
+    over = float((((y.float() - yw.float()).abs()
+                   - bf16_ulp(torch, yw.float())).clamp_min(0)).max())
+    herr = float((h - hw).abs().max())
+    past = torch.arange(s, device=dev)[None, :] >= lengths[:, None]
+    zero_past = not bool(y[past].any())
+    differ = float((y != yw).float().mean())
+    log(f"[25] selective scan ({b}, {s}, {di}) bf16, lengths "
+        f"{int(lens.min())}-{int(lens.max())} (sum {int(lens.sum())}), z "
+        f"read in place (row stride {z.stride(1)}): y past one ulp of the "
+        f"plain y {over:.3e} (max |y| {top:.3e}, tol 1e-3 of it; "
+        f"{100 * differ:.3f} % of entries differ), final state "
+        f"max_abs_err {herr:.3e} (max |h| {htop:.3e}, tol 1e-4 of it), y "
+        f"zero past every length {zero_past}")
+    if not (over <= 1e-3 * top and herr <= 1e-4 * htop and zero_past):
+        fail(f"[25] the fused scan disagrees with selective_scan_plain: y "
+             f"{over} > 1e-3 * {top} or h {herr} > 1e-4 * {htop}, or y "
+             f"not zero past a length")
+    del yw, hw
+    ms = cuda_ms(torch, lambda: selective_scan_cuda(x, z, dt, A, B, C, D,
+                                                    None, lengths), reps=10)
+    plain_ms = cuda_ms(torch, lambda: selective_scan_plain(
+        x, z, dt, A, B, C, D, None, lengths), reps=1, warmup=0)
+    cost = scan_cost(float(lens.sum()), dict(PERIOD, mamba_layers=1))
+    bound, by = cost.bound_ms(), cost.bound_by()
+    log(f"[25] selective scan: {ms:.3f} ms (bound {bound:.3f} ms by {by} "
+        f"at the real tokens, `costs_jamba.scan_cost`: "
+        f"{100 * bound / ms:.1f} %), plain {plain_ms:.1f} ms ({smi})")
+    out = dict(max_abs_err=over, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=None,
+               shape=f"b={b} s={s} di={di} bf16 lengths "
+                     f"{int(lens.min())}-{int(lens.max())}")
+    del x, z, dt, B, C, y, h
+    torch.cuda.empty_cache()
+
+    # the embed path: jamba2-mini's period (8 layers, 7 of them Mamba) on
+    # the cell's batch 0, then a prefill of its longest review
+    cfg, model, params = draw_on_card(torch, dev, "[25]", "jamba2-mini",
+                                      torch.bfloat16, num_layers=8)
+    mamba = (cfg.num_layers // cfg.group_size) * sum(
+        e.mixer == "mamba" for e in layer_schedule(cfg))
+    ids, _ = reviews.batch(0)
+    batch = {"tokens": ids, "lengths": (ids >= 0).sum(1)}
+    selective_scan_cuda.launches = 0
+    emb = model.embed(params, batch)
+    torch.cuda.synchronize()
+    embed_launches = selective_scan_cuda.launches
+    longest = ids[int(torch.argmax(batch["lengths"]))]
+    with torch.no_grad():
+        model.prefill(params, {"tokens": longest[longest >= 0][None]})
+    torch.cuda.synchronize()
+    prefill_launches = selective_scan_cuda.launches - embed_launches
+    embed_ms = cuda_ms(torch, lambda: model.embed(params, batch), reps=3)
+    log(f"[25] jamba2-mini's period (8 layers, {mamba} Mamba) on the "
+        f"cell's batch 0 ({tuple(ids.shape)}, {int(batch['lengths'].sum())} "
+        f"real tokens): Model.embed {embed_ms:.1f} ms, {embed_launches} "
+        f"scan launches; a prefill of its longest review "
+        f"{prefill_launches}; embeddings finite "
+        f"{bool(torch.isfinite(emb).all())}")
+    if embed_launches != mamba or prefill_launches != mamba:
+        fail(f"[25] scan launches: embed {embed_launches}, prefill "
+             f"{prefill_launches}, expected {mamba} each")
+    if not bool(torch.isfinite(emb).all()):
+        fail("[25] jamba2-mini's embeddings are not finite")
+    out.update(launches=embed_launches, prefill_launches=prefill_launches,
+               embed_ms=embed_ms)
+    del emb, params, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4481,6 +4617,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.distance import distance_cuda, distance_plain
     from repro_torch.kernels.rank_sort import rank_order_cuda
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
     from repro_torch.kernels.sti_fill import TILE as FILL_TILE
     from repro_torch.kernels.sti_fill import (
         fill_tile_walk, rect_row_view, sti_fill_acc_cuda, sti_fill_acc_plain,
@@ -5088,6 +5225,11 @@ def main() -> None:
         name="rank_sort", route="cuda",
         source="src/repro_torch/csrc/rank_sort.cu",
         replaces="no TPU kernel (jnp.argsort + ranks_from_order)")
+    # Mamba's scan: [17a], [17b] and [25] count it, [25] measures it
+    entries["selective_scan"] = dict(
+        name="selective_scan", route="cuda",
+        source="src/repro_torch/csrc/selective_scan.cu",
+        replaces="no TPU kernel (lax.associative_scan in models/ssm.py)")
     for name, count in launches.items():
         if count == 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -5280,7 +5422,8 @@ def main() -> None:
                "sti_fill_acc": sti_fill_acc_cuda,
                "sti_fill_acc_rect": sti_fill_acc_rect_cuda,
                "sti_megakernel": sti_megakernel_cuda,
-               "point_megakernel": point_megakernel_cuda}
+               "point_megakernel": point_megakernel_cuda,
+               "selective_scan": selective_scan_cuda}
 
     def zero_counts():
         for fn in counted.values():
@@ -5631,6 +5774,10 @@ def main() -> None:
     gc.collect()
     rank_sort = rank_sort_phase(torch, dev, smi)
     entries["rank_sort"].update(rank_sort)
+    # ---------- 25. Mamba's fused scan at the Jamba cell's shapes
+    gc.collect()
+    log(f"[25] device memory held before: {device_gib(torch)}")
+    entries["selective_scan"].update(selective_scan_phase(torch, dev, smi))
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules

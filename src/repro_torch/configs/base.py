@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ModelConfig", "ShapeSpec", "PD", "init_params", "spec_tree",
-           "abstract_params", "DEFAULT_RULES", "FSDP_RULES", "pad_to",
+__all__ = ["ModelConfig", "PortConfig", "ShapeSpec", "PD", "init_params",
+           "spec_tree", "abstract_params", "DEFAULT_RULES", "FSDP_RULES",
+           "pad_to",
            "tree_leaves", "tree_map", "tree_unflatten", "spec_entry"]
 
 
@@ -100,6 +101,13 @@ class ModelConfig:
     # projections' matmul outputs)
     remat: str = "block"
 
+    # the port's own switches, fields of `PortConfig` only; here they
+    # read as the JAX package's semantics
+    rope = True
+    ssm_dbc_norm = False
+    moe_dropless = False
+    moe_renorm = True
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
@@ -131,6 +139,29 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A `ModelConfig` with the switches of architectures that the JAX
+    package does not have. `ModelConfig` keeps the reference's schema
+    field for field, and reads each switch below at its default, which is
+    the reference's semantics:
+
+      * `rope`: rotary embedding on self-attention's q and k (Jamba's
+        attention has no positional encoding, arXiv:2403.19887 §2);
+      * `ssm_dbc_norm`: RMSNorm (weights, `norm_eps`) on the Mamba mixer's
+        dt, B and C after `x_proj` (HF `JambaMambaMixer`'s dt/b/c
+        layernorms);
+      * `moe_dropless`: the MoE FFN routes real tokens only, with no
+        capacity (`models.moe.apply_moe_dropless`);
+      * `moe_renorm`: the top-k gates divided by their sum (Mixtral);
+        HF `JambaSparseMoeBlock` keeps the softmax weights as they are.
+    """
+    rope: bool = True
+    ssm_dbc_norm: bool = False
+    moe_dropless: bool = False
+    moe_renorm: bool = True
 
 
 @dataclass(frozen=True)

@@ -1,15 +1,19 @@
 """Architecture registry of the port: --arch <id> -> config (counterpart
 of `repro.configs.registry`), every architecture of the JAX package:
 the dense, MoE, SSM (xLSTM), hybrid (Jamba), audio (Whisper) and VLM
-(InternVL2) families.
+(InternVL2) families. `PORT_ARCHS` holds the architectures the port has
+and the JAX package does not (`get_config` finds both); `ARCHS` stays
+the JAX package's registry, name for name, which its parity tests hold.
 """
 
 from repro_torch.configs import (
-    internvl2_2b, jamba_v01, mixtral_8x7b, phi35_moe, phi3_mini, qwen2_7b,
-    qwen3_1_7b, smollm_360m, sti_knn_paper, whisper_small, xlstm_1_3b,
+    internvl2_2b, jamba2_mini, jamba_v01, mixtral_8x7b, phi35_moe, phi3_mini,
+    qwen2_7b, qwen3_1_7b, smollm_360m, sti_knn_paper, whisper_small,
+    xlstm_1_3b,
 )
 
-__all__ = ["ARCHS", "PAPER_WORKLOAD", "TRAIN_RECIPES", "get_config"]
+__all__ = ["ARCHS", "PORT_ARCHS", "PAPER_WORKLOAD", "TRAIN_RECIPES",
+           "get_config"]
 
 ARCHS = {
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
@@ -24,14 +28,21 @@ ARCHS = {
     "jamba-v0.1-52b": jamba_v01.CONFIG,
 }
 
+PORT_ARCHS = {
+    "jamba2-mini": jamba2_mini.CONFIG,
+}
+
 PAPER_WORKLOAD = sti_knn_paper.CONFIG
 
 
 def get_config(name: str):
     if name == PAPER_WORKLOAD.name:
         return PAPER_WORKLOAD
+    if name in PORT_ARCHS:
+        return PORT_ARCHS[name]
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; have "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
     return ARCHS[name]
 
 

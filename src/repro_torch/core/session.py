@@ -91,8 +91,12 @@ def _restorable_fill(name, backend: str) -> bool:
 class ValuationSession:
     """Streaming valuation of any registered method against a fixed
     training set on one device (see module docstring). `embed_fn`, when
-    given, maps raw features to the features the KNN ranks on (train and
-    test alike), on the session's device."""
+    given, maps raw features to the features the KNN ranks on, on the
+    session's device: train and test alike, or with `embed_train=False`
+    the test batches only, the train features being given embedded
+    already (a model's embedding of a large train set made offline). A
+    test batch is then whatever `embed_fn` takes, one tensor whose first
+    dim is the batch (token ids, for a language model's `Model.embed`)."""
 
     _ENGINE = "session"
 
@@ -101,7 +105,8 @@ class ValuationSession:
                  fill_params: Optional[dict] = None, distance: str = "auto",
                  autotune: bool = False,
                  method_opts: Optional[dict] = None,
-                 embed_fn: Optional[Callable] = None, device="cuda"):
+                 embed_fn: Optional[Callable] = None,
+                 embed_train: bool = True, device="cuda"):
         from repro_torch.kernels.sti_pipeline import _feature_dtype
         from repro_torch.kernels.stream_kernels import stream_methods
 
@@ -113,7 +118,8 @@ class ValuationSession:
             raise ValueError("k must be >= 1")
         self.device = resolve_device(device)
         self._embed = embed_fn or (lambda x: x)
-        x = self._embed(to_device(x_train, self.device))
+        self._embed_train = self._embed if embed_train else (lambda x: x)
+        x = self._embed_train(to_device(x_train, self.device))
         self._fdt = _feature_dtype(x, fill=fill)
         self.x_train = x.to(self._fdt).contiguous()
         self.y_train = to_device(y_train, self.device)
@@ -187,9 +193,8 @@ class ValuationSession:
 
     def set_train(self, x_train, y_train) -> None:
         """Replace the training arrays, same (n, d) shape (the state is
-        shape-keyed). Raw features: `embed_fn` applies as in the
-        constructor."""
-        x = self._embed(to_device(x_train, self.device)).to(self._fdt)
+        shape-keyed). `embed_fn` applies as in the constructor."""
+        x = self._embed_train(to_device(x_train, self.device)).to(self._fdt)
         if x.shape != self.x_train.shape:
             raise ValueError(
                 f"set_train must keep the train shape "

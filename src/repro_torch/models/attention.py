@@ -12,6 +12,7 @@ head count and are expanded to the q heads with the static map
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -55,8 +56,15 @@ def attn_desc(cfg: ModelConfig, cross: bool = False):
 
 def kv_head_map(cfg: ModelConfig, device=None) -> torch.Tensor:
     """Static map padded-q-head -> kv head (int64). True heads map in
-    contiguous groups; padded heads (zeroed by wo) map to head 0."""
-    h, kv, hp = cfg.num_heads, cfg.num_kv_heads, cfg.padded_heads
+    contiguous groups; padded heads (zeroed by wo) map to head 0. One
+    tensor per (heads, kv heads, padded heads, device), made once: a copy
+    from the host at every call would wait for the card's queue."""
+    return _head_map(cfg.num_heads, cfg.num_kv_heads, cfg.padded_heads,
+                     torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _head_map(h: int, kv: int, hp: int, device) -> torch.Tensor:
     m = [min(i * kv // h, kv - 1) if i < h else 0 for i in range(hp)]
     return torch.tensor(m, dtype=torch.int64, device=device)
 
@@ -150,8 +158,10 @@ def attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     call that needs a gradient (grad on, an input requiring it), explicit
     self-attention positions and a windowed cross call take the plain
     blockwise path, the one the reference differentiates.
+    RoPE applies where `use_rope` and `cfg.rope` both ask for it.
     """
     b, s, _ = x.shape
+    use_rope = use_rope and cfg.rope
     if xattn_kv is None:
         kernel_ok = positions is None
     else:
@@ -211,6 +221,7 @@ def decode_attention(p, x, cfg: ModelConfig, cache, index: int,
     """
     b = x.shape[0]
     index = int(index)
+    use_rope = use_rope and cfg.rope
     pos_now = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q = _project_q(p, x, cfg, pos_now, use_rope)  # (b, 1, hp, hd)
     blocks = cache if isinstance(cache, list) else [cache]

@@ -21,6 +21,7 @@ from repro_torch.configs.base import (
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
+from repro_torch.tracing import count, span
 
 __all__ = ["Model", "build_model"]
 
@@ -120,18 +121,49 @@ class Model:
         return logits, caches
 
     def embed(self, params, batch):
-        """Pooled features for STI-KNN valuation (the paper's extractor
-        role): the f32 mean over positions of the final hidden state (the
-        VLM's patch positions included), or for audio of the encoder
-        output."""
+        """Pooled features for KNN valuation (the paper's extractor role),
+        (B, d_model) f32, computed with no autograd and no logits.
+
+        Without "lengths": the mean over every position of the final
+        hidden state (the VLM's patch positions included), or for audio
+        of the encoder output. With "lengths" (B,) ints, `batch["tokens"]`
+        (B, S) is right-padded (any id past a row's length, -1 among
+        them): the mean over each row's real positions only. Padding
+        then routes to no expert (`models.moe.apply_moe_dropless`), the
+        card's Mamba scan stops at each length, and causal attention and
+        the conv never carry a padded position into a real one, so a
+        real row's features do not depend on how far it is padded.
+
+        Spans: `embed.forward` (the layers and the final norm) and
+        `embed.pool`; counters `lm.tokens` (real positions) and
+        `lm.positions` (positions computed)."""
         cfg = self.cfg
-        if cfg.family == "audio":
-            return torch.mean(
-                W.encode(params, cfg, batch["frames"]).to(torch.float32), 1)
-        _, hidden, _, _ = T.forward(params, cfg, batch["tokens"],
-                                    mode="train",
-                                    extra_embeds=batch.get("patch_embeds"))
-        return torch.mean(hidden.to(torch.float32), dim=1)
+        with torch.no_grad():
+            if cfg.family == "audio":
+                return torch.mean(W.encode(params, cfg, batch["frames"])
+                                  .to(torch.float32), 1)
+            tokens, lengths = batch["tokens"], batch.get("lengths")
+            if lengths is not None:
+                lengths = lengths.to(tokens.device)
+                tokens = tokens.clamp_min(0)
+                count("lm.tokens", lengths.sum())
+            count("lm.positions", tokens.numel())
+            pe = batch.get("patch_embeds")
+            with span("embed.forward"):
+                hidden = T.forward_rows(
+                    self.one_row(params), cfg, [tokens], mode="train",
+                    extra_embeds=None if pe is None else [pe],
+                    kv_block=1024,
+                    lengths=None if lengths is None else [lengths],
+                    logits=False)[1][0]
+            with span("embed.pool"):
+                hf = hidden.to(torch.float32)
+                if lengths is None:
+                    return torch.mean(hf, dim=1)
+                real = (torch.arange(hf.shape[1], device=hf.device)[None, :]
+                        < lengths[:, None])
+                return (hf * real[..., None]).sum(1) / torch.clamp_min(
+                    lengths, 1)[:, None].to(torch.float32)
 
     def init_caches(self, batch_size: int, max_len: int, dtype=None,
                     device="cuda"):

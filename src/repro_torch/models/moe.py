@@ -18,6 +18,16 @@ routing alone, which `apply_moe` and the parity tests both call: a
 flipped choice or drop changes a token's output by O(1), so routing is
 held for equality, not within a tolerance.
 
+`cfg.moe_dropless` (a `PortConfig` switch; Jamba2) takes
+`apply_moe_dropless` instead: no groups and no capacity. It routes the
+real tokens only (a mask leaves padding out of routing and of the
+loss), orders the (token, choice) pairs by expert with a stable sort,
+runs each expert's SwiGLU on exactly its own pairs (`torch._grouped_mm`
+with the offsets on the device, so no count reaches the host; bf16 on
+the card, any type on the CPU) and adds the pairs back, each times its
+gate. `cfg.moe_renorm` False keeps the
+top-k softmax weights as they are (HF `JambaSparseMoeBlock`).
+
 `cfg.shmap_axes` (set by `launch/specs.py::lm_cell` for MoE configs) is
 the reference's `shard_map` MoE: each data shard groups and routes only
 its own tokens, so groups, capacity and drops are per shard, and each
@@ -34,8 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import PD, ModelConfig
+from repro_torch.tracing import count
 
-__all__ = ["moe_desc", "apply_moe", "route", "Routing", "capacity"]
+__all__ = ["moe_desc", "apply_moe", "apply_moe_dropless", "route",
+           "Routing", "capacity", "top_k"]
 
 
 def moe_desc(cfg: ModelConfig):
@@ -69,6 +81,23 @@ def capacity(cfg: ModelConfig, group_size: int) -> int:
                / cfg.num_experts) + 1
 
 
+def top_k(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """The router over tokens x (..., d): the f32 softmax over every
+    expert (..., E), and the top-k choices' gates and indices (..., k),
+    the lower expert index first among equal probabilities (a stable
+    descending sort, whose first k are taken, as `jax.lax.top_k`); the
+    gates divided by their sum where `cfg.moe_renorm` says so."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate_idx = torch.sort(probs, dim=-1, descending=True,
+                          stable=True).indices[..., :cfg.experts_per_token]
+    gate_vals = torch.gather(probs, -1, gate_idx)
+    if cfg.moe_renorm:
+        gate_vals = gate_vals / torch.clamp_min(
+            gate_vals.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_vals, gate_idx
+
+
 def route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
           ) -> Routing:
     """Routing of the grouped tokens xg (g, gs, d): f32 router softmax,
@@ -77,13 +106,7 @@ def route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
     queue positions by a cumsum over the flattened (token, choice) order."""
     n_grp, gs, _ = xg.shape
     e, topk = cfg.num_experts, cfg.experts_per_token
-    logits = xg.to(torch.float32) @ router.to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)  # (g, gs, e)
-    gate_idx = torch.sort(probs, dim=-1, descending=True,
-                          stable=True).indices[..., :topk]
-    gate_vals = torch.gather(probs, -1, gate_idx)
-    gate_vals = gate_vals / torch.clamp_min(
-        gate_vals.sum(-1, keepdim=True), 1e-9)
+    probs, gate_vals, gate_idx = top_k(xg, router, cfg)
     cap = capacity(cfg, gs)
     flat_idx = gate_idx.reshape(n_grp, gs * topk)
     sel = F.one_hot(flat_idx, e)  # (g, sk, e), small
@@ -156,3 +179,50 @@ def apply_moe(p, x, cfg: ModelConfig, model_shards: int = 1):
     aux = e * torch.sum(frac * mean_prob)
     return out, aux
 
+
+def apply_moe_dropless(p, x, cfg: ModelConfig, mask=None):
+    """x: (b, s, d), mask: (b, s) bool of the real tokens (None: all) ->
+    (out (b, s, d), aux_loss 0-d f32). Every real token goes to its top-k
+    experts (no capacity, nothing dropped); a padded token routes nowhere
+    and gets zeros. aux_loss is the Switch loss over the real tokens.
+
+    The pairs are laid out by expert in (token, choice) order, a stable
+    sort of their expert ids with the padded pairs given id E (last);
+    the offsets of the E groups stay on the device. Each expert's SwiGLU
+    runs in the activation type on its own rows, and the k outputs of a
+    token are added in f32, each times its gate, then cast to x's type.
+    `lm.routed` counts the pairs each expert got (tracing.count)."""
+    b, s, d = x.shape
+    e, topk = cfg.num_experts, cfg.experts_per_token
+    n_tok = b * s
+    cdtype = cfg.dtype
+    flat = x.reshape(n_tok, d)
+    probs, gate_vals, gate_idx = top_k(flat, p["router"], cfg)
+    real = (torch.ones(n_tok, dtype=torch.bool, device=x.device)
+            if mask is None else mask.reshape(n_tok))
+    ids = torch.where(real[:, None], gate_idx, e).reshape(-1)
+    order = torch.sort(ids, stable=True).indices
+    # per-expert counts by a scatter: `bincount` and `one_hot` read the
+    # ids' extremes on the host, a sync per MoE layer
+    counts = torch.zeros(e + 1, dtype=torch.int64, device=x.device)
+    counts = counts.scatter_add_(0, ids, torch.ones_like(ids))[:e]
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    count("lm.routed", counts)
+    # rows past offs[-1] (the padded pairs) come out as they were: zeroed
+    # below, whatever they hold
+    xin = flat.to(cdtype)[order // topk]
+    h = F.silu(torch._grouped_mm(xin, p["w1"].to(cdtype), offs=offs)) * (
+        torch._grouped_mm(xin, p["w3"].to(cdtype), offs=offs))
+    y = torch._grouped_mm(h, p["w2"].to(cdtype), offs=offs)
+    pairs = torch.empty_like(y).index_copy_(0, order, y)
+    out = (pairs.view(n_tok, topk, d).to(torch.float32)
+           * gate_vals[..., None]).sum(1)
+    out = torch.where(real[:, None], out, 0.0).to(x.dtype).reshape(b, s, d)
+
+    realf = real.to(torch.float32)
+    n_real = torch.clamp_min(realf.sum(), 1.0)
+    top1 = torch.zeros(e, dtype=torch.float32, device=x.device)
+    frac = top1.scatter_add_(0, gate_idx[:, 0], realf) / n_real
+    mean_prob = (probs * realf[:, None]).sum(0) / n_real
+    aux = e * torch.sum(frac * mean_prob)
+    return out, aux

@@ -1,13 +1,21 @@
 """State-space and recurrent mixers of the port: Mamba (Jamba) and
 mLSTM/sLSTM (xLSTM). Counterpart of `repro.models.ssm`.
 
-  * Mamba runs a chunked selective scan: a Python loop over chunks of
-    `cfg.mamba_chunk` positions, a log-depth (Hillis-Steele) scan inside a
-    chunk. The reference scans each chunk with `lax.associative_scan`, so
-    the f32 sums round in another order. The discretized dA and dB*x are
-    computed one chunk at a time (the reference materializes them for the
-    whole sequence), so a prefill holds one chunk's (b, c, d_inner, state)
-    tensors at a time.
+  * Mamba on the CPU runs a chunked selective scan: a Python loop over
+    chunks of `cfg.mamba_chunk` positions, a log-depth (Hillis-Steele)
+    scan inside a chunk. The reference scans each chunk with
+    `lax.associative_scan`, so the f32 sums round in another order. The
+    discretized dA and dB*x are computed one chunk at a time (the
+    reference materializes them for the whole sequence), so a prefill
+    holds one chunk's (b, c, d_inner, state) tensors at a time. On the
+    card every s > 1 runs the fused kernel (`kernels.selective_scan`,
+    `csrc/selective_scan.cu`), which keeps each channel's state in
+    registers and makes no (b, s, d_inner, state) tensor, unless autograd
+    records the scan: the kernel has no backward, so training on the card
+    runs the chunked path; decode (s = 1) runs the chunked path's one
+    step. `cfg.ssm_dbc_norm` (a `PortConfig`
+    switch; Jamba2) puts an RMSNorm on dt, B and C after `x_proj`, and
+    `lengths` stops each row's scan at its length (the kernel only).
   * mLSTM is gated linear attention with a matrix memory in its stabilized
     chunkwise form (the reference's chunk body, chunk by chunk), the last
     chunk padded as the reference pads it (log input gate -1e30).
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import PD, ModelConfig
+from repro_torch.tracing import span
 
 __all__ = [
     "mamba_desc", "mamba_forward", "mamba_decode_step", "mamba_init_state",
@@ -61,6 +70,10 @@ def mamba_desc(cfg: ModelConfig):
         "A_log": PD((di, ds), ("inner", "state"), init="ones"),
         "D": PD((di,), ("inner",), init="ones"),
         "out_proj": PD((di, cfg.d_model), ("inner", "embed")),
+        **({"dt_norm": PD((dr,), (None,), init="ones"),
+            "b_norm": PD((ds,), ("state",), init="ones"),
+            "c_norm": PD((ds,), ("state",), init="ones")}
+           if cfg.ssm_dbc_norm else {}),
     }
 
 
@@ -80,8 +93,30 @@ def _scan_chunk(h_in, dA, dBx):
     return a * h_in[:, None] + bx
 
 
-def _mamba_inner(p, xz, cfg: ModelConfig, state: MambaState | None):
-    """xz: (b, s, 2*di) pre-projected input -> (y (b, s, di), state)."""
+def _rms(x, w, eps):
+    """RMSNorm over the last dim in f32, scaled by w, in x's type."""
+    xf = x.to(_F32)
+    out = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (out * w.to(_F32)).to(x.dtype)
+
+
+def _fused(x: torch.Tensor, s: int, ds: int, *inputs) -> bool:
+    """Whether the scan runs the fused kernel: on the card, for s > 1,
+    and not where autograd would record it (the kernel has no backward,
+    so a gradient to any of the scan's `inputs` needs the chunked
+    path)."""
+    from repro_torch.kernels.selective_scan import STATE_DIM
+
+    return (x.device.type == "cuda" and s > 1 and ds == STATE_DIM
+            and x.dtype in (torch.float32, torch.bfloat16)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in inputs)))
+
+
+def _mamba_inner(p, xz, cfg: ModelConfig, state: MambaState | None,
+                 lengths=None):
+    """xz: (b, s, 2*di) pre-projected input -> (y (b, s, di), state).
+    `lengths` (b,) stops the fused kernel's scan at each row's length."""
     b, s, _ = xz.shape
     di, ds, dc = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_dim
     x, z = torch.chunk(xz, 2, dim=-1)
@@ -99,32 +134,47 @@ def _mamba_inner(p, xz, cfg: ModelConfig, state: MambaState | None):
     proj = xconv @ p["x_proj"].to(x.dtype)  # (b, s, dr + 2 ds)
     dr = cfg.dt_rank_
     dt, B, C = proj[..., :dr], proj[..., dr:dr + ds], proj[..., dr + ds:]
-    dt = F.softplus(dt @ p["dt_proj"].to(x.dtype)
-                    + p["dt_bias"].to(x.dtype)).to(_F32)  # (b, s, di)
+    if cfg.ssm_dbc_norm:
+        dt = _rms(dt, p["dt_norm"], cfg.norm_eps)
+        B = _rms(B, p["b_norm"], cfg.norm_eps)
+        C = _rms(C, p["c_norm"], cfg.norm_eps)
+    dt = dt @ p["dt_proj"].to(x.dtype) + p["dt_bias"].to(x.dtype)
     A = -torch.exp(p["A_log"].to(_F32))  # (di, ds)
+    h = None if state is None else state.ssm
+    if _fused(x, s, ds, xconv, z, dt, A, B, C, p["D"]):
+        from repro_torch.kernels.selective_scan import selective_scan_cuda
+
+        with span("lm.scan"):
+            y, h = selective_scan_cuda(xconv, z, dt, A, B, C, p["D"], h,
+                                       lengths)
+        return y, MambaState(conv=conv_hist.to(_F32), ssm=h)
+    dt = F.softplus(dt).to(_F32)  # (b, s, di)
     dtx = dt * xconv.to(_F32)
     Bf, Cf = B.to(_F32), C.to(_F32)
 
-    h = (torch.zeros((b, di, ds), dtype=_F32, device=x.device)
-         if state is None else state.ssm)
+    if h is None:
+        h = torch.zeros((b, di, ds), dtype=_F32, device=x.device)
     chunk = min(cfg.mamba_chunk, s)
     ys = []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
-        dA = torch.exp(dt[:, sl, :, None] * A)  # (b, c, di, ds)
-        dBx = dtx[:, sl, :, None] * Bf[:, sl, None, :]
-        h_all = _scan_chunk(h, dA, dBx)
-        h = h_all[:, -1]
-        ys.append(torch.sum(h_all * Cf[:, sl, None, :], dim=-1))
+    with span("lm.scan"):
+        for c0 in range(0, s, chunk):
+            sl = slice(c0, c0 + chunk)
+            dA = torch.exp(dt[:, sl, :, None] * A)  # (b, c, di, ds)
+            dBx = dtx[:, sl, :, None] * Bf[:, sl, None, :]
+            h_all = _scan_chunk(h, dA, dBx)
+            h = h_all[:, -1]
+            ys.append(torch.sum(h_all * Cf[:, sl, None, :], dim=-1))
     y = torch.cat(ys, dim=1) + xconv.to(_F32) * p["D"].to(_F32)
     y = y.to(xz.dtype) * F.silu(z)
     return y, MambaState(conv=conv_hist.to(_F32), ssm=h)
 
 
-def mamba_forward(p, x, cfg: ModelConfig, state: MambaState | None = None):
-    """x: (b, s, d_model) -> (y (b, s, d_model), final state)."""
+def mamba_forward(p, x, cfg: ModelConfig, state: MambaState | None = None,
+                  lengths=None):
+    """x: (b, s, d_model) -> (y (b, s, d_model), final state). `lengths`
+    (b,) stops the card's scan at each row's length (y = 0 past it)."""
     xz = x @ p["in_proj"].to(x.dtype)
-    y, st = _mamba_inner(p, xz, cfg, state)
+    y, st = _mamba_inner(p, xz, cfg, state, lengths)
     return y @ p["out_proj"].to(x.dtype), st
 
 

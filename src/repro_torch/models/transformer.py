@@ -31,6 +31,7 @@ so that an MoE block can route the tokens of every row as one batch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, NamedTuple, Optional
 
@@ -43,6 +44,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.tracing import span
 
 __all__ = ["layer_schedule", "model_desc", "forward", "forward_rows",
            "Rows", "one_row", "init_caches", "pooled_embeddings"]
@@ -180,9 +182,20 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _mixer_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
-                 index, positions, kv_block, enc_out):
-    """One block up to its FFN: the mixer and the cross sub-block.
-    Returns (x, new_cache)."""
+                 index, positions, kv_block, enc_out, lengths=None):
+    """One block up to its FFN: the mixer and the cross sub-block, under
+    the span `lm.attn` or `lm.mamba`. `lengths` (b,) stops a Mamba
+    mixer's scan at each row's length on the card. Returns (x,
+    new_cache)."""
+    attn = e.mixer in ("attn", "swa")
+    with (span("lm.attn") if attn else span("lm.mamba")
+          if e.mixer == "mamba" else contextlib.nullcontext()):
+        return _mixer_block_body(bp, x, cfg, e, mode, cache, index,
+                                 positions, kv_block, enc_out, lengths)
+
+
+def _mixer_block_body(bp, x, cfg, e, mode, cache, index, positions,
+                      kv_block, enc_out, lengths):
     h = L.apply_norm(bp["ln1"], x, cfg)
     new_cache: dict[str, Any] = {}
     if e.mixer in ("attn", "swa"):
@@ -203,7 +216,8 @@ def _mixer_block(bp, x, cfg: ModelConfig, e: Entry, mode: str, cache,
             y, new_cache["ssm"] = m.decode_step(bp["mixer"], h, cfg,
                                                 cache["ssm"])
         else:
-            y, st = m.forward(bp["mixer"], h, cfg, None)
+            kw = {} if lengths is None else {"lengths": lengths}
+            y, st = m.forward(bp["mixer"], h, cfg, None, **kw)
             if mode == "prefill":
                 new_cache["ssm"] = st
     x = x + y
@@ -269,9 +283,11 @@ class Rows(NamedTuple):
     params(gi) -> per row, group gi's params on the row's device, fetched
         inside the group's (recomputed) function, so a gather there is
         redone in the backward pass rather than kept;
-    moe(ps, hs) -> (ys, aux): an MoE block's FFN over the rows' inputs
-        hs, ps its params per row; aux one 0-d f32 tensor on row 0's
-        device;
+    moe(ps, hs[, masks]) -> (ys, aux): an MoE block's FFN over the rows'
+        inputs hs, ps its params per row, `masks` per row the (b, s) bool
+        of real tokens where the forward has lengths (a dropless
+        config's routing leaves the others out); aux one 0-d f32 tensor
+        on row 0's device;
     encoder() -> per row, the audio encoder's params on the row's device
         (None for the other families; read by `Model.forward_rows`)."""
     params: Any
@@ -285,8 +301,12 @@ def one_row(params, cfg: ModelConfig, encoder=None) -> Rows:
     groups = _unstack(params["groups"], cfg.num_groups)
     top = {k: v for k, v in params.items() if k != "groups"}
 
-    def moe(ps, hs):
-        y, aux = MOE.apply_moe(ps[0], hs[0], cfg)
+    def moe(ps, hs, masks=None):
+        if cfg.moe_dropless:
+            y, aux = MOE.apply_moe_dropless(
+                ps[0], hs[0], cfg, None if masks is None else masks[0])
+        else:
+            y, aux = MOE.apply_moe(ps[0], hs[0], cfg)
         return [y], aux
 
     return Rows(lambda gi: [top if gi is None else groups[gi]], moe,
@@ -332,12 +352,17 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
 
 def forward_rows(rows: Rows, cfg: ModelConfig, tokens, *, mode="train",
                  caches=None, index=None, extra_embeds=None, kv_block=1024,
-                 positions=None, enc_out=None):
+                 positions=None, enc_out=None, lengths=None, logits=True):
     """`forward` over the data rows of `rows`, all rows of a block before
     the next block: every argument of `forward` that is per batch is here
     a list, one entry per row (on the row's device), and so is every
     result but aux. Each row's block runs on its own, except an MoE
-    block's FFN, which `rows.moe` runs over all the rows' inputs."""
+    block's FFN, which `rows.moe` runs over all the rows' inputs.
+
+    `lengths` (per row, (b,) ints; train mode) marks each sequence's real
+    positions, the rest right padding: the MoE FFN is given the mask of
+    the real tokens and the card's Mamba scan stops at each length. With
+    `logits=False` no logits are computed (None per row)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if mode == "decode" and caches is None:
@@ -365,6 +390,13 @@ def forward_rows(rows: Rows, cfg: ModelConfig, tokens, *, mode="train",
         xs.append(x)
     have_cache = caches is not None
     use = _fsdp_use(cfg) if cfg.fsdp_constrain else None
+    lengths = per_row(lengths)
+    masks = None
+    if any(ln is not None for ln in lengths):
+        if mode != "train" or extra_embeds is not None:
+            raise ValueError("lengths are for train-mode token batches")
+        masks = [torch.arange(x.shape[1], device=x.device)[None, :]
+                 < ln.to(x.device)[:, None] for x, ln in zip(xs, lengths)]
 
     def group_fn(xs, gi, gcaches):
         xs = list(xs)
@@ -378,19 +410,23 @@ def forward_rows(rows: Rows, cfg: ModelConfig, tokens, *, mode="train",
                 xs[r], nc = _mixer_block(
                     gps[r]["blocks"][i], xs[r], cfg, e, mode,
                     gcaches[r][i] if have_cache else None, index,
-                    positions[r], kv_block, enc_out[r])
+                    positions[r], kv_block, enc_out[r], lengths[r])
                 new_caches[r].append(nc)
             if not e.ffn:
                 continue
             bps = [gp["blocks"][i] for gp in gps]
-            hs = [L.apply_norm(bp["ln2"], x, cfg) for bp, x in zip(bps, xs)]
-            if e.ffn == "moe":
-                ys, a = rows.moe([bp["ffn"] for bp in bps], hs)
-                aux = aux + a
-            else:
-                ys = [L.apply_mlp(bp["ffn"], h, cfg) for bp, h in zip(bps,
-                                                                       hs)]
-            xs = [x + y for x, y in zip(xs, ys)]
+            with (span("lm.moe") if e.ffn == "moe" else span("lm.mlp")):
+                hs = [L.apply_norm(bp["ln2"], x, cfg)
+                      for bp, x in zip(bps, xs)]
+                if e.ffn == "moe":
+                    ps = [bp["ffn"] for bp in bps]
+                    ys, a = (rows.moe(ps, hs) if masks is None
+                             else rows.moe(ps, hs, masks))
+                    aux = aux + a
+                else:
+                    ys = [L.apply_mlp(bp["ffn"], h, cfg)
+                          for bp, h in zip(bps, hs)]
+                xs = [x + y for x, y in zip(xs, ys)]
         return xs, new_caches, aux
 
     if mode == "train" and cfg.remat != "none" and torch.is_grad_enabled():
@@ -421,9 +457,11 @@ def forward_rows(rows: Rows, cfg: ModelConfig, tokens, *, mode="train",
     else:
         out_caches = None
     xs = [L.apply_norm(top[r]["ln_f"], x, cfg) for r, x in enumerate(xs)]
-    logits = [L.logits_from_hidden(top[r]["embed"], x, cfg)
-              for r, x in enumerate(xs)]
-    return logits, xs, out_caches, aux
+    if not logits:
+        return [None] * n_rows, xs, out_caches, aux
+    out_logits = [L.logits_from_hidden(top[r]["embed"], x, cfg)
+                  for r, x in enumerate(xs)]
+    return out_logits, xs, out_caches, aux
 
 
 def _write_states(pool, states):
