@@ -233,7 +233,17 @@ and then the port's tooling and its last entry points:
       version (the recurrence position by position) on the same tensors,
       its time beside `portbench/costs_jamba.py`'s bound at the real
       tokens; then its launches counted from zero on jamba2-mini's embed
-      path (one period, 7 a `Model.embed`) and a prefill (7).
+      path (one period, 7 a `Model.embed`) and a prefill (7);
+  [26] the knn point update's kernel (`kernels/point_update.py`) at the
+      two cells' shapes, 256 x 1,281,167 and 32 x 650,000: a label match
+      and a wknn-weighted one, a padded row, against its plain version
+      (`_shapley_point_values(...).sum(0)`) within 1e-6 of max |plain|,
+      two runs bit for bit, its time, its two kernels' and the plain
+      version's by CUDA events beside its bound (`point_update_cost`:
+      u and ranks read once, 12 bytes a key), peak memory, and its
+      runtime launches in one call. The streamed knn_shapley and wknn
+      paths count its launches ([7], [9f], [10], [12b], [23]); the sti,
+      megakernel and approx paths count none.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every phase fails the run with a non-zero exit. It imports nothing
@@ -936,8 +946,9 @@ def approx_scale_phase(torch, dev, c) -> dict:
         log(f"[9f] knn_shapley {engine} n={n} d={d} t={t}: "
             f"{info['total_s']:.3f} s, peak {info['peak_gib']:.2f} GiB, "
             f"launches {info['launches']}")
+        streamed = c.n_steps if engine == "streamed" else 0
         c.expect(f"[9f] {engine}", info["launches"], distance=c.n_steps,
-                 rank_sort=c.n_steps if engine == "streamed" else 0)
+                 rank_sort=streamed, point_update=streamed)
     ap, ex = results["approx"], results["streamed"]
     err = float((ap.point_values - ex.point_values).abs().max())
     bound = ap.meta["error_bound"]
@@ -1116,7 +1127,8 @@ def tuner_phase(torch, dev, c) -> dict:
     torch.cuda.empty_cache()
     want_pt = ({"point_megakernel": c.n_steps}
                if won["megastep_knn_shapley"][0] == "megakernel" else
-               {"distance": c.n_steps, "rank_sort": c.n_steps})
+               {"distance": c.n_steps, "rank_sort": c.n_steps,
+                "point_update": c.n_steps})
     c.zero_counts()
     sess = ValuationSession(c.x_train, c.y_train, k=k, mode="knn_shapley",
                             test_batch=tb, device=dev)
@@ -4205,13 +4217,14 @@ def entry_points_phase(torch, np, dev, c, smi: str) -> dict:
     for w in ("rbf", "inverse", "uniform"):
         wk = ["--method", "wknn", "--weights", w]
         streamed = launch(f"[23a] wknn {w} streamed",
-                          wk + ["--engine", "streamed"], ("distance",),
+                          wk + ["--engine", "streamed"],
+                          ("distance", "point_update"),
                           ("point_megakernel", "sti_megakernel",
                            "sti_fill_acc", "sti_fill_acc_rect"))
         mega = launch(f"[23a] wknn {w} megakernel",
                       wk + ["--fill", "megakernel"], points,
                       ("sti_megakernel", "sti_fill_acc",
-                       "sti_fill_acc_rect"))
+                       "sti_fill_acc_rect", "point_update"))
         hold(f"[23a] wknn {w}: megakernel vs streamed", mega.point_values,
              streamed.point_values, 1e-5)
         c.zero_counts()
@@ -4288,19 +4301,24 @@ def entry_points_phase(torch, np, dev, c, smi: str) -> dict:
     del res, sharded
     free_phase(torch, "[23b] sti sharded")
     ks = ["--method", "knn_shapley"]
-    oneshot = launch("[23b] knn_shapley one-shot", ks, ("distance",), fills)
+    oneshot = launch("[23b] knn_shapley one-shot", ks,
+                     ("distance", "point_update"), fills)
     res = launch("[23b] knn_shapley stream", ks + ["--stream"],
-                 ("distance",), fills)
+                 ("distance", "point_update"), fills)
     hold("[23b] knn_shapley stream vs one-shot", res.point_values,
          oneshot.point_values, 1e-6)
     del oneshot, res
     ap = ["--engine", "approx", "--top-m", "64"]
     for method, field in (("knn_shapley", "point_values"), ("sti", "phi")):
+        # sti's runs also value knn_shapley streamed (the launcher's
+        # correlation line), so only knn_shapley's exclude the update
+        never = fills + (("point_update",) if method == "knn_shapley"
+                         else ())
         oneshot = launch(f"[23b] {method} --engine approx one-shot",
-                         ["--method", method] + ap, ("distance",), fills)
+                         ["--method", method] + ap, ("distance",), never)
         res = launch(f"[23b] {method} --stream --engine approx",
                      ["--method", method, "--stream"] + ap, ("distance",),
-                     fills)
+                     never)
         if res.meta["approx_exact"] or res.meta["top_m"] != 64:
             fail(f"[23b] {method} --stream --engine approx did not "
                  f"preselect 64 candidates: {res.meta}")
@@ -4581,6 +4599,106 @@ def selective_scan_phase(torch, dev, smi: str) -> dict:
     return out
 
 
+def point_update_phase(torch, dev, smi: str) -> dict:
+    """[26]: the knn point update's kernel at the two cells' shapes
+    against its plain version (module doc). Returns the kernel table's
+    figures: those of the knn cell's shape, and each shape's under
+    `shapes`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.wknn import distance_weights
+    from repro_torch.kernels.point_update import (
+        point_update_cuda, point_update_plain)
+
+    ha = _costs()
+    out = {"max_abs_err": 0.0, "shapes": {}}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for tb, n in ((32, 650000), (256, 1281167)):
+        # the step's u: a sorted label match (10 % of the train labels
+        # match) and wknn's rbf-weighted one, the last row a padded one;
+        # ranks a permutation of each row
+        match = (torch.rand((tb, n), generator=gen, device=dev) < 0.1).float()
+        match[-1] = 0.0
+        d2 = torch.sort(torch.rand((tb, n), generator=gen, device=dev)
+                        * 4e4).values
+        ranks = torch.argsort(torch.rand((tb, n), generator=gen,
+                                         device=dev), dim=1)
+        errs = {}
+        for kind, u in (("knn_shapley", match),
+                        ("wknn", distance_weights(d2, "rbf") * match)):
+            before = point_update_cuda.launches
+            got = point_update_cuda(torch.zeros(n, device=dev), u, ranks, 5)
+            again = point_update_cuda(torch.zeros(n, device=dev), u, ranks,
+                                      5)
+            want = point_update_plain(torch.zeros(n, device=dev), u, ranks,
+                                      5)
+            torch.cuda.synchronize()
+            if point_update_cuda.launches != before + 2:
+                fail(f"[26] point_update_cuda launched "
+                     f"{point_update_cuda.launches - before} times, not 2")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            same = bool(torch.equal(got, again))
+            errs[kind] = err
+            log(f"[26] point update {kind} ({tb}, {n}): max_abs_err "
+                f"{err:.3e} (max |plain| {scale:.3e}, tol 1e-6 of it); two "
+                f"runs bit-identical {same}")
+            if not (err <= 1e-6 * scale and same):
+                fail(f"[26] point update {kind} at ({tb}, {n}): error {err}"
+                     f" > 1e-6 * {scale}, or two runs differ")
+            del got, again, want
+        u = match
+        vec = torch.zeros(n, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        point_update_cuda(vec, u, ranks, 5)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        point_update_plain(vec, u, ranks, 5)
+        torch.cuda.synchronize()
+        plain_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                point_update_cuda(vec, u, ranks, 5)
+            torch.cuda.synchronize()
+        calls = [e.name for e in prof.events() if e.name.startswith((
+            "cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaMemset",
+            "cuLaunchKernel"))]
+        split = {e.key.split("::")[-1].split("(")[0]: e.device_time_total
+                 / 3e3 for e in prof.key_averages()
+                 if e.device_time_total > 0}
+        ms = cuda_ms(torch, lambda: point_update_cuda(vec, u, ranks, 5),
+                     reps=10)
+        plain_ms = cuda_ms(torch, lambda: point_update_plain(vec, u, ranks,
+                                                             5), reps=3)
+        bound, by = ha.point_update_cost(tb, n).bound_ms()
+        by_kernel = ({k: round(v, 4) for k, v in split.items()} if split
+                     else "not measured: the profiler traced no device time")
+        log(f"[26] point update ({tb}, {n}): {ms:.3f} ms (its bound "
+            f"{bound:.3f} ms by {by}, {100 * bound / ms:.1f} %; by kernel "
+            f"{by_kernel}), plain "
+            f"{plain_ms:.3f} ms; peak +{peak:.3f} GiB (plain +"
+            f"{plain_peak:.3f}); runtime launches and memsets in one call: "
+            f"{len(calls) / 3:g} ({smi})")
+        if len(calls) != 9:
+            fail(f"[26] three point updates made {len(calls)} runtime "
+                 f"launches and memsets, not 9: {calls}")
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None, shape=f"t={tb} n={n} f32",
+                   max_abs_err=max(out["max_abs_err"], *errs.values()))
+        out["shapes"][f"{tb}x{n}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "by_kernel_ms": split, "max_abs_err": errs,
+            "peak_gib": peak, "plain_peak_gib": plain_peak}
+        del match, d2, ranks, u, vec
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4616,6 +4734,7 @@ def main() -> None:
     from repro_torch.data import flip_labels, make_gaussian_blobs
     from repro_torch.kernels import build
     from repro_torch.kernels.distance import distance_cuda, distance_plain
+    from repro_torch.kernels.point_update import point_update_cuda
     from repro_torch.kernels.rank_sort import rank_order_cuda
     from repro_torch.kernels.selective_scan import selective_scan_cuda
     from repro_torch.kernels.sti_fill import TILE as FILL_TILE
@@ -5225,6 +5344,13 @@ def main() -> None:
         name="rank_sort", route="cuda",
         source="src/repro_torch/csrc/rank_sort.cu",
         replaces="no TPU kernel (jnp.argsort + ranks_from_order)")
+    # the knn point update: [7], [9f], [10], [12b] and [23] count it on
+    # the streamed point paths, [26] measures it at the cells' shapes
+    entries["point_update"] = dict(
+        name="point_update", route="cuda",
+        source="src/repro_torch/csrc/point_update.cu",
+        replaces="no TPU kernel (knn_shapley_from_sorted and the gather "
+                 "through ranks, left to XLA)")
     # Mamba's scan: [17a], [17b] and [25] count it, [25] measures it
     entries["selective_scan"] = dict(
         name="selective_scan", route="cuda",
@@ -5379,6 +5505,7 @@ def main() -> None:
     for method in ("knn_shapley", "wknn", "loo"):
         distance_cuda.launches = point_megakernel_cuda.launches = 0
         sti_megakernel_cuda.launches = sti_fill_acc_cuda.launches = 0
+        point_update_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sess = ValuationSession(x_train, y_train, k=k, mode=method,
@@ -5387,11 +5514,12 @@ def main() -> None:
         torch.cuda.synchronize()
         sess_s = time.perf_counter() - t0
         counts = (point_megakernel_cuda.launches, distance_cuda.launches,
-                  sti_megakernel_cuda.launches, sti_fill_acc_cuda.launches)
-        if counts != (n_steps, 0, 0, 0):
+                  sti_megakernel_cuda.launches, sti_fill_acc_cuda.launches,
+                  point_update_cuda.launches)
+        if counts != (n_steps, 0, 0, 0, 0):
             fail(f"{method} session launched (point_megakernel, distance, "
-                 f"sti_megakernel, fill) = {counts}, expected ({n_steps}, "
-                 f"0, 0, 0)")
+                 f"sti_megakernel, fill, point_update) = {counts}, "
+                 f"expected ({n_steps}, 0, 0, 0, 0)")
         point_total += counts[0]
         want = stream_point_values(method, x_train, y_train, x_test, y_test,
                                    k, test_batch=tb, distance="cuda",
@@ -5423,7 +5551,8 @@ def main() -> None:
                "sti_fill_acc_rect": sti_fill_acc_rect_cuda,
                "sti_megakernel": sti_megakernel_cuda,
                "point_megakernel": point_megakernel_cuda,
-               "selective_scan": selective_scan_cuda}
+               "selective_scan": selective_scan_cuda,
+               "point_update": point_update_cuda}
 
     def zero_counts():
         for fn in counted.values():
@@ -5533,7 +5662,8 @@ def main() -> None:
                    point_megakernel=steps_x_shards)
         else:
             expect("knn_shapley three-stage", got, distance=steps_x_shards,
-                   rank_sort=steps_x_shards)
+                   rank_sort=steps_x_shards, point_update=steps_x_shards)
+            entries["point_update"]["launches"] = got["point_update"]
         if vals.shape != (n_full,) or not bool(torch.isfinite(vals).all()):
             fail(f"[7] knn_shapley values: shape {tuple(vals.shape)} or "
                  f"non-finite")
@@ -5649,7 +5779,7 @@ def main() -> None:
     log(f"[12] phase {service['phase_s']:.1f} s")
     shutil.rmtree(tune_dir, ignore_errors=True)
     for name in ("distance", "rank_sort", "sti_fill_acc",
-                 "sti_fill_acc_rect"):
+                 "sti_fill_acc_rect", "point_update"):
         entries[name]["resilient_service_launches"] = {
             "[11]": resilient["launches"][name],
             "[12a]": service["sti"]["launches"][name],
@@ -5658,10 +5788,11 @@ def main() -> None:
     log("[11]-[12] launches by path: " + ", ".join(
         f"{name} {entries[name]['resilient_service_launches']}"
         for name in ("distance", "rank_sort", "sti_fill_acc",
-                     "sti_fill_acc_rect")))
+                     "sti_fill_acc_rect", "point_update")))
     for name, want in (("distance", "[12a]"), ("rank_sort", "[12a]"),
                        ("sti_fill_acc", "[12a]"),
-                       ("sti_fill_acc_rect", "[12c]")):
+                       ("sti_fill_acc_rect", "[12c]"),
+                       ("point_update", "[12b]")):
         if not entries[name]["resilient_service_launches"][want]:
             fail(f"{name} was not launched on {want}'s path")
 
@@ -5778,6 +5909,9 @@ def main() -> None:
     gc.collect()
     log(f"[25] device memory held before: {device_gib(torch)}")
     entries["selective_scan"].update(selective_scan_phase(torch, dev, smi))
+    # ---------- 26. the knn point update's kernel at the cells' shapes
+    gc.collect()
+    entries["point_update"].update(point_update_phase(torch, dev, smi))
     log(f"whole smoke run {time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules

@@ -83,6 +83,8 @@ ENTRIES = {
                          "point_megakernel_cuda", "point_megakernel_plain"),
     "rank_sort": ("repro_torch.kernels.rank_sort", "rank_order_cuda",
                   "rank_order_plain"),
+    "point_update": ("repro_torch.kernels.point_update",
+                     "point_update_cuda", "point_update_plain"),
 }
 
 # the implementations the steps are prepared with: the registered kernels

@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the port; build_all compiles them in parallel
 SOURCES = ("distance", "sti_fill", "sti_megakernel", "flash_attention",
-           "rank_sort", "selective_scan")
+           "rank_sort", "selective_scan", "point_update")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

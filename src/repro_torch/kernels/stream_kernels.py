@@ -16,6 +16,9 @@ small objects:
     state`, which updates the state tensors IN PLACE (the JAX step donates
     them instead).
 
+The point update of knn_shapley and wknn runs on a card as its own kernel
+(`repro_torch.kernels.point_update`, `_shapley_add`); loo's stays plain.
+
 The online service's train-set mutations refold CACHED (d2, order) pairs
 under a liveness mask through the same closures (`compact_order`,
 `make_refold_kernel`); removed and free train slots hold the
@@ -47,6 +50,7 @@ from repro_torch.core.sti_knn import (
     ranks_from_order,
     superdiagonal_g,
 )
+from repro_torch.kernels.point_update import point_update_cuda
 
 __all__ = [
     "AccumulatorSpec",
@@ -318,12 +322,27 @@ def _loo_point_values(u, ranks, k, opts):
     return torch.gather(_loo_window(u, k), 1, ranks)
 
 
-def _point_factory(contrib_fn: Callable, values_fn: Callable) -> Callable:
-    """Factory maker for vector-accumulator methods: `values_fn` maps the
-    batch to (tb, n) per-train-point values in train coordinates; the
-    update adds their test-dim sum into the (n,) vector in place
-    (reduce-scattered onto the (n/D,) rows of each shard when sharded --
-    the vector twin of the interaction diag update)."""
+def _shapley_add(vec, u, ranks, k, opts):
+    """knn_shapley / wknn: `vec` += the test-dim sum of
+    `_shapley_point_values` (the sum itself for `vec=None`), by the point
+    update's kernel on a card (`kernels/point_update.py`)."""
+    return point_update_cuda(vec, u, ranks, k)
+
+
+def _loo_add(vec, u, ranks, k, opts):
+    """loo: `vec` += the test-dim sum of `_loo_point_values` (the sum
+    itself for `vec=None`)."""
+    part = _loo_point_values(u, ranks, k, opts).sum(0)
+    return part if vec is None else vec.add_(part)
+
+
+def _point_factory(contrib_fn: Callable, add_fn: Callable) -> Callable:
+    """Factory maker for vector-accumulator methods: `add_fn(vec, u,
+    ranks, k, opts)` adds the test-dim sum of the batch's (tb, n)
+    per-train-point values in train coordinates into the (n,) vector in
+    place, or returns that sum for `vec=None`: each shard's partial,
+    reduce-scattered onto the (n/D,) rows of each shard when sharded --
+    the vector twin of the interaction diag update."""
 
     def factory(method, k, opts, fill, fill_static, axis):
         def contrib(d2, order, match, mask):
@@ -331,10 +350,10 @@ def _point_factory(contrib_fn: Callable, values_fn: Callable) -> Callable:
 
         def update(state, u, g, ranks, mask):
             if axis is None:
-                state[0].add_(values_fn(u, ranks, k, opts).sum(0))
+                add_fn(state[0], u, ranks, k, opts)
                 return state
             parts = axis.reduce_scatter(
-                [values_fn(u_i, r_i, k, opts).sum(0)
+                [add_fn(None, u_i, r_i, k, opts)
                  for u_i, r_i in zip(u, ranks)])
             for v_i, part in zip(state[0], parts):
                 v_i.add_(part)
@@ -629,14 +648,13 @@ def scatter_point_update(vec: torch.Tensor, cand: torch.Tensor,
 register_update_kernel("sti", INTERACTION_STATE, _interaction_factory("sti"))
 register_update_kernel("sii", INTERACTION_STATE, _interaction_factory("sii"))
 register_update_kernel(
-    "knn_shapley", POINT_STATE,
-    _point_factory(_match_contrib, _shapley_point_values),
+    "knn_shapley", POINT_STATE, _point_factory(_match_contrib, _shapley_add)
 )
 register_update_kernel(
-    "wknn", POINT_STATE, _point_factory(_wknn_contrib, _shapley_point_values)
+    "wknn", POINT_STATE, _point_factory(_wknn_contrib, _shapley_add)
 )
 register_update_kernel(
-    "loo", POINT_STATE, _point_factory(_match_contrib, _loo_point_values)
+    "loo", POINT_STATE, _point_factory(_match_contrib, _loo_add)
 )
 register_megakernel_tables("sti", _interaction_megatables("sti"))
 register_megakernel_tables("sii", _interaction_megatables("sii"))

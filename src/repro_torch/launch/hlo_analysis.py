@@ -34,7 +34,7 @@ __all__ = ["HW", "RooflineTerms", "KernelCost", "KERNELS", "roofline",
            "distance_cost", "fill_cost", "rect_fill_cost",
            "sti_megakernel_cost", "point_megakernel_cost", "flash_cost",
            "visible_pairs", "sort_traffic", "sort_floor_ms",
-           "rank_sort_cost"]
+           "rank_sort_cost", "point_update_cost"]
 
 # H100 SXM5 data-sheet peaks (NVIDIA), dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -170,6 +170,15 @@ def rank_sort_cost(t, n) -> KernelCost:
     radix design stands above it. No operation is counted: the sort
     moves keys and compares none."""
     return KernelCost(0.0, 20.0 * t * n, 0.0)
+
+
+def point_update_cost(t, n) -> KernelCost:
+    """The knn point update on (t, n) at its floor: u (f32) and ranks
+    (int64) read once, 12 bytes a key, and the (n,) f32 vector read and
+    written once. `csrc/point_update.cu`'s two phases also write and read
+    the per-row values once (20 bytes a key). No operation is counted:
+    a few per key, far under the bytes' time."""
+    return KernelCost(0.0, 12.0 * t * n + 8.0 * n, 0.0)
 
 
 class _KernelCounts:
