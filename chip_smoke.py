@@ -978,18 +978,18 @@ def approx_scale_phase(torch, dev, c) -> dict:
     torch.cuda.empty_cache()
     from repro_torch.kernels.distance import distance_cuda
     from repro_torch.kernels.stream_kernels import accumulator_spec
-    from repro_torch.kernels.sti_pipeline import make_point_step
+    from repro_torch.kernels.sti_pipeline import make_stream_step
 
-    step = make_point_step("knn_shapley", k, (), "cuda")
-    vec = accumulator_spec("knn_shapley").init(n, dev)[0]
+    step = make_stream_step("knn_shapley", k, distance="cuda")
+    state = accumulator_spec("knn_shapley").init(n, dev)
     out["streamed"]["step_ms"] = cuda_ms(
-        torch, lambda: step(vec, xb, yb, mask, x, y), reps=3)
+        torch, lambda: step(state, xb, yb, mask, x, y), reps=3)
     out["streamed"]["distance_ms"] = cuda_ms(
         torch, lambda: distance_cuda(xb, x), reps=3)
     log(f"[9f] knn_shapley streamed step (t={tb}, n={n}): "
         f"{out['streamed']['step_ms']:.3f} ms, of it the distance kernel "
         f"{out['streamed']['distance_ms']:.3f} ms")
-    del x, y, xt, yt, vec, xb, yb, mask
+    del x, y, xt, yt, state, xb, yb, mask
     torch.cuda.empty_cache()
     return out
 
@@ -4747,7 +4747,7 @@ def main() -> None:
         point_megakernel_cuda, point_megakernel_plain, radix_passes,
         sti_megakernel_cuda, sti_megakernel_plain)
     from repro_torch.kernels.sti_pipeline import (
-        pad_test_batch, prepare_fused_step, stream_point_values)
+        pad_test_batch, prepare_stream_step, stream_point_values)
 
     # ---------------------------------------------------- 1. build, device
     smi = subprocess.run(
@@ -5708,16 +5708,17 @@ def main() -> None:
     ctx.phi = None
 
     # step time at full width, reusing phi's buffer as the accumulator
-    step, _ = prepare_fused_step(n_full, d_full, k, mode=CONFIG.mode,
-                                 test_batch=tb, device=dev)
+    step, _, _ = prepare_stream_step(CONFIG.mode, n_full, d_full, k,
+                                     test_batch=tb, device=dev)
     diag.zero_()
-    step_ms = cuda_ms(torch, lambda: step(phi, diag, xb, yb, mask, xtr, ytr),
-                      reps=3)
+    step_ms = cuda_ms(torch, lambda: step((phi, diag), xb, yb, mask, xtr,
+                                          ytr), reps=3)
     log(f"[4] fused step (t={tb}, n={n_full}, d={d_full}): {step_ms:.2f} ms "
         f"({n_steps} steps on the main path; {1e3 * total_s - n_steps * step_ms:.1f}"
         f" ms of the main path's wall time lies outside the steps)")
     # where a step's time goes: the stages of the fused step body
-    # (kernels/sti_pipeline.py::_stream_body), one CUDA event between each
+    # (kernels/sti_pipeline.py::step_head and the update), one CUDA event
+    # between each
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     marks[0].record()
     d2 = distance_cuda(xb, xtr)

@@ -286,19 +286,14 @@ class _InteractionMethod:
         tb = max(1, min(int(test_batch), int(x_test.shape[0])))
         t0 = time.perf_counter()
         if engine == "fused":
-            from repro_torch.kernels.sti_pipeline import (
-                fused_sti_knn_interactions, prepare_fused_step)
+            from repro_torch.kernels.sti_pipeline import _stream_run
 
-            _, resolved = prepare_fused_step(
-                x_train.shape[0], x_train.shape[1], k, mode=self.mode,
-                test_batch=tb, fill=fill, fill_params=fill_params,
+            arrays, resolved = _stream_run(
+                self.mode, x_train, y_train, x_test, y_test, k,
+                test_batch=test_batch, fill=fill, fill_params=fill_params,
                 distance=distance, autotune=autotune, device=dev,
             )
-            phi = fused_sti_knn_interactions(
-                x_train, y_train, x_test, y_test, k, mode=self.mode,
-                test_batch=test_batch, fill=fill, fill_params=fill_params,
-                distance=distance, device=dev,
-            )
+            phi = arrays["phi"]
             meta.update(test_batch=test_batch, **resolved)
         elif engine == "sharded":
             from repro_torch.kernels.sti_pipeline import (

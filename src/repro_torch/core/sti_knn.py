@@ -472,19 +472,6 @@ def resolve_rect_fill(
     return fill, tuple(sorted(params.items()))
 
 
-def _scan_body(acc, diag, xb, yb, x_train, y_train, k, mode, fill,
-               fill_static):
-    """One test batch of the scan engine, folded into acc/diag in place."""
-    d2 = pairwise_sq_dists(xb, x_train)
-    order = torch.sort(d2, dim=-1, stable=True).indices
-    ranks = ranks_from_order(order)
-    u = (y_train[order] == yb[:, None]).to(torch.float32) / k
-    g = superdiagonal_g(u, k, mode=mode)
-    accumulate_fill(acc, g, ranks, fill, fill_static)
-    # u in train coordinates is u[p, ranks[p, i]] = 1[y_train[i] == y_p]/k
-    diag.add_(torch.gather(u, 1, ranks).sum(0))
-
-
 def sti_knn_interactions(
     x_train,
     y_train,
@@ -523,12 +510,19 @@ def sti_knn_interactions(
         fill, n, tb, fill_params=fill_params, backend=dev.type,
         autotune=autotune,
     )
+    from repro_torch.kernels.sti_pipeline import make_stream_step  # no cycle
+
+    # the exact step's head on the plain distance, then the interaction
+    # update; the trailing batch runs unpadded, under a mask of ones
+    step = make_stream_step(mode, int(k), (), fill_name, fill_static,
+                            "plain")
     acc = torch.zeros((n, n), dtype=torch.float32, device=dev)
     diag = torch.zeros((n,), dtype=torch.float32, device=dev)
     for start in range(0, t, tb):
-        _scan_body(acc, diag, x_test[start:start + tb],
-                   y_test[start:start + tb], x_train, y_train, int(k), mode,
-                   fill_name, fill_static)
+        xb = x_test[start:start + tb]
+        step((acc, diag), xb, y_test[start:start + tb],
+             torch.ones((xb.shape[0],), dtype=torch.float32, device=dev),
+             x_train, y_train)
     phi = acc.div_(t)
     phi.diagonal().copy_(diag / t)
     return phi

@@ -162,33 +162,6 @@ class DataValuator:
                         method="loo").values()
 
 
-def _sti_step_local(x_train, y_train, x_test, y_test, k: int, mode: str):
-    """One fully batched STI-KNN accumulation step, no streaming: the
-    distance kernel, the rank stage's kernel (a stable sort and its
-    ranks), u and g, then the square fill kernel on a zeroed (n, n)
-    accumulator (the reference takes a vmap over a (t, n, n) gather).
-    Tensors on one device.
-
-    Returns (phi_sum (n, n) f32, diag_sum (n,) f32), NOT yet divided by t,
-    so partial results from test shards combine by addition."""
-    from repro_torch.core.sti_knn import superdiagonal_g
-    from repro_torch.kernels.distance import distance_cuda
-    from repro_torch.kernels.rank_sort import rank_order_cuda
-    from repro_torch.kernels.sti_fill import sti_fill_acc_cuda
-
-    d2 = distance_cuda(x_test, x_train)
-    order, ranks = rank_order_cuda(d2)
-    u = (y_train[order] == y_test[:, None]).to(torch.float32) / k
-    g = superdiagonal_g(u, k, mode=mode)
-    n = x_train.shape[0]
-    phi_sum = sti_fill_acc_cuda(
-        torch.zeros((n, n), dtype=torch.float32, device=x_train.device),
-        g, ranks)
-    diag_sum = torch.sum(
-        (y_train[None, :] == y_test[:, None]).to(torch.float32) / k, 0)
-    return phi_sum, diag_sum
-
-
 def _features(dev, *arrays):
     """(x_train, y_train, x_test, y_test) on `dev`, features f32 and
     contiguous."""
@@ -201,14 +174,26 @@ def _features(dev, *arrays):
 
 def make_sti_step_fn(k: int, mode: str = "sti", device="cuda") -> Callable:
     """The valuation step as one call on `device`:
-    step(x_train, y_train, x_test, y_test) -> (phi_sum, diag_sum), the
-    sums of `_sti_step_local` over the whole test set (a production caller
-    runs it per test shard and adds the results)."""
+    step(x_train, y_train, x_test, y_test) -> (phi_sum (n, n) f32,
+    diag_sum (n,) f32), one fully batched step over the whole test set, no
+    streaming: the exact step (`kernels/sti_pipeline.py::make_stream_step`:
+    the head's distance kernel, rank kernel, u and g, then the square fill
+    kernel) on a zeroed state under a mask of ones (the reference takes a
+    vmap over a (t, n, n) gather). The sums are NOT yet divided by t, so a
+    production caller runs it per test shard and adds the results."""
+    from repro_torch.kernels.sti_pipeline import make_stream_step
+    from repro_torch.kernels.stream_kernels import INTERACTION_STATE
+
     dev = resolve_device(device)
+    run = make_stream_step(mode, int(k), fill="cuda", distance="cuda")
 
     def step(x_train, y_train, x_test, y_test):
-        return _sti_step_local(*_features(dev, x_train, y_train, x_test,
-                                          y_test), int(k), mode)
+        x_train, y_train, x_test, y_test = _features(
+            dev, x_train, y_train, x_test, y_test)
+        ones = torch.ones((x_test.shape[0],), dtype=torch.float32,
+                          device=dev)
+        return run(INTERACTION_STATE.init(x_train.shape[0], dev), x_test,
+                   y_test, ones, x_train, y_train)
 
     return step
 

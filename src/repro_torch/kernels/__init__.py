@@ -32,13 +32,8 @@ from repro_torch.kernels.sti_megakernel import (
 from repro_torch.kernels.sti_pipeline import (
     fused_sti_knn_interactions,
     interaction_state_from_numpy,
-    make_fused_step,
-    make_point_step,
-    make_sharded_point_step,
-    make_sharded_step,
+    make_stream_step,
     pad_test_batch,
-    prepare_fused_step,
-    prepare_sharded_step,
     prepare_sharded_stream_step,
     prepare_stream_step,
     sharded_sti_knn_interactions,
@@ -75,14 +70,9 @@ __all__ = [
     "streaming_merge_reference",
     "fused_sti_knn_interactions",
     "interaction_state_from_numpy",
-    "make_fused_step",
-    "make_point_step",
-    "make_sharded_step",
-    "make_sharded_point_step",
+    "make_stream_step",
     "pad_test_batch",
-    "prepare_fused_step",
     "prepare_stream_step",
-    "prepare_sharded_step",
     "prepare_sharded_stream_step",
     "stream_point_values",
     "sharded_sti_knn_interactions",

@@ -580,8 +580,7 @@ def autotune_megastep(n: int, d: int, k: int, t: int, *,
     candidate on a synthetic (t-sample, n, d) problem, `_ROUNDS` rounds of
     `reps` calls each; persist which step wins ("stages" or "megakernel",
     by `_clear_winner`) and its params."""
-    from repro_torch.kernels.sti_pipeline import (
-        make_fused_step, make_point_step)
+    from repro_torch.kernels.sti_pipeline import make_stream_step
     from repro_torch.kernels.stream_kernels import accumulator_spec
 
     dev = _device(backend)
@@ -601,12 +600,10 @@ def autotune_megastep(n: int, d: int, k: int, t: int, *,
     dist, _ = best_distance(t, n, d, backend=backend, path=path)
 
     def build(fill, static):
-        if interaction:
-            if fill is None:
-                fill, params = best_fill(n, t, backend=backend, path=path)
-                static = tuple(sorted(params.items()))
-            return make_fused_step(int(k), method, fill, static, dist)
-        return make_point_step(method, int(k), (), dist, fill, static)
+        if interaction and fill is None:
+            fill, params = best_fill(n, t, backend=backend, path=path)
+            static = tuple(sorted(params.items()))
+        return make_stream_step(method, int(k), (), fill, static, dist)
 
     rounds: dict[str, list[float]] = {}
     steps = [("stages", {}, build(None, ()))] + [
@@ -615,7 +612,7 @@ def autotune_megastep(n: int, d: int, k: int, t: int, *,
     for name, params, step in steps:
         label = _label(name, params)
         rounds[label] = [
-            _time_call(lambda: step(*state, xb, yb, mask, xs, ys), backend,
+            _time_call(lambda: step(state, xb, yb, mask, xs, ys), backend,
                        reps) for _ in range(_ROUNDS)]
         if verbose:
             print(f"autotune megastep {method} n={n} t={t} {name} {params}:"

@@ -1,46 +1,44 @@
 """Method-generic streaming valuation pipeline: distance -> rank -> update.
 
 Counterpart of `repro.kernels.sti_pipeline` (the single-device engines).
-Per test batch, `_stream_body` runs the distance (the CUDA kernel on a
-card, the plain expansion on the CPU), the rank stage (the stable sort and
-its inverse permutation: `kernels/rank_sort.py`'s kernel on a card,
+Per test batch, `step_head` runs the distance (the CUDA kernel on a card,
+the plain expansion on the CPU), the rank stage (the stable sort and its
+inverse permutation: `kernels/rank_sort.py`'s kernel on a card,
 `torch.sort` and the rank scatter on the CPU), the method's masked
-contribution, `superdiagonal_g` for the interaction methods, and the
-method's update kernel, which folds the batch into the
-state IN PLACE -- the JAX step donates it instead: "sti"/"sii" update an
-(n, n) accumulator and (n,) diagonal through the fill registry,
+contribution and `superdiagonal_g` for the interaction methods; the
+method's update kernel then folds the batch into the state IN PLACE --
+the JAX step donates it instead: "sti"/"sii" update an (n, n)
+accumulator and (n,) diagonal through the fill registry,
 "knn_shapley"/"wknn"/"loo" a single (n,) vector. A ragged trailing batch
 is padded to the batch shape by `pad_test_batch`; the mask zeroes its
 contribution exactly. Each stage runs inside a named span of
 `repro_torch.tracing` (`step.distance`, `step.rank`, `step.contrib`,
-`step.g`, `step.update`), which a profiler's trace reads.
+`step.g`, `step.update`), which a profiler's trace reads. The scan and
+distributed engines (`core/sti_knn.py`, `core/valuation.py`,
+`launch/specs.py::sti_cell`) run the same head.
 
-`fill="megakernel"` swaps the whole step for ONE launch of the fused
-kernel (`repro_torch.kernels.sti_megakernel`): distance, stable sort,
-tables and update in a single cooperative CUDA kernel on a card, its
-plain version on the CPU.
+`make_stream_step` alone makes the exact step, for every
+method, on one device or over a `ShardGroup` of D shards
+(`repro_torch.distributed.sharding`), where each test batch is split into
+D row slices, the state into D row blocks ((n/D, n) of the accumulator
+and (n/D,) of the diagonal or point vector), and the step's arguments are
+per-shard lists. The row blocks are complete sums, so finalize only
+concatenates them. `fill="megakernel"` swaps the whole step for ONE
+launch of the fused kernel (`repro_torch.kernels.sti_megakernel`) a
+device or shard: distance, stable sort, tables and update in a single
+cooperative CUDA kernel on a card, its plain version on the CPU.
 
     from repro_torch.kernels.sti_pipeline import fused_sti_knn_interactions
     phi = fused_sti_knn_interactions(x_train, y_train, x_test, y_test, k=5)
 
-`prepare_stream_step` is the method-generic front door (tuple-state
-contract) that `ValuationSession` drives; `stream_point_values` the
-one-shot entry point of the point methods. `make_rank_step` /
-`make_refold_step` / `prepare_refold_step` split the step for the online
-service's mutations: the distance and stable sort once per logged batch
-(cached), then a refold of the cache under the current liveness mask.
-
-`make_sharded_step` / `make_sharded_point_step` / `prepare_sharded_step`
-/ `prepare_sharded_stream_step` / `sharded_sti_knn_interactions` are the
-sharded form over a `ShardGroup` of D shards
-(`repro_torch.distributed.sharding`): each test batch is split into D
-row slices, the state into D row blocks ((n/D, n) of the accumulator and
-(n/D,) of the diagonal or point vector), and the step's arguments are
-per-shard lists. Each shard runs
-distance/rank/g on its slice; an all-gather of the small (tb, n) g/rank
-tables then feeds a rectangular fill of every row block, and a
-reduce-scatter of (n,) partials the diagonal or the point vector. The row
-blocks are complete sums, so finalize only concatenates them.
+`prepare_stream_step` / `prepare_sharded_stream_step` resolve and build
+the step (tuple-state contract) that `ValuationSession` /
+`ShardedValuationSession` drive; `fused_sti_knn_interactions`,
+`stream_point_values` and `sharded_sti_knn_interactions` are the one-shot
+entry points. `make_rank_step` / `make_refold_step` /
+`prepare_refold_step` split the step for the online service's mutations:
+the distance and stable sort once per logged batch (cached), then a
+refold of the cache under the current liveness mask.
 """
 
 from __future__ import annotations
@@ -61,7 +59,6 @@ from repro_torch.core.sti_knn import (
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.rank_sort import rank_order_cuda
 from repro_torch.kernels.stream_kernels import (
-    INTERACTION_STATE,
     AccumulatorSpec,
     UpdateKernel,
     accumulator_spec,
@@ -72,17 +69,13 @@ from repro_torch.tracing import span
 
 __all__ = [
     "fused_sti_knn_interactions",
-    "make_fused_step",
-    "make_point_step",
-    "prepare_fused_step",
+    "step_head",
+    "make_stream_step",
     "prepare_stream_step",
     "stream_point_values",
     "pad_test_batch",
     "resolve_distance",
     "interaction_state_from_numpy",
-    "make_sharded_step",
-    "make_sharded_point_step",
-    "prepare_sharded_step",
     "prepare_sharded_stream_step",
     "sharded_sti_knn_interactions",
     "make_approx_point_step",
@@ -157,15 +150,19 @@ def pad_test_batch(xb: torch.Tensor, yb: torch.Tensor, tb: int):
     return xp, yp, mask
 
 
-def _prologue(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
-    """The head of a step on one batch, everything before the update:
+def step_head(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
+    """The head of the exact step on one batch, everything before the
+    update, and its only implementation (the streaming step, the scan
+    engine and the distributed engine's cells all run it):
 
-        prologue(xb, yb, mask, x_train, y_train) -> (u, g, ranks)
+        head(xb, yb, mask, x_train, y_train) -> (u, g, ranks)
 
-    distance -> stable sort/rank -> sorted label match -> method
-    contribution (mask folded in) -> optional `superdiagonal_g`."""
+    distance (`dist_fn`) -> stable sort/rank (`rank_order_cuda`: the rank
+    kernel on a card, `torch.sort` and the rank scatter on the CPU) ->
+    sorted label match -> the method's contribution (mask folded in) ->
+    `superdiagonal_g` when the method needs it (g is None otherwise)."""
 
-    def prologue(xb, yb, mask, x_train, y_train):
+    def head(xb, yb, mask, x_train, y_train):
         with span("step.distance"):
             d2 = dist_fn(xb, x_train)                            # (tb, n)
         with span("step.rank"):
@@ -179,7 +176,7 @@ def _prologue(kernel: UpdateKernel, k: int, dist_fn: Callable) -> Callable:
             g = superdiagonal_g(u, k, mode=kernel.g_mode)
         return u, g, ranks
 
-    return prologue
+    return head
 
 
 def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable,
@@ -188,19 +185,19 @@ def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable,
 
         body(state, xb, yb, mask, x_train, y_train) -> state
 
-    `_prologue`, then the method's update kernel (in place on `state`).
+    `step_head`, then the method's update kernel (in place on `state`).
     `sharded=True` (a kernel built with a `ShardGroup`) takes every
-    argument as a per-shard list: each shard runs the prologue on its own
+    argument as a per-shard list: each shard runs the head on its own
     test slice, and the update's collectives join them."""
-    prologue = _prologue(kernel, k, dist_fn)
+    head = step_head(kernel, k, dist_fn)
 
     def body(state, xb, yb, mask, x_train, y_train):
-        u, g, ranks = prologue(xb, yb, mask, x_train, y_train)
+        u, g, ranks = head(xb, yb, mask, x_train, y_train)
         with span("step.update"):
             return kernel.update(state, u, g, ranks, mask)
 
     def sharded_body(state, xb, yb, mask, x_train, y_train):
-        heads = [prologue(*args)
+        heads = [head(*args)
                  for args in zip(xb, yb, mask, x_train, y_train)]
         u, g, ranks = (list(col) for col in zip(*heads))
         with span("step.update"):
@@ -210,86 +207,80 @@ def _stream_body(kernel: UpdateKernel, k: int, dist_fn: Callable,
 
 
 @functools.lru_cache(maxsize=None)
-def make_fused_step(
-    k: int,
-    mode: InteractionMode = "sti",
-    fill: str = "chunked",
-    fill_static: tuple = (),
-    distance: str = "plain",
-) -> Callable:
-    """Build the fused interaction step
-
-        step(acc, diag, xb, yb, mask, x_train, y_train) -> (acc, diag)
-
-    acc (n, n) f32 and diag (n,) f32 are updated in place and returned;
-    xb/yb/mask is one (tb, d)/(tb,)/(tb,) test batch (`pad_test_batch`
-    builds the mask). Cached per static configuration.
-
-    `fill="megakernel"` returns the single-launch step of
-    `sti_megakernel_cuda`, `fill_static` carrying its compute dtype (the
-    `distance` name is then unused: the distance runs inside the
-    kernel)."""
-    if fill == "megakernel":
-        from repro_torch.kernels.sti_megakernel import sti_megakernel_cuda
-
-        params = dict(fill_static)
-
-        def mega_step(acc, diag, xb, yb, mask, x_train, y_train):
-            return sti_megakernel_cuda(acc, diag, xb, yb, mask, x_train,
-                                       y_train, k=int(k), mode=mode, **params)
-
-        return mega_step
-    body = _stream_body(
-        make_update_kernel(mode, k, fill=fill, fill_static=fill_static),
-        int(k), _distance_fn(distance),
-    )
-
-    def step(acc, diag, xb, yb, mask, x_train, y_train):
-        return body((acc, diag), xb, yb, mask, x_train, y_train)
-
-    return step
-
-
-@functools.lru_cache(maxsize=None)
-def make_point_step(
+def make_stream_step(
     method: str,
     k: int,
     method_static: tuple = (),
-    distance: str = "plain",
     fill: Optional[str] = None,
     fill_static: tuple = (),
+    distance: str = "plain",
+    group=None,
 ) -> Callable:
-    """Build the vector-state step of a point-value method ("knn_shapley",
-    "wknn", "loo"):
+    """Build the exact streaming step of any registered method:
 
-        step(vec, xb, yb, mask, x_train, y_train) -> vec
+        step(state, xb, yb, mask, x_train, y_train) -> state
 
-    vec (n,) f32 accumulates the SUM of per-test-point values in place
-    (finalize divides by t). `method_static` is the hashable method-option
-    tuple, e.g. (("weights", "rbf"),) for wknn. `fill="megakernel"`
-    returns the single-launch step of `point_megakernel_cuda` with
-    `fill_static` carrying its compute dtype. Cached per configuration."""
-    if fill == "megakernel":
-        from repro_torch.kernels.sti_megakernel import point_megakernel_cuda
+    `state` is the method's `accumulator_spec` tuple -- (acc, diag) of an
+    interaction method, (vec,) of a point method -- updated in place;
+    xb/yb/mask is one (tb, d)/(tb,)/(tb,) test batch (`pad_test_batch`
+    builds the mask). `method_static` is the hashable method-option
+    tuple, e.g. (("weights", "rbf"),) for wknn; `fill`/`fill_static` the
+    resolved fill of an interaction method (point methods have none);
+    `distance` the distance implementation. Cached per configuration.
 
-        params = dict(fill_static)
+    `group=None` is one device. A `ShardGroup` of D shards
+    (`repro_torch.distributed.sharding`) takes every argument as a
+    per-shard list: state[j][i] is shard i's row block ((n/D, n) of the
+    accumulator, (n/D,) of a vector), xb/yb/mask[i] its (tb/D, ...) slice
+    of the test batch (tb a multiple of D; the sharded prepare rounds it
+    up and the mask absorbs the padding), x_train/y_train[i] the train
+    set on its device. Each shard runs the head on its slice; an
+    interaction method all-gathers the small (tb, n) g/rank tables and
+    fills each row block with ALL tb test points through the RECTANGULAR
+    fill registry (`fill` names a rect entry); the diagonal or the point
+    vector lands by ONE reduce-scatter of (n,) partials. The collectives
+    move O(tb n) bytes, never O(n^2).
+
+    `fill="megakernel"` returns ONE launch of the fused kernel a step,
+    `sti_megakernel_cuda` or `point_megakernel_cuda` by the method's kind,
+    `fill_static` carrying its compute dtype (`distance` is then unused:
+    the distance runs inside the kernel). Under a group it all-gathers
+    the (tb, d) test batch and launches once per shard on its row block
+    with `row_offset = i * n/D`: each shard re-ranks the whole batch, and
+    the collectives carry O(tb d) bytes instead of O(tb n)."""
+    if fill != "megakernel":
+        kernel = make_update_kernel(method, k, opts=dict(method_static),
+                                    fill=fill, fill_static=fill_static,
+                                    axis=group)
+        return _stream_body(kernel, int(k), _distance_fn(distance),
+                            sharded=group is not None)
+    from repro_torch.kernels.sti_megakernel import (
+        point_megakernel_cuda, sti_megakernel_cuda)
+
+    params = dict(fill_static)
+    if accumulator_spec(method).kind == "interaction":
+        def launch(state, *args, **at):
+            return sti_megakernel_cuda(*state, *args, k=int(k), mode=method,
+                                       **params, **at)
+    else:
         opts = dict(method_static)
 
-        def mega_step(vec, xb, yb, mask, x_train, y_train):
-            return point_megakernel_cuda(vec, xb, yb, mask, x_train, y_train,
-                                         method=method, k=int(k), opts=opts,
-                                         **params)
+        def launch(state, *args, **at):
+            return (point_megakernel_cuda(*state, *args, method=method,
+                                          k=int(k), opts=opts, **params,
+                                          **at),)
+    if group is None:
+        return launch
 
-        return mega_step
-    body = _stream_body(
-        make_update_kernel(method, k, opts=dict(method_static)),
-        int(k), _distance_fn(distance),
-    )
+    def sharded_launch(state, xb, yb, mask, x_train, y_train):
+        xb, yb, mask = (group.all_gather(a) for a in (xb, yb, mask))
+        for i in range(group.size):
+            launch(tuple(s[i] for s in state), xb[i], yb[i], mask[i],
+                   x_train[i], y_train[i],
+                   row_offset=i * state[0][i].shape[0])
+        return state
 
-    def step(vec, xb, yb, mask, x_train, y_train):
-        return body((vec,), xb, yb, mask, x_train, y_train)[0]
-
-    return step
+    return sharded_launch
 
 
 @functools.lru_cache(maxsize=None)
@@ -400,25 +391,6 @@ def _method_static(method_opts: Optional[dict]) -> tuple:
     return tuple(sorted((method_opts or {}).items()))
 
 
-def _tuple_state(inner: Callable) -> Callable:
-    """Adapt an unpacked-state step (acc, diag, ...) to the uniform
-    tuple-state contract `step(state, *args) -> state`."""
-
-    def step(state, *args):
-        return tuple(inner(*state, *args))
-
-    return step
-
-
-def _vector_state(inner: Callable) -> Callable:
-    """Adapt a bare-vector step (vec, ...) to the tuple-state contract."""
-
-    def step(state, *args):
-        return (inner(state[0], *args),)
-
-    return step
-
-
 def _resolve_megakernel(fill: str, fill_params: Optional[dict],
                         step_key: Optional[tuple] = None,
                         autotune: bool = False) -> Optional[tuple]:
@@ -446,42 +418,56 @@ def _resolve_megakernel(fill: str, fill_params: Optional[dict],
     return megakernel_static({**params, **(fill_params or {})})
 
 
-def prepare_fused_step(
-    n: int,
-    d: int,
-    k: int,
-    *,
-    mode: InteractionMode = "sti",
-    test_batch: int = 256,
-    fill: str = "auto",
-    fill_params: Optional[dict] = None,
-    distance: str = "auto",
-    autotune: bool = False,
-    device="cuda",
-) -> tuple[Callable, dict]:
-    """Resolve fill/distance for an (n, d) train set streamed in batches of
-    `test_batch` on `device` and return `(step, resolved)` (see
-    `make_fused_step`), `resolved` naming the concrete {"fill",
-    "distance"} implementations; {"fill": "megakernel", "distance":
-    "fused"} for the fused kernel, whose distance runs inside it (forced
-    by `fill="megakernel"`, or picked by "auto" where the step-level
-    tuning cache says it wins). `autotune=True` tunes what "auto" finds
-    missing from the cache."""
-    backend = resolve_device(device).type
-    tb = max(1, int(test_batch))
-    mega = _resolve_megakernel(fill, fill_params,
-                               (mode, n, d, int(k), tb, backend), autotune)
+def _resolve_step(method: str, n: int, d: int, k: int, tb: int,
+                  backend: str, *, fill, fill_params, distance, autotune,
+                  method_opts, group=None) -> tuple[Callable, dict]:
+    """Resolve the megakernel, fill and distance of `method`'s step for an
+    (n, d) train set in test batches of `tb` and build it: `(step,
+    resolved)`, `resolved` naming the concrete implementations --
+    {"fill": "megakernel", "distance": "fused"} for the fused kernel,
+    whose distance runs inside it; point methods have no fill (None).
+
+    One device (`group=None`) resolves the fill against the square
+    registry, and "auto" may pick the megakernel from the step-level
+    tuning cache. A `ShardGroup` of D shards resolves it against the
+    RECTANGULAR registry at the (n/D, n) row block and reports it under a
+    `rect_` name with its params, the distance at the (tb/D, n) slice;
+    "auto" never picks the megakernel there."""
+    interaction = accumulator_spec(method).kind == "interaction"
+    num = 1 if group is None else group.size
+    static = _method_static(method_opts)
+    mega = _resolve_megakernel(
+        fill, fill_params,
+        (method, n, d, int(k), tb, backend) if group is None else None,
+        autotune)
     if mega is not None:
-        step = make_fused_step(int(k), mode, "megakernel", mega)
+        step = make_stream_step(method, int(k), static, "megakernel", mega,
+                                group=group)
+        if group is not None and interaction:
+            return step, {"fill": "megakernel", "fill_params": dict(mega),
+                          "distance": "fused"}
         return step, {"fill": "megakernel", "distance": "fused"}
-    fill_name, fill_static = resolve_fill(
-        fill, n, tb, fill_params=fill_params, backend=backend,
-        autotune=autotune,
-    )
-    dist_name = resolve_distance(distance, tb, n, d, backend=backend,
+    fill_name, fill_static = None, ()
+    if interaction and group is None:
+        fill_name, fill_static = resolve_fill(
+            fill, n, tb, fill_params=fill_params, backend=backend,
+            autotune=autotune)
+    elif interaction:
+        # the fill sees the (n/D, n) row block and ALL tb gathered test
+        # points; the distance stage runs on (tb/D, n) slices
+        fill_name, fill_static = resolve_rect_fill(
+            fill, n // num, n, tb, fill_params=fill_params, backend=backend,
+            autotune=autotune)
+    dist_name = resolve_distance(distance, tb // num, n, d, backend=backend,
                                  autotune=autotune)
-    step = make_fused_step(int(k), mode, fill_name, fill_static, dist_name)
-    return step, {"fill": fill_name, "distance": dist_name}
+    step = make_stream_step(method, int(k), static, fill_name, fill_static,
+                            dist_name, group)
+    if group is None or fill_name is None:
+        return step, {"fill": fill_name, "distance": dist_name}
+    # rect_ prefix: the name lives in the rectangular fill registry, not
+    # the square one (a session restore re-resolves such names)
+    return step, {"fill": f"rect_{fill_name}",
+                  "fill_params": dict(fill_static), "distance": dist_name}
 
 
 def prepare_stream_step(
@@ -498,41 +484,27 @@ def prepare_stream_step(
     method_opts: Optional[dict] = None,
     device="cuda",
 ) -> tuple[Callable, dict, AccumulatorSpec]:
-    """Method-generic form of `prepare_fused_step`: return `(step,
-    resolved, spec)` for ANY registered streaming method, with the uniform
-    tuple-state contract
+    """Resolve fill/distance for an (n, d) train set streamed in batches of
+    `test_batch` on `device` and return `(step, resolved, spec)` for ANY
+    registered streaming method, with the tuple-state contract of
+    `make_stream_step`
 
         step(state, xb, yb, mask, x_train, y_train) -> state
 
     where `state` is `spec.init(n, device)`-shaped ((acc, diag) or
-    (vec,)). Point methods have no fill stage (resolved["fill"] is None)
-    except `fill="megakernel"` (or an "auto" whose step-level tuning
-    cache entry for the method names it), which routes any method through
-    its fused kernel. `method_opts` carries method statics such as the
-    wknn weight kind. This is the per-batch unit `ValuationSession`
-    drives."""
+    (vec,)). `resolved` names the concrete {"fill", "distance"}
+    implementations (see `_resolve_step`); `fill="megakernel"`, or an
+    "auto" whose step-level tuning cache entry for the method names it,
+    routes any method through its fused kernel. `autotune=True` tunes what
+    "auto" finds missing from the cache. `method_opts` carries method
+    statics such as the wknn weight kind. This is the per-batch unit
+    `ValuationSession` drives."""
     spec = accumulator_spec(method)
-    tb = max(1, int(test_batch))
-    if spec.kind == "interaction":
-        inner, resolved = prepare_fused_step(
-            n, d, k, mode=method, test_batch=tb, fill=fill,
-            fill_params=fill_params, distance=distance, autotune=autotune,
-            device=device,
-        )
-        return _tuple_state(inner), dict(resolved), spec
-    backend = resolve_device(device).type
-    mega = _resolve_megakernel(fill, fill_params,
-                               (method, n, d, int(k), tb, backend), autotune)
-    if mega is not None:
-        inner = make_point_step(method, int(k), _method_static(method_opts),
-                                fill="megakernel", fill_static=mega)
-        return (_vector_state(inner),
-                {"fill": "megakernel", "distance": "fused"}, spec)
-    dist_name = resolve_distance(distance, tb, n, d, backend=backend,
-                                 autotune=autotune)
-    inner = make_point_step(method, int(k), _method_static(method_opts),
-                            dist_name)
-    return _vector_state(inner), {"fill": None, "distance": dist_name}, spec
+    step, resolved = _resolve_step(
+        method, n, d, k, max(1, int(test_batch)), resolve_device(device).type,
+        fill=fill, fill_params=fill_params, distance=distance,
+        autotune=autotune, method_opts=method_opts)
+    return step, resolved, spec
 
 
 def _prepare_operands(x_train, y_train, x_test, k, dev, fill):
@@ -551,10 +523,23 @@ def _prepare_operands(x_train, y_train, x_test, k, dev, fill):
     return x_train, y_train, fdt, t
 
 
-def _stream(step, state, x_test, y_test, tb, dev, fdt, x_train, y_train):
-    """Fold the test set into `state` in padded batches of `tb`, moving
-    each batch to `dev` as it is consumed."""
-    t = int(x_test.shape[0])
+def _stream_run(method: str, x_train, y_train, x_test, y_test, k: int, *,
+                test_batch: int, fill, fill_params, distance, autotune=False,
+                method_opts=None, device="cuda") -> tuple[dict, dict]:
+    """One resolution through `prepare_stream_step`, then the whole test
+    set folded into a fresh state in padded batches, each moved to the
+    device as it is consumed -> (`spec.result_arrays`, resolved)."""
+    dev = resolve_device(device)
+    x_train, y_train, fdt, t = _prepare_operands(
+        x_train, y_train, x_test, k, dev, fill)
+    n, d = x_train.shape
+    tb = max(1, min(int(test_batch), t))
+    step, resolved, spec = prepare_stream_step(
+        method, n, d, k, test_batch=tb, fill=fill, fill_params=fill_params,
+        distance=distance, autotune=autotune, method_opts=method_opts,
+        device=dev,
+    )
+    state = spec.init(n, dev)
     for start in range(0, t, tb):
         xb, yb, mask = pad_test_batch(
             to_device(x_test[start:start + tb], dev, fdt).contiguous(),
@@ -562,7 +547,7 @@ def _stream(step, state, x_test, y_test, tb, dev, fdt, x_train, y_train):
             tb,
         )
         state = step(state, xb, yb, mask, x_train, y_train)
-    return state
+    return spec.result_arrays(state, t), resolved
 
 
 def stream_point_values(
@@ -594,19 +579,10 @@ def stream_point_values(
             f"values; use fused_sti_knn_interactions / a ValuationSession "
             f"for interaction methods"
         )
-    dev = resolve_device(device)
-    x_train, y_train, fdt, t = _prepare_operands(
-        x_train, y_train, x_test, k, dev, fill)
-    n, d = x_train.shape
-    tb = max(1, min(int(test_batch), t))
-    step, _, spec = prepare_stream_step(
-        method, n, d, k, test_batch=tb, fill=fill or "auto",
-        fill_params=fill_params, distance=distance, method_opts=method_opts,
-        device=dev,
-    )
-    state = _stream(step, spec.init(n, dev), x_test, y_test, tb, dev, fdt,
-                    x_train, y_train)
-    return spec.result_arrays(state, t)["point_values"]
+    return _stream_run(
+        method, x_train, y_train, x_test, y_test, k, test_batch=test_batch,
+        fill=fill or "auto", fill_params=fill_params, distance=distance,
+        method_opts=method_opts, device=device)[0]["point_values"]
 
 
 def interaction_state_from_numpy(acc, diag, device="cuda"
@@ -648,18 +624,10 @@ def fused_sti_knn_interactions(
     consumed, so the test set may stay on the host. Features are cast to
     the dtype `_feature_dtype` names and made contiguous on the way.
     Finalize divides the accumulator in place."""
-    dev = resolve_device(device)
-    x_train, y_train, fdt, t = _prepare_operands(
-        x_train, y_train, x_test, k, dev, fill)
-    n, d = x_train.shape
-    tb = max(1, min(int(test_batch), t))
-    step, _ = prepare_fused_step(
-        n, d, k, mode=mode, test_batch=tb, fill=fill, fill_params=fill_params,
-        distance=distance, autotune=autotune, device=dev,
-    )
-    state = _stream(_tuple_state(step), INTERACTION_STATE.init(n, dev),
-                    x_test, y_test, tb, dev, fdt, x_train, y_train)
-    return INTERACTION_STATE.result_arrays(state, t)["phi"]
+    return _stream_run(
+        mode, x_train, y_train, x_test, y_test, k, test_batch=test_batch,
+        fill=fill, fill_params=fill_params, distance=distance,
+        autotune=autotune, device=device)[0]["phi"]
 
 
 # ------------------------------------------------------------------- approx
@@ -842,124 +810,6 @@ class ApproxPairAccumulator:
 
 
 # ------------------------------------------------------------------ sharded
-@functools.lru_cache(maxsize=None)
-def make_sharded_step(
-    group,
-    k: int,
-    mode: InteractionMode = "sti",
-    fill: str = "chunked",
-    fill_static: tuple = (),
-    distance: str = "plain",
-) -> Callable:
-    """Build the sharded interaction step over the D shards of `group`
-    (a `repro_torch.distributed.sharding.ShardGroup`):
-
-        step(acc, diag, xb, yb, mask, x_train, y_train) -> (acc, diag)
-
-    with every argument a per-shard list: acc[i] is shard i's (n/D, n) row
-    block and diag[i] its (n/D,) rows, both updated in place; xb/yb/mask[i]
-    its (tb/D, ...) slice of the test batch (tb a multiple of D;
-    `prepare_sharded_step` rounds it up and the mask absorbs the padding);
-    x_train/y_train[i] the train set on its device. Per step:
-
-      1. distance/rank/g on each shard's (tb/D, n) test slice;
-      2. an all-gather of the small (tb, n) g/rank tables and a
-         reduce-scatter of the (n,) diag partials (the only collectives,
-         O(tb n) bytes, never O(n^2));
-      3. a rectangular fill of each row block with ALL tb test points
-         through the rect fill registry (`fill`/`fill_static` name a
-         rectangular variant: the CUDA rect kernel on a card, the chunked
-         scan on the CPU).
-
-    `fill="megakernel"` instead all-gathers the (tb, d) test batch and
-    runs ONE launch of the fused kernel per shard on its row block, with
-    `row_offset = i * n/D`: each shard re-ranks the whole batch, and the
-    collectives carry O(tb d) bytes instead of O(tb n). Cached per static
-    configuration."""
-    if fill == "megakernel":
-        from repro_torch.kernels.sti_megakernel import sti_megakernel_cuda
-
-        params = dict(fill_static)
-
-        def mega_step(acc, diag, xb, yb, mask, x_train, y_train):
-            xb_all = group.all_gather(xb)
-            yb_all = group.all_gather(yb)
-            mask_all = group.all_gather(mask)
-            for i in range(group.size):
-                nl = acc[i].shape[0]
-                sti_megakernel_cuda(
-                    acc[i], diag[i], xb_all[i], yb_all[i], mask_all[i],
-                    x_train[i], y_train[i], k=int(k), mode=mode,
-                    row_offset=i * nl, **params)
-            return acc, diag
-
-        return mega_step
-    body = _stream_body(
-        make_update_kernel(mode, k, fill=fill, fill_static=fill_static,
-                           axis=group),
-        int(k), _distance_fn(distance), sharded=True,
-    )
-
-    def step(acc, diag, xb, yb, mask, x_train, y_train):
-        return body((acc, diag), xb, yb, mask, x_train, y_train)
-
-    return step
-
-
-@functools.lru_cache(maxsize=None)
-def make_sharded_point_step(
-    group,
-    method: str,
-    k: int,
-    method_static: tuple = (),
-    distance: str = "plain",
-    fill: Optional[str] = None,
-    fill_static: tuple = (),
-) -> Callable:
-    """Sharded form of `make_point_step` over the shards of `group`:
-
-        step(vec, xb, yb, mask, x_train, y_train) -> vec
-
-    with vec[i] shard i's (n/D,) rows, updated in place, and the other
-    arguments per-shard lists as in `make_sharded_step`. Each shard
-    computes values on its (tb/D, n) test slice; ONE reduce-scatter of
-    the (n,) partials lands block i on shard i. No O(n^2) state and no
-    O(tb n) gather: point methods need no cross-shard rank tables.
-
-    `fill="megakernel"` all-gathers the (tb, d) test batch and runs one
-    launch of the fused point kernel per shard on its (n/D,) rows with
-    `row_offset = i * n/D`; the reduce-scatter disappears because every
-    shard folds the whole batch."""
-    if fill == "megakernel":
-        from repro_torch.kernels.sti_megakernel import point_megakernel_cuda
-
-        params = dict(fill_static)
-        opts = dict(method_static)
-
-        def mega_step(vec, xb, yb, mask, x_train, y_train):
-            xb_all = group.all_gather(xb)
-            yb_all = group.all_gather(yb)
-            mask_all = group.all_gather(mask)
-            for i in range(group.size):
-                nl = vec[i].shape[0]
-                point_megakernel_cuda(
-                    vec[i], xb_all[i], yb_all[i], mask_all[i], x_train[i],
-                    y_train[i], method=method, k=int(k), opts=opts,
-                    row_offset=i * nl, **params)
-            return vec
-
-        return mega_step
-    body = _stream_body(
-        make_update_kernel(method, k, opts=dict(method_static), axis=group),
-        int(k), _distance_fn(distance), sharded=True,
-    )
-
-    def step(vec, xb, yb, mask, x_train, y_train):
-        return body((vec,), xb, yb, mask, x_train, y_train)[0]
-
-    return step
-
-
 def _shard_group(n: int, shards: Optional[int], devices):
     """The `ShardGroup` of a sharded run: over `devices` when given (every
     entry one shard, repeats allowed), else over the first
@@ -979,61 +829,6 @@ def _shard_group(n: int, shards: Optional[int], devices):
     return group
 
 
-def prepare_sharded_step(
-    n: int,
-    d: int,
-    k: int,
-    *,
-    devices=None,
-    shards: Optional[int] = None,
-    mode: InteractionMode = "sti",
-    test_batch: int = 256,
-    fill: str = "auto",
-    fill_params: Optional[dict] = None,
-    distance: str = "auto",
-    autotune: bool = False,
-) -> tuple[Callable, dict, object]:
-    """Resolve the shard group, fill and distance of the sharded engine and
-    return `(step, resolved, group)`. `resolved` names the concrete
-    implementations plus {"shards", "test_batch"}: test_batch rounded UP
-    to a multiple of the shard count, so every shard gets an equal test
-    slice (the mask absorbs the difference).
-
-    The row-block update resolves against the RECTANGULAR fill registry
-    (`core.sti_knn.resolve_rect_fill`) at the per-shard (n/D, n) block
-    shape, and is reported under a `rect_` name ("rect_cuda",
-    "rect_chunked"); "megakernel" keeps its own name."""
-    group = _shard_group(n, shards, devices)
-    num = group.size
-    backend = group.devices[0].type
-    tb = -(-max(1, int(test_batch)) // num) * num
-    mega = _resolve_megakernel(fill, fill_params)
-    if mega is not None:
-        step = make_sharded_step(group, int(k), mode, "megakernel", mega)
-        return step, {"fill": "megakernel", "fill_params": dict(mega),
-                      "distance": "fused", "shards": num,
-                      "test_batch": tb}, group
-    # the fill sees the (n/D, n) row block and ALL tb gathered test
-    # points; the distance stage runs on (tb/D, n) slices
-    fill_name, fill_static = resolve_rect_fill(
-        fill, n // num, n, tb, fill_params=fill_params, backend=backend,
-        autotune=autotune)
-    dist_name = resolve_distance(distance, tb // num, n, d, backend=backend,
-                                 autotune=autotune)
-    step = make_sharded_step(group, int(k), mode, fill_name, fill_static,
-                             dist_name)
-    resolved = {
-        # rect_ prefix: the name lives in the rectangular fill registry,
-        # not the square one (a session restore re-resolves such names)
-        "fill": f"rect_{fill_name}",
-        "fill_params": dict(fill_static),
-        "distance": dist_name,
-        "shards": num,
-        "test_batch": tb,
-    }
-    return step, resolved, group
-
-
 def prepare_sharded_stream_step(
     method: str,
     n: int,
@@ -1049,39 +844,24 @@ def prepare_sharded_stream_step(
     autotune: bool = False,
     method_opts: Optional[dict] = None,
 ) -> tuple[Callable, dict, object, AccumulatorSpec]:
-    """Method-generic form of `prepare_sharded_step`: `(step, resolved,
-    group, spec)` with the tuple-state contract of `prepare_stream_step`,
-    where each state entry is a per-shard list of row blocks
-    (`spec.init_shards`). Interaction methods route through the
-    rectangular fill registry; point methods build the reduce-scatter
-    vector step and report resolved["fill"] = None (or "megakernel")."""
+    """Resolve the shard group, fill and distance of the sharded engine and
+    return `(step, resolved, group, spec)`: the tuple-state step of
+    `make_stream_step` over the group, each state entry a per-shard list
+    of row blocks (`spec.init_shards`). `resolved` names the concrete
+    implementations (see `_resolve_step`: an interaction method's fill
+    under its `rect_` name with its "fill_params"; a point method's fill
+    None, or "megakernel") plus {"shards", "test_batch"}: test_batch
+    rounded UP to a multiple of the shard count, so every shard gets an
+    equal test slice (the mask absorbs the difference)."""
     spec = accumulator_spec(method)
-    if spec.kind == "interaction":
-        inner, resolved, group = prepare_sharded_step(
-            n, d, k, devices=devices, shards=shards, mode=method,
-            test_batch=test_batch, fill=fill, fill_params=fill_params,
-            distance=distance, autotune=autotune,
-        )
-        return _tuple_state(inner), resolved, group, spec
     group = _shard_group(n, shards, devices)
-    num = group.size
-    tb = -(-max(1, int(test_batch)) // num) * num
-    mega = _resolve_megakernel(fill, fill_params)
-    if mega is not None:
-        inner = make_sharded_point_step(
-            group, method, int(k), _method_static(method_opts),
-            fill="megakernel", fill_static=mega)
-        return (_vector_state(inner),
-                {"fill": "megakernel", "distance": "fused", "shards": num,
-                 "test_batch": tb}, group, spec)
-    dist_name = resolve_distance(distance, tb // num, n, d,
-                                 backend=group.devices[0].type,
-                                 autotune=autotune)
-    inner = make_sharded_point_step(group, method, int(k),
-                                    _method_static(method_opts), dist_name)
-    return (_vector_state(inner),
-            {"fill": None, "distance": dist_name, "shards": num,
-             "test_batch": tb}, group, spec)
+    tb = -(-max(1, int(test_batch)) // group.size) * group.size
+    step, resolved = _resolve_step(
+        method, n, d, k, tb, group.devices[0].type, fill=fill,
+        fill_params=fill_params, distance=distance, autotune=autotune,
+        method_opts=method_opts, group=group)
+    return (step, dict(resolved, shards=group.size, test_batch=tb), group,
+            spec)
 
 
 def sharded_sti_knn_interactions(

@@ -12,12 +12,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, tree_map
-from repro_torch.core.sti_knn import superdiagonal_g
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.grid_step import GridRun, update
 from repro_torch.distributed.sharding import DeviceGrid, Sharded
 from repro_torch.kernels.distance import distance_cuda
-from repro_torch.kernels.rank_sort import rank_order_cuda
 from repro_torch.kernels.sti_fill import rect_row_view, sti_fill_acc_rect_cuda
 from repro_torch.models import build_model
 from repro_torch.training.optimizer import AdamState, AdamWConfig
@@ -159,19 +157,20 @@ def sti_cell(scfg, grid: DeviceGrid):
 
     Cell (i, j) of the D x M grid takes test shard i and owns phi column
     block j:
-      1. distances of its (tc/D, d) test shard to the (n, d) train set,
-         through the distance kernel;
-      2. a stable sort per test point and its ranks, through the rank
-         stage's kernel; u = match / k and g by the reverse-cumsum
-         recurrence;
+      1-2. the exact step's head (`kernels/sti_pipeline.py::step_head`)
+         on its (tc/D, d) test shard: distances to the (n, d) train set
+         through the distance kernel, a stable sort per test point and
+         its ranks through the rank stage's kernel, u = match / k and g
+         by the reverse-cumsum recurrence;
       3. the fill phi_cols[a, jb] += g[max(rank[a], rank_cols[jb])]. phi is
          symmetric, so column block j is the transpose of the (n/M, n) row
          block j, and the cell fills that row block with the rect fill
          kernel, its row table the window at column j n/M of its ranks;
       4. `grid.psum_data` over the data shards: data row 0 holds every
          model shard's block summed over all tc test points.
-    The diagonal sum, sum_p 1[y_a == y_p] / k, is taken once per data
-    shard and summed the same way onto device (0, 0).
+    The diagonal sum, sum_p 1[y_a == y_p] / k (u gathered through the
+    ranks), is taken once per data shard and summed the same way onto
+    device (0, 0).
 
     Returns `(step, args, in_specs, out_specs)` as the JAX function does:
     `args` the (shape, dtype) of each input, the specs naming how each is
@@ -187,10 +186,14 @@ def sti_cell(scfg, grid: DeviceGrid):
     Cells that share a device fill one accumulator, so a (2, 2) grid on
     one card holds two row blocks, not four.
     """
+    from repro_torch.kernels.sti_pipeline import step_head
+    from repro_torch.kernels.stream_kernels import make_update_kernel
+
     n, dim, k = int(scfg.n_train), int(scfg.feat_dim), int(scfg.k)
     tc, mode = int(scfg.test_chunk), scfg.mode
     tc_local, n_local = _check_cell(scfg, grid)
     d_size, m_size = grid.shape
+    head = step_head(make_update_kernel(mode, k), k, distance_cuda)
 
     def step(x_train, y_train, x_test, y_test, col_ids=None, *, out=None):
         if tuple(x_train.shape) != (n, dim) or tuple(x_test.shape) != (tc,
@@ -224,10 +227,8 @@ def sti_cell(scfg, grid: DeviceGrid):
                 xt = x_test[i * tc_local:(i + 1) * tc_local].to(
                     dev, torch.float32).contiguous()
                 yt = y_test[i * tc_local:(i + 1) * tc_local].to(dev)
-                d2 = distance_cuda(xt, xtr)
-                order, ranks = rank_order_cuda(d2)
-                u = (ytr[order] == yt[:, None]).to(torch.float32) / k
-                g = superdiagonal_g(u, k, mode=mode)
+                u, g, ranks = head(xt, yt, torch.ones(
+                    (tc_local,), dtype=torch.float32, device=dev), xtr, ytr)
                 if dev not in shared:
                     shared[dev] = (out[j] if out is not None and i == 0
                                    else torch.zeros((n_local, n),
@@ -237,9 +238,7 @@ def sti_cell(scfg, grid: DeviceGrid):
                     shared[dev], g, rect_row_view(ranks, j * n_local,
                                                   n_local), ranks)
                 if j == 0:   # the diagonal depends on the data shard only
-                    diags[i] = torch.sum(
-                        (ytr[None, :] == yt[:, None]).to(torch.float32) / k,
-                        0)
+                    diags[i] = torch.gather(u, 1, ranks).sum(0)
         blocks = grid.psum_data(accs)
         diag = grid.psum_data([[dg] for dg in diags])[0]
         return [b.T for b in blocks], diag

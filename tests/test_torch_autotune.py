@@ -296,13 +296,14 @@ def test_a_failing_candidate_fails_the_tune(cache, monkeypatch, tuner):
         run = lambda: at.autotune_rect_fill(16, 64, 16, backend="cpu",
                                             reps=1)
     elif tuner == "megastep":
-        real = tpipe.make_point_step
+        real = tpipe.make_stream_step
 
-        def make(method, k, opts, dist, fill=None, static=()):
+        def make(method, k, opts=(), fill=None, static=(), dist="plain",
+                 group=None):
             return _raises if fill == "megakernel" else real(
-                method, k, opts, dist, fill, static)
+                method, k, opts, fill, static, dist, group)
 
-        monkeypatch.setattr(tpipe, "make_point_step", make)
+        monkeypatch.setattr(tpipe, "make_stream_step", make)
         run = lambda: at.autotune_megastep(64, 4, 3, 16, method="loo",
                                            backend="cpu", reps=1)
     else:

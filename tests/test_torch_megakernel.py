@@ -568,12 +568,12 @@ def test_megakernel_resolution_and_registry_route():
     "fused"; "auto" keeps the three-stage step; the registry's fused
     engine reaches it through fill=."""
     from repro_torch import get_method
-    from repro_torch.kernels.sti_pipeline import (
-        prepare_fused_step, prepare_stream_step)
+    from repro_torch.kernels.sti_pipeline import prepare_stream_step
 
-    _, res = prepare_fused_step(64, 4, 3, fill="megakernel", device="cpu")
+    _, res, _ = prepare_stream_step("sti", 64, 4, 3, fill="megakernel",
+                                    device="cpu")
     assert res == {"fill": "megakernel", "distance": "fused"}
-    _, res = prepare_fused_step(64, 4, 3, device="cpu")
+    _, res, _ = prepare_stream_step("sti", 64, 4, 3, device="cpu")
     assert res == {"fill": "chunked", "distance": "plain"}
     _, res, spec = prepare_stream_step("loo", 64, 4, 3, fill="megakernel",
                                        device="cpu")

@@ -143,12 +143,13 @@ def test_state_handoff_from_jax_mid_stream():
                       jnp.asarray(x), jnp.asarray(y))
     state = tpipe.interaction_state_from_numpy(np.asarray(acc),
                                                np.asarray(diag), "cpu")
-    tstep, resolved = tpipe.prepare_fused_step(30, 3, k, test_batch=tb,
-                                               device="cpu")
+    tstep, resolved, _ = tpipe.prepare_stream_step("sti", 30, 3, k,
+                                                   test_batch=tb,
+                                                   device="cpu")
     assert resolved == {"fill": "chunked", "distance": "plain"}
     xb2, yb2, mask2 = tpipe.pad_test_batch(torch.from_numpy(xt[tb:]),
                                            torch.from_numpy(yt[tb:]), tb)
-    state = tstep(*state, xb2, yb2, mask2, torch.from_numpy(x),
+    state = tstep(state, xb2, yb2, mask2, torch.from_numpy(x),
                   torch.from_numpy(y))
     got = INTERACTION_STATE.result_arrays(state, 10)["phi"]
     want = _jax_fused(x, y, xt, yt, k, test_batch=tb, fill="chunked",
@@ -157,6 +158,58 @@ def test_state_handoff_from_jax_mid_stream():
     with pytest.raises(ValueError):
         tpipe.interaction_state_from_numpy(np.zeros((4, 5)), np.zeros(4),
                                            "cpu")
+
+
+# What the parent's prepares returned, key for key and in order, with an
+# empty tuning cache on the CPU: checkpoints store these dicts.
+_ONE = {"auto": {"fill": "chunked", "distance": "plain"},
+        "megakernel": {"fill": "megakernel", "distance": "fused"}}
+_POINT_ONE = {"auto": {"fill": None, "distance": "plain"},
+              "megakernel": {"fill": "megakernel", "distance": "fused"}}
+_TWO = {"auto": {"fill": "rect_chunked", "fill_params": {"chunk": 1},
+                 "distance": "plain", "shards": 2, "test_batch": 8},
+        "megakernel": {"fill": "megakernel", "fill_params": {},
+                       "distance": "fused", "shards": 2, "test_batch": 8}}
+_POINT_TWO = {"auto": {"fill": None, "distance": "plain", "shards": 2,
+                       "test_batch": 8},
+              "megakernel": {"fill": "megakernel", "distance": "fused",
+                             "shards": 2, "test_batch": 8}}
+RESOLVED = {
+    (method, shards, fill): table[fill]
+    for method, one, two in [("sti", _ONE, _TWO), ("sii", _ONE, _TWO),
+                             ("knn_shapley", _POINT_ONE, _POINT_TWO),
+                             ("wknn", _POINT_ONE, _POINT_TWO),
+                             ("loo", _POINT_ONE, _POINT_TWO)]
+    for shards, table in [(1, one), (2, two)]
+    for fill in ("auto", "megakernel")
+}
+
+
+@pytest.mark.parametrize("method,shards,fill", sorted(RESOLVED))
+def test_resolved_names_the_step_key_for_key(monkeypatch, tmp_path, method,
+                                             shards, fill):
+    """Each prepare's `resolved` dict on one device and on two CPU shards,
+    for "auto" (an empty tuning cache) and "megakernel": the sharded
+    point megakernel carries no fill_params, and a test batch of 7 rounds
+    up to 8 over two shards. A second prepare returns the same cached
+    step."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    def prepare():
+        if shards == 1:
+            return tpipe.prepare_stream_step(
+                method, 64, 4, 3, test_batch=8, fill=fill, device="cpu")
+        step, res, group, spec = tpipe.prepare_sharded_stream_step(
+            method, 64, 4, 3, devices=["cpu"] * 2, test_batch=7, fill=fill)
+        assert group.size == 2
+        return step, res, spec
+
+    step, res, spec = prepare()
+    want = RESOLVED[(method, shards, fill)]
+    assert list(res.items()) == list(want.items())
+    assert spec.kind == ("interaction" if method in ("sti", "sii")
+                         else "point")
+    assert prepare()[0] is step
 
 
 def test_resolve_distance():
@@ -196,13 +249,13 @@ def test_fused_features_pass_the_distance_wrappers_checks(monkeypatch, case):
         seen.append(xb.dtype)
         return tdist.distance_plain(xb, x_train)
 
-    tpipe.make_fused_step.cache_clear()
+    tpipe.make_stream_step.cache_clear()
     monkeypatch.setattr(tdist, "distance_cuda", spy)
     try:
         got = tpipe.fused_sti_knn_interactions(
             xa, y, xta, yt, 3, test_batch=4, distance="cuda", device="cpu")
     finally:
-        tpipe.make_fused_step.cache_clear()
+        tpipe.make_stream_step.cache_clear()
     want_dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
     assert seen == [want_dtype, want_dtype]
     assert torch.equal(got, want)

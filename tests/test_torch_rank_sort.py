@@ -266,7 +266,7 @@ def _spy(monkeypatch, module):
 
 
 def test_the_step_ranks_through_the_wrapper(monkeypatch):
-    """`_prologue` takes its order and ranks from `rank_order_cuda` (the
+    """`step_head` takes its order and ranks from `rank_order_cuda` (the
     name a test can patch), and nothing else sorts in the step."""
     seen = _spy(monkeypatch, sti_pipeline)
     step, _, spec = sti_pipeline.prepare_stream_step(
@@ -278,8 +278,8 @@ def test_the_step_ranks_through_the_wrapper(monkeypatch):
 
 def test_the_distributed_step_ranks_through_the_wrapper(monkeypatch):
     """`make_sti_step_fn`'s one batched step and `sti_cell`'s grid cells
-    rank through `rank_order_cuda`, each cell once, with the same sums as
-    the plain rank stage."""
+    rank through the step head's `rank_order_cuda`, each cell once, with
+    the same sums as the plain rank stage."""
     from repro_torch.configs.sti_knn_paper import STIConfig
     from repro_torch.core.valuation import make_sti_step_fn
     from repro_torch.distributed.sharding import DeviceGrid
@@ -291,11 +291,11 @@ def test_the_distributed_step_ranks_through_the_wrapper(monkeypatch):
     y, yt = torch.randint(0, 2, (n,), generator=gen), torch.randint(
         0, 2, (t,), generator=gen)
     want = make_sti_step_fn(k, "sti", device="cpu")(x, y, xt, yt)
-    seen = _spy(monkeypatch, rank_sort)
+    seen = _spy(monkeypatch, sti_pipeline)
     got = make_sti_step_fn(k, "sti", device="cpu")(x, y, xt, yt)
     assert seen == [(t, n)]
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    seen = _spy(monkeypatch, specs)
+    seen.clear()
     cell = specs.sti_cell(STIConfig(n_train=n, feat_dim=d, k=k,
                                     test_chunk=t),
                           DeviceGrid(("cpu",) * 4, (2, 2)))[0]

@@ -176,7 +176,8 @@ def test_shard_count_largest_divisor():
 
 def test_sharded_rejects_indivisible_n():
     with pytest.raises(ValueError, match="row shards"):
-        tpipe.prepare_sharded_step(7, 3, 2, devices=["cpu"] * 2)
+        tpipe.prepare_sharded_stream_step("sti", 7, 3, 2,
+                                          devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="row shards"):
         tpipe.prepare_sharded_stream_step("loo", 10, 3, 2,
                                           devices=["cpu"] * 4)

@@ -96,6 +96,36 @@ def test_the_sharded_step_opens_a_prologue_a_shard_and_one_update():
         "step.update"]
 
 
+HEAD = ("step.distance", "step.rank", "step.contrib", "step.g")
+
+
+@pytest.mark.parametrize("path", ["step_fn", "distributed", "scan"])
+def test_every_exact_path_runs_the_one_step_head(path):
+    """The distributed engine's step (`make_sti_step_fn`), its grid cells
+    (`distributed_sti_step` on a 2 x 1 CPU grid: one head a data shard)
+    and the scan engine (`sti_knn_interactions`) each open the streaming
+    step's head spans in order: they run `step_head`."""
+    from repro_torch.core.sti_knn import sti_knn_interactions
+    from repro_torch.core.valuation import (
+        distributed_sti_step, make_sti_step_fn)
+    from repro_torch.distributed.sharding import DeviceGrid
+
+    x, y, xt, yt = _problem()
+    xt, yt = xt[:8], yt[:8]
+    if path == "step_fn":
+        run, want = make_sti_step_fn(3, device="cpu"), [*HEAD, "step.update"]
+    elif path == "distributed":
+        run = distributed_sti_step(DeviceGrid(("cpu",) * 2, (2, 1)), 3)
+        want = [*HEAD] * 2
+    else:
+        def run(*args):
+            return sti_knn_interactions(*args, 3, test_batch=8,
+                                        device="cpu")
+        want = [*HEAD, "step.update"]
+    got = [nm for nm, _ in _spans(lambda: run(x, y, xt, yt))]
+    assert got == want
+
+
 @pytest.mark.parametrize("mode", ["sti", "knn_shapley"])
 def test_the_spans_change_nothing_the_step_computes(mode):
     x, y, xt, yt = _problem()
